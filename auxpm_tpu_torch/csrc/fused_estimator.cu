@@ -1,0 +1,61 @@
+// Fused whiten -> likelihood -> log-sum-exp estimator, one launch for a batch
+// of chains.
+//
+// Replaces the TPU kernel auxpm_tpu/ops/fused_estimator.py::_fused_kernel
+// (wrapper _pallas_estimate).  The TPU kernel walks column blocks of C on a
+// sequential grid and carries the per-sample accumulator in scratch from one
+// grid step to the next; blocks on this card run in no order, so here ONE
+// block owns ONE chain and loops over the column tiles itself (no second
+// pass, no atomics).  The batch of chains is the grid.
+//
+// Bound: operations, narrowly.  Per chain it must read C (n*n*4 bytes) and u
+// (S*n*4) once and write one float, and it does 2*S*n*n FLOPs: 2*S/4 = 32
+// FLOPs per byte of C at S=64, above the card's FP32 balance of about 20.
+// The probe body and its design note are in probe.cuh.
+#include "probe.cuh"
+
+namespace auxpm {
+
+template <int LIK, bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_estimate_kernel(const float* __restrict__ chol,
+                      const float* __restrict__ u,
+                      const float* __restrict__ y,
+                      const float* __restrict__ mask,
+                      float* __restrict__ out, int S, int n, int n_blocks,
+                      float log_s) {
+  extern __shared__ __align__(16) float smem[];
+  const ProbeSmem sm = carve_smem(smem, n);
+  const int b = blockIdx.x;
+  const float* ub = u + size_t(b) * S * n;
+  zero_pad_rows(sm, S, n);
+  fill_left<BF16>(sm, S, n, [&](int idx) { return ub[idx]; });
+  const float est = probe_estimate<LIK, BF16>(
+      sm, chol + size_t(b) * n * n, 1.0f, y, mask, S, n, n_blocks, log_s);
+  if (threadIdx.x == 0) out[b] = est;
+}
+
+}  // namespace auxpm
+
+extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
+                                    const void* y, const void* mask, void* out,
+                                    int B, int S, int n, int n_blocks,
+                                    float log_s, int likelihood, int bf16,
+                                    void* stream) {
+  using namespace auxpm;
+  const size_t smem = probe_smem_bytes(n);
+  cudaError_t err = cudaSuccess;
+#define CALL(LIK, BF)                                                        \
+  err = allow_smem(fused_estimate_kernel<LIK, BF>, smem);                    \
+  if (err == cudaSuccess) {                                                  \
+    fused_estimate_kernel<LIK, BF>                                           \
+        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
+            static_cast<const float*>(chol), static_cast<const float*>(u),   \
+            static_cast<const float*>(y), static_cast<const float*>(mask),   \
+            static_cast<float*>(out), S, n, n_blocks, log_s);                \
+    err = cudaGetLastError();                                                \
+  }
+  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
+#undef CALL
+  return static_cast<int>(err);
+}

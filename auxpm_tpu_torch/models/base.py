@@ -1,0 +1,75 @@
+"""Target protocol: log-prior + deterministic likelihood estimator.
+
+Counterpart of ``auxpm_tpu/models/base.py``, with chains as the leading
+tensor axis: every callable takes and returns BATCHED tensors
+(``theta (B, d)``, ``u (B, S, n)``, scalars as ``(B,)``).  The
+auxiliary-variable contract (Murray & Graham 2016 section 3):
+
+    u ~ N(0, I) over ``u_shape``;  log_lik_est(theta, u) is a deterministic
+    function whose exponential is an unbiased estimate of p(y | theta).
+
+The joint target the samplers leave invariant is
+
+    p(theta, u)  ∝  exp(log_prior(theta) + log_lik_est(theta, u)) N(u; 0, I).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class Target:
+    """A pseudo-marginal target (fields named as in the JAX package).
+
+    Attributes:
+      d: parameter dimension.
+      u_shape: per-chain shape of the auxiliary block, ``(S, n)``.
+      log_prior: ``theta (B, d) -> (B,)``.
+      log_lik_est: ``(theta (B, d), u (B, S, n)) -> (B,)``.
+      theta_init: default initial parameters ``(d,)``.
+      device: where the target's constant tensors live.
+      prepare / log_lik_est_u: the estimator split into a theta-only part
+        (Gram + Cholesky) and a cheap per-u part;
+        ``log_lik_est(theta, u) == log_lik_est_u(prepare(theta), u)``.
+      ess_sweep_factory: ``n_repeats -> sweep(prepared, u, scal, v)``, the
+        whole elliptical-slice sweep in one call (``ops/ess_sweep.py``).
+      n_weight_blocks: width of the estimator's blocked reduction tree.
+      cache_init / prepare_c / coord_estimators_c: the carried-factor cache.
+        ``cache_init(theta) -> {"chol_r": (B, n, n)}``;
+        ``prepare_c(theta, cache)`` equals ``prepare(theta)`` whenever
+        ``cache == cache_init(theta)``; ``coord_estimators_c[i](theta, u,
+        cache) -> f`` with ``f(x (B,)) -> (log_post (B,), log_lik (B,))`` the
+        probe function of coordinate i.  The cache lives in
+        ``ChainState.extras["target_cache"]`` and the samplers keep
+        ``extras["target_cache"] == cache_init(state.theta)`` at every step
+        boundary.
+      sigma_sweep_factory: ``n_reps -> fn(theta, u, cache, ll0, lp0, width,
+        rep) -> (sigma', ll', lp', n_shrink, moved)``, all log_sigma slice
+        updates in one call (``ops/sigma_sweep.py``).
+      sample_prior: ``(generator, n) -> theta (n, d)`` exact prior draws.
+    """
+
+    d: int
+    u_shape: tuple
+    log_prior: Callable
+    log_lik_est: Callable
+    theta_init: torch.Tensor
+    device: torch.device
+    name: str = "target"
+    prepare: Optional[Callable] = None
+    log_lik_est_u: Optional[Callable] = None
+    ess_sweep_factory: Optional[Callable] = None
+    sample_prior: Optional[Callable] = None
+    n_weight_blocks: int = 1
+    cache_init: Optional[Callable] = None
+    prepare_c: Optional[Callable] = None
+    coord_estimators_c: Optional[tuple] = None
+    sigma_sweep_factory: Optional[Callable] = None
+
+    def log_joint(self, theta, u):
+        """Unnormalised joint log density minus the N(u; 0, I) factor."""
+        return self.log_prior(theta) + self.log_lik_est(theta, u)

@@ -1,0 +1,239 @@
+"""Latent-GP binary classification posterior over kernel hyperparameters.
+
+Counterpart of ``auxpm_tpu/models/gp_classification.py`` (isotropic kernel,
+prior proposal).  Binary labels y_i in {-1, +1}, latent f ~ GP(0, K_theta)
+with a squared-exponential kernel, Bernoulli likelihood (logistic or probit),
+and a pseudo-marginal target over theta = [log_ell, log_sigma] with the
+marginal likelihood estimated by importance sampling from the GP prior:
+
+    u ~ N(0, I_{S x n})           (auxiliary state, S importance samples)
+    f_s = C_theta u_s             (whitening; C = chol(K))
+    log w_s = sum_i log lik(y_i f_si)
+    log L̂(theta, u) = blocked-lse_s log w_s - log S
+
+The estimator is split into
+
+    prepare(theta) -> C          Gram + O(n^3) Cholesky
+    estimate(C, u) -> log L̂     O(S n^2) whiten + likelihood + lse
+
+Jitter is RELATIVE, K = sigma^2 (R(ell) + jitter I), so the factor separates:
+chol(K) = sigma chol(R + jitter I).  The log_sigma coordinate therefore never
+pays a Cholesky, and the sigma-independent factor ``chol_r`` can be carried in
+the chain state (``cache_init`` / ``prepare_c``).
+
+All shapes are padded to a multiple of 128 (n=532 -> 640 for Pima); the
+padding is EXACT: padded squared distances are 1e30 (zero covariance), the
+padded diagonal is 0 (unit variance + jitter), padded labels are +1 with mask
+0, and padded u components never reach the likelihood.
+
+Every callable of the returned ``Target`` is batched over a leading chains
+axis.  On the card both whole-sweep kernels are always available; the
+reference's memory gates on its sweeps belong to the TPU and have no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from auxpm_tpu_torch._device import resolve_device
+from auxpm_tpu_torch.models.base import Target
+from auxpm_tpu_torch.ops.cholesky import robust_cholesky
+from auxpm_tpu_torch.ops.ess_sweep import make_fused_ess_sweep
+from auxpm_tpu_torch.ops.fused_estimator import (
+    WHITEN_DTYPES,
+    make_fused_estimator,
+)
+from auxpm_tpu_torch.ops.gram import se_gram_iso
+from auxpm_tpu_torch.ops.sigma_sweep import make_fused_sigma_sweep
+
+_TILE = 128
+_N_WEIGHT_BLOCKS = 8  # canonical reduction-tree width
+
+
+def _not_ported(what):
+    raise NotImplementedError(
+        f"{what} is not ported to auxpm_tpu_torch yet; see ROADMAP.md "
+        "(modules still to port)"
+    )
+
+
+def make_gp_classification(
+    x,
+    y,
+    n_importance=64,
+    likelihood="logistic",
+    ard=False,
+    jitter=1e-5,
+    prior_mean=0.0,
+    prior_std=1.5,
+    name=None,
+    pad_to_tiles=True,
+    proposal="prior",
+    particle_axis=None,
+    whiten_dtype="float32",
+    device="cuda",
+):
+    """Build the GP-classification pseudo-marginal ``Target``.
+
+    Args:
+      x: (n, d) standardised features (NumPy).
+      y: (n,) labels in {-1, +1} (NumPy).
+      n_importance: S, importance samples per estimate.
+      likelihood: "logistic" or "probit".
+      jitter: relative diagonal nugget (see the module docstring).
+      pad_to_tiles: pad the dataset axis to a multiple of 128.  The CUDA
+        kernels need the padded layout; unpadded targets run on the CPU only.
+      whiten_dtype: "float32" (exact) or "bfloat16" (both operands of the
+        whiten product rounded to bf16, f32 accumulate).  Part of the
+        estimator's definition.
+      device: where the target lives; "cuda" (default) raises without a GPU.
+      ard / proposal="laplace" / particle_axis: not ported yet.
+    """
+    if ard:
+        _not_ported("the ARD kernel (ard=True)")
+    if proposal == "laplace":
+        _not_ported("the Laplace proposal")
+    if proposal != "prior":
+        raise ValueError(f"unknown proposal {proposal!r}")
+    if particle_axis is not None:
+        _not_ported("particle sharding (particle_axis)")
+    if likelihood not in ("logistic", "probit"):
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    if whiten_dtype not in WHITEN_DTYPES:
+        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+    device = resolve_device(device)
+    dtype = torch.float32
+
+    x = np.asarray(x)
+    y = np.asarray(y)
+    n_raw, _ = x.shape
+    n = -(-n_raw // _TILE) * _TILE if pad_to_tiles else n_raw
+    pad = n - n_raw
+
+    y_dev = torch.as_tensor(
+        np.concatenate([y, np.ones(pad, y.dtype)]), dtype=dtype, device=device
+    )
+    mask = torch.as_tensor(
+        np.concatenate([np.ones(n_raw), np.zeros(pad)]), dtype=dtype,
+        device=device,
+    )
+
+    # dataset sqdist: computed ONCE on the host in f64
+    x64 = np.asarray(x, np.float64)
+    sq_raw = ((x64[:, None, :] - x64[None, :, :]) ** 2).sum(-1).astype(np.float32)
+    if pad:
+        big = np.full((n, n), np.float32(1e30))
+        big[:n_raw, :n_raw] = sq_raw
+        np.fill_diagonal(big, 0.0)  # pad diagonal -> exp(0) + jitter
+        sq_raw = big
+    sqdist = torch.as_tensor(sq_raw, dtype=dtype, device=device)
+
+    n_theta = 2
+    nb_global = _N_WEIGHT_BLOCKS if n_importance % _N_WEIGHT_BLOCKS == 0 else 1
+
+    def chol_r(log_ell):
+        """chol(R(ell) + jitter I) for a batch ``log_ell (B,)``: the
+        sigma-independent factor, through the escalating factorisation."""
+        return robust_cholesky(se_gram_iso(sqdist, log_ell, 0.0, jitter),
+                               jitter0=jitter)
+
+    def _scale(log_sigma, factor):
+        return torch.exp(log_sigma)[:, None, None] * factor
+
+    def prepare(theta):
+        return _scale(theta[:, 1], chol_r(theta[:, 0]))
+
+    log_lik_est_u = make_fused_estimator(
+        y_dev, mask, likelihood, n_blocks=nb_global, whiten_dtype=whiten_dtype
+    )
+
+    def log_lik_est(theta, u):
+        return log_lik_est_u(prepare(theta), u)
+
+    log_norm = n_theta * (0.5 * math.log(2.0 * math.pi) + math.log(prior_std))
+
+    def log_prior(theta):
+        r = (theta - prior_mean) / prior_std
+        return -0.5 * (r * r).sum(-1) - log_norm
+
+    def ess_sweep_factory(n_repeats):
+        return make_fused_ess_sweep(
+            y_dev, mask, likelihood, n_blocks=nb_global,
+            whiten_dtype=whiten_dtype, n_repeats=n_repeats,
+        )
+
+    hiv = 0.5 / float(prior_std) ** 2
+
+    def sigma_sweep_factory(n_reps):
+        sweep = make_fused_sigma_sweep(
+            y_dev, mask, likelihood, n_blocks=nb_global,
+            whiten_dtype=whiten_dtype, n_reps=n_reps,
+        )
+
+        def run(theta, u, cache, ll0, lp0, width, rep):
+            sigma0 = theta[:, n_theta - 1]
+            d0 = sigma0 - prior_mean
+            # lp(x) = lp_rest - hiv (x - mu)^2 + ll(x) reproduces
+            # log_prior(theta with sigma = x) + ll to ~1 ulp
+            lp_rest = log_prior(theta) + hiv * d0 * d0
+            chain = torch.stack(
+                [
+                    ll0,
+                    lp0,
+                    sigma0,
+                    width.expand_as(ll0),
+                    torch.full_like(ll0, prior_mean),
+                    torch.full_like(ll0, hiv),
+                    lp_rest,
+                    torch.zeros_like(ll0),
+                ],
+                dim=1,
+            ).to(dtype)
+            return sweep(cache["chol_r"], u, chain, rep.to(dtype))
+
+        return run
+
+    # ---- carried chol_r cache -------------------------------------------
+    def cache_init(theta):
+        return {"chol_r": chol_r(theta[:, 0])}
+
+    def prepare_c(theta, cache):
+        return _scale(theta[:, 1], cache["chol_r"])
+
+    def _ell_coord_factory_c(theta, u, cache):
+        del cache  # an ell probe must refactorise at its own candidate
+
+        def f(x):
+            th = torch.stack([x, theta[:, 1]], dim=1)
+            ll = log_lik_est(th, u)
+            return log_prior(th) + ll, ll
+
+        return f
+
+    def _sigma_coord_factory_c(theta, u, cache):
+        _not_ported("the per-probe log_sigma slice path")
+
+    return Target(
+        d=n_theta,
+        u_shape=(n_importance, n),
+        log_prior=log_prior,
+        log_lik_est=log_lik_est,
+        theta_init=torch.zeros((n_theta,), dtype=dtype, device=device),
+        device=device,
+        name=name or f"gp_{likelihood}_n{n_raw}",
+        prepare=prepare,
+        log_lik_est_u=log_lik_est_u,
+        ess_sweep_factory=ess_sweep_factory,
+        sample_prior=lambda generator, n_draws: prior_mean
+        + prior_std * torch.randn((n_draws, n_theta), generator=generator,
+                                  dtype=dtype, device=device),
+        n_weight_blocks=nb_global,
+        cache_init=cache_init,
+        prepare_c=prepare_c,
+        coord_estimators_c=(_ell_coord_factory_c, _sigma_coord_factory_c),
+        sigma_sweep_factory=sigma_sweep_factory,
+    )

@@ -1,0 +1,147 @@
+"""Fused whiten -> likelihood -> log-sum-exp estimator.
+
+Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
+``_pallas_estimate`` / ``make_fused_estimator``).  For each chain b
+
+    f   = u[b] @ C[b].T                        (S, n)
+    lw  = sum_i mask_i * log lik(y_i f_si)     per importance sample
+    out = blocked-lse_s(lw) - log S            scalar
+
+On a CUDA tensor ``fused_estimate`` launches the hand-written kernel
+``csrc/fused_estimator.cu`` (one block per chain, f never stored); on a CPU
+tensor it takes the plain version ``_ref_estimate``.  The rotated-proposal
+and per-sample-weights variants of the reference are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from auxpm_tpu_torch.models.likelihoods import log_ndtr, log_sigmoid
+from auxpm_tpu_torch.ops import _build
+from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+
+WHITEN_DTYPES = ("float32", "bfloat16")
+LIKELIHOOD_IDS = {"logistic": 0, "probit": 1}
+
+# shapes the probe body (csrc/probe.cuh) takes
+MAX_ROWS = 64       # importance samples a block can hold
+TILE_N = 64         # n must be a multiple of the column tile
+MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
+
+launches = 0  # kernel launches made by this module's wrapper
+
+
+def _dot_whiten(u, chol, whiten_dtype):
+    """``u (..., S, n) x chol (..., n, n)^T -> (..., S, n)``, f32 accumulate.
+
+    bfloat16: both operands rounded to bf16, products and sums in f32 (a
+    product of two bf16 values is exact in f32) — the same arithmetic the
+    kernel does."""
+    if whiten_dtype == "bfloat16":
+        u = u.to(torch.bfloat16).to(torch.float32)
+        chol = chol.to(torch.bfloat16).to(torch.float32)
+    return u @ chol.mT
+
+
+def _log_lik_tile(f, y, mask, likelihood):
+    if likelihood == "logistic":
+        return log_sigmoid(y * f) * mask
+    return log_ndtr(y * f) * mask
+
+
+def _ref_weights(chol, u, y, mask, likelihood, whiten_dtype="float32"):
+    """Plain per-sample log-weights ``(..., S)``."""
+    f = _dot_whiten(u, chol, whiten_dtype)
+    return _log_lik_tile(f, y, mask, likelihood).sum(-1)
+
+
+def _log_s(u, log_s):
+    if log_s is not None:
+        return float(log_s)
+    return float(np.log(np.float32(u.shape[-2])))
+
+
+def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
+                  whiten_dtype="float32"):
+    """Plain estimate with the canonical blocked reduction; ``(...,)``."""
+    lw = _ref_weights(chol, u, y, mask, likelihood, whiten_dtype)
+    return blocked_logsumexp(lw, n_blocks) - _log_s(u, log_s)
+
+
+def check_probe_shapes(s, n, n_blocks):
+    """Raise on shapes the probe body does not take."""
+    if n % TILE_N:
+        raise ValueError(f"n={n} must be a multiple of {TILE_N} (pad the target)")
+    if s > MAX_ROWS:
+        raise ValueError(f"S={s} exceeds the {MAX_ROWS} rows a block holds")
+    if n_blocks < 1 or n_blocks > 32 or s % n_blocks:
+        raise ValueError(f"n_blocks={n_blocks} must divide S={s} and be <= 32")
+    smem = 4 * (MAX_ROWS * (n + 4) + TILE_N * 36 + MAX_ROWS + 8)
+    if smem > MAX_SMEM:
+        raise ValueError(
+            f"n={n}: the left operand needs {smem} bytes of shared memory, "
+            f"a block has {MAX_SMEM}"
+        )
+
+
+def _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
+                   whiten_dtype):
+    global launches
+    if chol.dim() != 3 or u.dim() != 3:
+        raise ValueError("expected chol (B, n, n) and u (B, S, n)")
+    b, s, n = u.shape
+    if chol.shape != (b, n, n) or y.shape != (n,) or mask.shape != (n,):
+        raise ValueError(
+            f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
+            f"y {tuple(y.shape)}, mask {tuple(mask.shape)}"
+        )
+    check_probe_shapes(s, n, n_blocks)
+    device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
+    lib = _build.load_library()
+    out = torch.empty((b,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.auxpm_fused_estimate(
+            chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, s, n, n_blocks, _log_s(u, log_s),
+            LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "fused_estimate_kernel")
+    launches += 1
+    return out
+
+
+def fused_estimate(chol, u, y, mask, likelihood="logistic", n_blocks=1,
+                   log_s=None, whiten_dtype="float32"):
+    """``chol (B, n, n), u (B, S, n) -> (B,)`` estimates.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors take the plain
+    version."""
+    if likelihood not in LIKELIHOOD_IDS:
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    if whiten_dtype not in WHITEN_DTYPES:
+        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+    if u.device.type == "cpu":
+        return _ref_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
+                             whiten_dtype)
+    return _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
+                          whiten_dtype)
+
+
+def make_fused_estimator(y, mask, likelihood="logistic", n_blocks=1,
+                         whiten_dtype="float32"):
+    """Returns ``est(chol (B,n,n), u (B,S,n)) -> (B,)``; ``n_blocks`` fixes
+    the reduction tree and ``whiten_dtype`` the product's precision, both
+    part of the estimator's definition."""
+    y = y.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return lambda chol, u: fused_estimate(chol, u, y, mask, likelihood,
+                                          n_blocks, None, whiten_dtype)
+
+
+def probe_flops(s, n):
+    """FLOPs of one probe of one chain (the f = u C^T product)."""
+    return 2.0 * s * n * n
+

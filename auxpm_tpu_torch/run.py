@@ -1,0 +1,158 @@
+"""CLI entry point.
+
+    python -m auxpm_tpu_torch.run --preset pima_aux_slice --chains 128 \
+        --max-step-out 0 --n-ess 4 --n-sigma-extra 1 --max-shrink-chol 3
+    python -m auxpm_tpu_torch.run --list-presets
+
+Counterpart of ``auxpm_tpu/run.py``: warm-up windows with global adaptation,
+a main run with windowed metrics, posterior summaries and ESS/sec on exit as
+one JSON line.  Runs on the GPU unless ``--device cpu`` is given; without a
+GPU and without that flag it raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    from auxpm_tpu_torch.utils.config import PRESETS, RunConfig
+
+    p = argparse.ArgumentParser(prog="auxpm_tpu_torch.run", description=__doc__)
+    p.add_argument("--preset", default="pima_aux_slice", choices=sorted(PRESETS))
+    p.add_argument("--list-presets", action="store_true")
+    for f in dataclasses.fields(RunConfig):
+        if f.name == "preset":
+            continue
+        arg = "--" + f.name.replace("_", "-")
+        if f.type in ("bool", bool):
+            p.add_argument(arg, type=lambda s: s.lower() in ("1", "true", "yes"),
+                           default=None)
+        elif f.type in ("int", int, "Optional[int]"):
+            p.add_argument(arg, type=int, default=None)
+        elif f.type in ("float", float):
+            p.add_argument(arg, type=float, default=None)
+        else:
+            p.add_argument(arg, type=str, default=None)
+    return p.parse_args(argv)
+
+
+def main(argv=None, result=None):
+    """Run the configured sampler; returns the exit code.
+
+    ``result``: optional dict that is filled with the final ``states``,
+    ``params``, the ``target``, the recorded ``theta``, the per-window
+    metrics (``windows``) and the ``summary``, for a caller that drives the
+    CLI from Python."""
+    args = parse_args(argv)
+    from auxpm_tpu_torch.utils.config import PRESETS, build_target, initial_params
+
+    if args.list_presets:
+        for name, cfg in sorted(PRESETS.items()):
+            print(f"{name}: {cfg}")
+        return 0
+
+    cfg = PRESETS[args.preset]
+    overrides = {
+        k: v
+        for k, v in vars(args).items()
+        if k not in ("preset", "list_presets") and v is not None
+    }
+    cfg = cfg.replace(**overrides)
+
+    import torch
+
+    from auxpm_tpu_torch._device import resolve_device
+    from auxpm_tpu_torch.core.state import init_chain_states
+    from auxpm_tpu_torch.samplers.adaptation import warmup
+    from auxpm_tpu_torch.samplers.chain import run_chains
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+    from auxpm_tpu_torch.utils.diagnostics import (
+        effective_sample_size,
+        potential_scale_reduction,
+    )
+    from auxpm_tpu_torch.utils.metrics import MetricsWriter, logger
+
+    device = resolve_device(cfg.device)
+    on_gpu = device.type == "cuda"
+    device_name = torch.cuda.get_device_name(device) if on_gpu else "cpu"
+    logger.info(f"preset={cfg.preset} device={device} ({device_name})")
+
+    def sync():
+        if on_gpu:
+            torch.cuda.synchronize(device)
+
+    target = build_target(cfg)
+    metrics = MetricsWriter(cfg.metrics_path)
+    params = initial_params(cfg, target)
+    states = init_chain_states(
+        cfg.seed, target, cfg.chains, jitter_scale=cfg.jitter_scale,
+        with_cache=cfg.chol_cache,
+    )
+    step = SAMPLERS[cfg.sampler](target, n_ess=cfg.n_ess,
+                                 n_sigma_extra=cfg.n_sigma_extra)
+
+    def run_step_fn(t, s, p, n):
+        return run_chains(t, s, p, n, thin=cfg.thin)
+
+    t0 = time.time()
+    states, params, history = warmup(
+        run_step_fn, states, params, cfg.warmup_windows, cfg.window_steps,
+        step=step,
+    )
+    sync()
+    for h in history:
+        metrics.write({"phase": "warmup", **h})
+    logger.info(f"warmup done in {time.time()-t0:.1f}s; params={params}")
+
+    all_theta, windows = [], []
+    t0 = time.time()
+    n_windows = max(cfg.steps // cfg.window_steps, 1)
+    for w in range(n_windows):
+        states, recs, infos = run_step_fn(step, states, params, cfg.window_steps)
+        # one copy to the host per window (it also waits for the device)
+        all_theta.append(recs["theta"].cpu().numpy())
+        windows.append(
+            {"phase": "sample", "window": w,
+             "wall": round(time.time() - t0, 2),
+             "log_lik_mean": float(recs["log_lik_hat"].mean()),
+             **{k: float(v.mean()) for k, v in infos.items()}}
+        )
+        metrics.write(windows[-1])
+    sync()
+    wall = time.time() - t0
+
+    theta = np.concatenate(all_theta, axis=1)  # (chains, steps, d)
+    ess = effective_sample_size(theta)
+    rhat = potential_scale_reduction(theta)
+    flat = theta.reshape(-1, theta.shape[-1]).astype(np.float64)
+    summary = {
+        "phase": "summary",
+        "device": device_name,
+        "wall": round(wall, 2),
+        "chain_steps_per_sec": round(theta.shape[0] * theta.shape[1] / wall, 1),
+        "posterior_mean": np.round(flat.mean(0), 4).tolist(),
+        "posterior_std": np.round(flat.std(0), 4).tolist(),
+        "ess": np.round(np.atleast_1d(ess), 1).tolist(),
+        "ess_per_sec": round(float(np.min(ess)) / wall, 2),
+        "rhat": np.round(np.atleast_1d(rhat), 4).tolist(),
+    }
+    metrics.write(summary)
+    metrics.close()
+    print(json.dumps(summary))
+    if cfg.out:
+        np.savez(cfg.out, theta=theta)
+        logger.info(f"chains saved to {cfg.out}")
+    if result is not None:
+        result.update(states=states, params=params, target=target,
+                      theta=theta, windows=windows, summary=summary)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,31 @@
+"""Preset composite transitions.
+
+Counterpart of ``auxpm_tpu/samplers/composite.py``.  "Auxiliary
+pseudo-marginal slice sampling" is the composition (ESS on u | theta) then
+(slice on theta | u).  ``SAMPLERS`` holds the composites the port can run;
+the others of the reference (``aux_slice_rd``, ``aux_mh``, ``pm_mh``,
+``aux_hmc``, ``aux_nuts``, the joint kernels) are listed in ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+from auxpm_tpu_torch.core.transition import compose
+from auxpm_tpu_torch.samplers.ess_u import make_ess_u
+from auxpm_tpu_torch.samplers.slice_theta import make_slice_theta
+
+
+def make_aux_slice(target, particle_axis=None, n_ess=1, n_sigma_extra=0):
+    """The paper's method: ESS(u) then per-coordinate slice(theta).
+
+    ``n_ess`` repeats the elliptical-slice u-update per iteration (the
+    repeats are Cholesky-free: theta is fixed); ``n_sigma_extra`` repeats the
+    Cholesky-free log_sigma slice update per sweep."""
+    return compose(
+        [
+            ("ess_u", make_ess_u(target, particle_axis, n_repeats=n_ess)),
+            ("slice_theta", make_slice_theta(target, n_sigma_extra)),
+        ]
+    )
+
+
+SAMPLERS = {"aux_slice": make_aux_slice}

@@ -1,0 +1,143 @@
+"""Typed run configuration + registered presets.
+
+Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
+(plus ``device``), so a command line written for the JAX package reads the
+same here.  Fields that select a part of the system not ported yet (the toy
+target, other samplers, SMC, sharding, checkpoints, plots, profiling) are
+accepted by the parser and refused with ``NotImplementedError`` when used
+(``unsupported``).  ``PRESETS`` holds the presets the port can run.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass
+class RunConfig:
+    preset: str = "pima_aux_slice"
+    device: str = "cuda"  # "cuda" raises without a GPU; tests pass "cpu"
+    # target
+    target: str = "gp"  # gp (gaussian_toy: not ported yet)
+    dataset: str = "pima"  # pima (breast_cancer | abalone: not ported yet)
+    n_importance: int = 16
+    likelihood: str = "logistic"
+    proposal: str = "prior"  # prior (laplace: not ported yet)
+    whiten_dtype: str = "float32"  # whiten product precision: float32 | bfloat16
+    ard: bool = False
+    subsample: Optional[int] = None
+    noise_frac: float = 0.3  # toy only
+    # sampler
+    sampler: str = "aux_slice"  # key into samplers.composite.SAMPLERS
+    chains: int = 4
+    steps: int = 1000
+    thin: int = 1
+    warmup_windows: int = 3
+    window_steps: int = 100
+    step_size: float = 0.5
+    widths: float = 1.0
+    max_step_out: int = 8  # slice stepping-out cap; 0 = shrinkage-only
+    n_ess: int = 1  # ESS u-update repeats per step
+    n_sigma_extra: int = 0  # extra Cholesky-free log_sigma slice updates
+    chol_cache: bool = True  # carry chol_r in state.extras
+    max_shrink_chol: int = 32  # shrink cap of the Cholesky-paying coordinate
+    nuts_step_size: float = 0.3
+    # SMC
+    particles: int = 4096
+    smc_rejuvenation: str = "aux_slice"
+    smc_n_mcmc: int = 2
+    smc_ess_frac: float = 0.5
+    smc_carry_u: bool = True
+    smc_n_u_mh: int = 2
+    smc_rejuv_batch: int = 256
+    smc_rejuv_dispatches: int = 1
+    smc_u_blocks: int = 1
+    smc_checkpoint_dir: str = ""
+    # parallel
+    sharded: bool = False
+    particle_shards: int = 1
+    multihost: bool = False
+    profile_dir: Optional[str] = None
+    # misc
+    seed: int = 0
+    jitter_scale: float = 0.3
+    metrics_path: Optional[str] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
+    out: Optional[str] = None
+    plots: Optional[str] = None
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+PRESETS = {
+    # BASELINE config 2: GP classification on Pima (532 points), auxiliary PM
+    # slice sampling, 64 importance samples per step
+    "pima_aux_slice": RunConfig(
+        preset="pima_aux_slice",
+        target="gp",
+        dataset="pima",
+        n_importance=64,
+        sampler="aux_slice",
+        chains=128,
+        steps=1000,
+        widths=1.0,
+    ),
+}
+
+
+def unsupported(cfg: RunConfig):
+    """Raise ``NotImplementedError`` if ``cfg`` asks for a part of the system
+    that is not ported yet."""
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+
+    asked = []
+    if cfg.target != "gp":
+        asked.append(f"target={cfg.target!r}")
+    if cfg.sampler not in SAMPLERS:
+        asked.append(f"sampler={cfg.sampler!r}")
+    if not cfg.chol_cache:
+        asked.append("chol_cache=False (the uncached slice path)")
+    if cfg.sharded or cfg.multihost or cfg.particle_shards > 1:
+        asked.append("sharded / multihost / particle_shards")
+    for field in ("profile_dir", "checkpoint_dir", "plots"):
+        if getattr(cfg, field):
+            asked.append(field)
+    if asked:
+        raise NotImplementedError(
+            "not ported to auxpm_tpu_torch yet: " + ", ".join(asked)
+            + "; see ROADMAP.md (modules still to port)"
+        )
+
+
+def build_target(cfg: RunConfig):
+    unsupported(cfg)
+    from auxpm_tpu_torch.models.datasets import load
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+
+    x, y = load(cfg.dataset, subsample=cfg.subsample or None, seed=cfg.seed)
+    return make_gp_classification(
+        x,
+        y,
+        n_importance=cfg.n_importance,
+        likelihood=cfg.likelihood,
+        proposal=cfg.proposal,
+        ard=cfg.ard,
+        whiten_dtype=cfg.whiten_dtype,
+        device=cfg.device,
+    )
+
+
+def initial_params(cfg: RunConfig, target):
+    """Initial sampler params of the composite, from the config."""
+    import torch
+
+    widths = torch.full((target.d,), cfg.widths, dtype=torch.float32,
+                        device=target.device)
+    return {
+        "slice_theta": {"widths": widths, "max_step_out": cfg.max_step_out,
+                        "max_shrink_chol": cfg.max_shrink_chol},
+        "ess_u": {},
+    }
