@@ -3,8 +3,12 @@
 The JAX package's ``ChainState`` (already batched over chains by ``vmap``)
 has the same leaves as the port's; this module turns their NumPy copies into
 the port's types.  The JAX PRNG key is not convertible and is dropped: the
-port's state carries a ``torch.Generator`` (seeded here).  Targets are built
-on both sides from the same ``(x, y)`` NumPy arrays.
+port's state carries a ``torch.Generator`` (seeded here).  Nothing here
+depends on theta's length, so an ARD state (theta of d+1, one width per
+coordinate in the params) crosses like an isotropic one.  Targets are built
+on both sides from the same NumPy arrays: ``(x, y)`` for the GP target, from
+which each side derives its padded ``x_pad`` and mask; ``y`` and ``sigma_y``
+for the Gaussian toy.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ _STATIC_PARAM_KEYS = ("max_step_out", "max_shrink", "max_shrink_chol")
 def chain_states_from_numpy(d, device="cuda", seed=0):
     """``d``: dict with ``theta (B, d)``, ``u (B, S, n)``, ``log_lik_hat
     (B,)`` and, for the carried-factor path, ``chol_r (B, n, n)`` (the
-    reference's ``extras["target_cache"]["chol_r"]``)."""
+    reference's ``extras["target_cache"]["chol_r"]``; absent or None gives a
+    state without a cache, which takes the uncached paths)."""
     device = resolve_device(device)
 
     def t(a):

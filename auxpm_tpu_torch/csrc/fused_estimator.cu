@@ -12,6 +12,22 @@
 // (S*n*4) once and write one float, and it does 2*S*n*n FLOPs: 2*S/4 = 32
 // FLOPs per byte of C at S=64, above the card's FP32 balance of about 20.
 // The probe body and its design note are in probe.cuh.
+//
+// Second entry, the rotated estimator: the same estimate at the proposal
+// u' = u cos a + v sin a of the elliptical-slice loop, u' never stored.
+// Replaces auxpm_tpu/ops/fused_estimator.py::_fused_rot_kernel (wrapper
+// _pallas_estimate_rot), which forms u' per column tile next to the matrix
+// unit.  Here u and v together (2 x 164 KB at S=64, n=640) do not fit a
+// block's 227 KB, so the block reads both from global memory once per call
+// and forms u' straight into the shared-memory left operand (fill_left);
+// from there it is the plain estimator's body.  Per call and chain that is
+// 2*S*n*4 bytes of u and v on top of the n*n*4 of C: 20 % more traffic than
+// the plain estimator, the same FLOPs, still bound by operations.  The
+// caller's bracket loop is batched with a per-chain `done` flag; `active`
+// (B,) lets the block of a finished chain return at once (its output is 0),
+// so a round costs what its unfinished chains cost.  cosf / sinf in full
+// precision: the accepted u' is formed afterwards by the caller, and the
+// carried estimate has to be the estimate of that u'.
 #include "probe.cuh"
 
 namespace auxpm {
@@ -35,7 +51,63 @@ fused_estimate_kernel(const float* __restrict__ chol,
   if (threadIdx.x == 0) out[b] = est;
 }
 
+template <int LIK, bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_estimate_rot_kernel(const float* __restrict__ chol,
+                          const float* __restrict__ u,
+                          const float* __restrict__ v,
+                          const float* __restrict__ angle,
+                          const float* __restrict__ active,  // or nullptr
+                          const float* __restrict__ y,
+                          const float* __restrict__ mask,
+                          float* __restrict__ out, int S, int n, int n_blocks,
+                          float log_s) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  if (active != nullptr && active[b] == 0.0f) {  // uniform over the block
+    if (threadIdx.x == 0) out[b] = 0.0f;
+    return;
+  }
+  const ProbeSmem sm = carve_smem(smem, n);
+  const float* ub = u + size_t(b) * S * n;
+  const float* vb = v + size_t(b) * S * n;
+  const float ca = cosf(angle[b]), sa = sinf(angle[b]);
+  zero_pad_rows(sm, S, n);
+  fill_left<BF16>(sm, S, n,
+                  [&](int idx) { return ub[idx] * ca + vb[idx] * sa; });
+  const float est = probe_estimate<LIK, BF16>(
+      sm, chol + size_t(b) * n * n, 1.0f, y, mask, S, n, n_blocks, log_s);
+  if (threadIdx.x == 0) out[b] = est;
+}
+
 }  // namespace auxpm
+
+extern "C" int auxpm_fused_estimate_rot(const void* chol, const void* u,
+                                        const void* v, const void* angle,
+                                        const void* active, const void* y,
+                                        const void* mask, void* out, int B,
+                                        int S, int n, int n_blocks,
+                                        float log_s, int likelihood, int bf16,
+                                        void* stream) {
+  using namespace auxpm;
+  const size_t smem = probe_smem_bytes(n);
+  cudaError_t err = cudaSuccess;
+#define CALL(LIK, BF)                                                        \
+  err = allow_smem(fused_estimate_rot_kernel<LIK, BF>, smem);                \
+  if (err == cudaSuccess) {                                                  \
+    fused_estimate_rot_kernel<LIK, BF>                                       \
+        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
+            static_cast<const float*>(chol), static_cast<const float*>(u),   \
+            static_cast<const float*>(v), static_cast<const float*>(angle),  \
+            static_cast<const float*>(active), static_cast<const float*>(y), \
+            static_cast<const float*>(mask), static_cast<float*>(out), S, n, \
+            n_blocks, log_s);                                                \
+    err = cudaGetLastError();                                                \
+  }
+  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
 
 extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
                                     const void* y, const void* mask, void* out,

@@ -1,5 +1,5 @@
-// Shared probe body of the three estimator kernels (fused_estimator.cu,
-// ess_sweep.cu, sigma_sweep.cu).
+// Shared probe body of the estimator kernels (fused_estimator.cu: plain and
+// rotated entry; ess_sweep.cu; sigma_sweep.cu).
 //
 // Replaces the probe body that the three TPU kernels share in
 // auxpm_tpu/ops/fused_estimator.py (_dot_whiten, _log_lik_tile,

@@ -35,15 +35,24 @@ class Target:
       prepare / log_lik_est_u: the estimator split into a theta-only part
         (Gram + Cholesky) and a cheap per-u part;
         ``log_lik_est(theta, u) == log_lik_est_u(prepare(theta), u)``.
+      log_lik_est_rot: ``(prepared, u, v, angle (B,), active=None) -> (B,)``,
+        the estimate at ``u cos a + v sin a`` with the rotation fused into
+        the estimator (``ops/fused_estimator.fused_estimate_rot``); the
+        per-probe elliptical-slice loop prefers it.
       ess_sweep_factory: ``n_repeats -> sweep(prepared, u, scal, v)``, the
         whole elliptical-slice sweep in one call (``ops/ess_sweep.py``).
+      coord_estimators: per-coordinate probe factories without a carried
+        factor: ``coord_estimators[i](theta, u) -> (f, f2)`` with
+        ``f(x (B,)) -> (log_post (B,), log_lik (B,))`` the probe function of
+        coordinate i and ``f2(xs (2, B)) -> ((2, B), (2, B))`` the same at
+        two points per chain in ONE batch of 2B (the stepping-out probes).
       n_weight_blocks: width of the estimator's blocked reduction tree.
       cache_init / prepare_c / coord_estimators_c: the carried-factor cache.
         ``cache_init(theta) -> {"chol_r": (B, n, n)}``;
         ``prepare_c(theta, cache)`` equals ``prepare(theta)`` whenever
         ``cache == cache_init(theta)``; ``coord_estimators_c[i](theta, u,
-        cache) -> f`` with ``f(x (B,)) -> (log_post (B,), log_lik (B,))`` the
-        probe function of coordinate i.  The cache lives in
+        cache) -> (f, f2)``, as ``coord_estimators`` but off the cache where
+        the coordinate allows it.  The cache lives in
         ``ChainState.extras["target_cache"]`` and the samplers keep
         ``extras["target_cache"] == cache_init(state.theta)`` at every step
         boundary.
@@ -51,6 +60,8 @@ class Target:
         rep) -> (sigma', ll', lp', n_shrink, moved)``, all log_sigma slice
         updates in one call (``ops/sigma_sweep.py``).
       sample_prior: ``(generator, n) -> theta (n, d)`` exact prior draws.
+      exact_log_post / posterior_mean / posterior_cov: closed forms, for
+        targets that have them (the Gaussian toy).
     """
 
     d: int
@@ -62,14 +73,49 @@ class Target:
     name: str = "target"
     prepare: Optional[Callable] = None
     log_lik_est_u: Optional[Callable] = None
+    log_lik_est_rot: Optional[Callable] = None
     ess_sweep_factory: Optional[Callable] = None
+    coord_estimators: Optional[tuple] = None
     sample_prior: Optional[Callable] = None
     n_weight_blocks: int = 1
     cache_init: Optional[Callable] = None
     prepare_c: Optional[Callable] = None
     coord_estimators_c: Optional[tuple] = None
     sigma_sweep_factory: Optional[Callable] = None
+    exact_log_post: Optional[Callable] = None
+    posterior_mean: Optional[torch.Tensor] = None
+    posterior_cov: Optional[torch.Tensor] = None
 
     def log_joint(self, theta, u):
         """Unnormalised joint log density minus the N(u; 0, I) factor."""
         return self.log_prior(theta) + self.log_lik_est(theta, u)
+
+
+def set_coord(theta, i, x):
+    """``theta (B, d)`` with column i replaced by ``x (B,)``."""
+    return torch.cat([theta[:, :i], x[:, None], theta[:, i + 1:]], dim=1)
+
+
+def full_coord_probes(log_prior, log_lik_est, theta, u, i):
+    """Probe functions ``(f, f2)`` of coordinate i through the whole
+    estimator (every probe pays ``log_lik_est`` at its own candidate).
+
+    ``f(x (B,)) -> (log_post (B,), log_lik (B,))``; ``f2(xs (2, B)) ->
+    ((2, B), (2, B))`` evaluates two points per chain as ONE batch of 2B
+    chains (u twice along the chains axis, made when first needed)."""
+
+    def f(x):
+        th = set_coord(theta, i, x)
+        ll = log_lik_est(th, u)
+        return log_prior(th) + ll, ll
+
+    u2 = []
+
+    def f2(xs):
+        if not u2:
+            u2.append(torch.cat([u, u]))
+        th = set_coord(theta.repeat(2, 1), i, xs.reshape(-1))
+        ll = log_lik_est(th, u2[0])
+        return (log_prior(th) + ll).view(2, -1), ll.view(2, -1)
+
+    return f, f2

@@ -1,10 +1,12 @@
 """Latent-GP binary classification posterior over kernel hyperparameters.
 
-Counterpart of ``auxpm_tpu/models/gp_classification.py`` (isotropic kernel,
-prior proposal).  Binary labels y_i in {-1, +1}, latent f ~ GP(0, K_theta)
-with a squared-exponential kernel, Bernoulli likelihood (logistic or probit),
-and a pseudo-marginal target over theta = [log_ell, log_sigma] with the
-marginal likelihood estimated by importance sampling from the GP prior:
+Counterpart of ``auxpm_tpu/models/gp_classification.py`` (isotropic and ARD
+kernels, prior proposal).  Binary labels y_i in {-1, +1}, latent
+f ~ GP(0, K_theta) with a squared-exponential kernel, Bernoulli likelihood
+(logistic or probit), and a pseudo-marginal target over theta =
+``[log_ell, log_sigma]`` (isotropic) or ``[log_ell_1..log_ell_d, log_sigma]``
+(ARD) with the marginal likelihood estimated by importance sampling from the
+GP prior:
 
     u ~ N(0, I_{S x n})           (auxiliary state, S importance samples)
     f_s = C_theta u_s             (whitening; C = chol(K))
@@ -22,9 +24,17 @@ pays a Cholesky, and the sigma-independent factor ``chol_r`` can be carried in
 the chain state (``cache_init`` / ``prepare_c``).
 
 All shapes are padded to a multiple of 128 (n=532 -> 640 for Pima); the
-padding is EXACT: padded squared distances are 1e30 (zero covariance), the
-padded diagonal is 0 (unit variance + jitter), padded labels are +1 with mask
-0, and padded u components never reach the likelihood.
+padding is EXACT: padded labels are +1 with mask 0 and padded u components
+never reach the likelihood.  Isotropic: padded squared distances are 1e30
+(zero covariance) and the padded diagonal is 0 (unit variance + jitter).
+ARD: padded rows of x are zero and the Gram is masked after the jitter,
+``r * mask_i * mask_j + diag(1 - mask)``, so the pad diagonal is exactly 1.
+
+Each coordinate has a probe factory returning ``(f, f2)``: the 1-point probe
+and the 2-point probe of the stepping-out loop, which evaluates both bracket
+ends of every chain as ONE batch of 2B chains.  An ell probe pays Gram +
+factorisation + estimate; a log_sigma probe rescales a factor (the carried
+one, or one factored once per sweep) and pays only the estimate.
 
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  On the card both whole-sweep kernels are always available; the
@@ -40,14 +50,15 @@ import numpy as np
 import torch
 
 from auxpm_tpu_torch._device import resolve_device
-from auxpm_tpu_torch.models.base import Target
+from auxpm_tpu_torch.models.base import Target, full_coord_probes, set_coord
 from auxpm_tpu_torch.ops.cholesky import robust_cholesky
 from auxpm_tpu_torch.ops.ess_sweep import make_fused_ess_sweep
 from auxpm_tpu_torch.ops.fused_estimator import (
     WHITEN_DTYPES,
     make_fused_estimator,
+    make_fused_rot_estimator,
 )
-from auxpm_tpu_torch.ops.gram import se_gram_iso
+from auxpm_tpu_torch.ops.gram import se_gram_ard_hopper, se_gram_iso
 from auxpm_tpu_torch.ops.sigma_sweep import make_fused_sigma_sweep
 
 _TILE = 128
@@ -84,6 +95,8 @@ def make_gp_classification(
       y: (n,) labels in {-1, +1} (NumPy).
       n_importance: S, importance samples per estimate.
       likelihood: "logistic" or "probit".
+      ard: per-dimension lengthscales if True (theta is (d+1)-dimensional;
+        every ell probe builds its Gram with ``ops/gram.se_gram_ard_hopper``).
       jitter: relative diagonal nugget (see the module docstring).
       pad_to_tiles: pad the dataset axis to a multiple of 128.  The CUDA
         kernels need the padded layout; unpadded targets run on the CPU only.
@@ -91,10 +104,8 @@ def make_gp_classification(
         whiten product rounded to bf16, f32 accumulate).  Part of the
         estimator's definition.
       device: where the target lives; "cuda" (default) raises without a GPU.
-      ard / proposal="laplace" / particle_axis: not ported yet.
+      proposal="laplace" / particle_axis: not ported yet.
     """
-    if ard:
-        _not_ported("the ARD kernel (ard=True)")
     if proposal == "laplace":
         _not_ported("the Laplace proposal")
     if proposal != "prior":
@@ -110,7 +121,7 @@ def make_gp_classification(
 
     x = np.asarray(x)
     y = np.asarray(y)
-    n_raw, _ = x.shape
+    n_raw, d = x.shape
     n = -(-n_raw // _TILE) * _TILE if pad_to_tiles else n_raw
     pad = n - n_raw
 
@@ -131,23 +142,43 @@ def make_gp_classification(
         np.fill_diagonal(big, 0.0)  # pad diagonal -> exp(0) + jitter
         sq_raw = big
     sqdist = torch.as_tensor(sq_raw, dtype=dtype, device=device)
+    x_pad = torch.as_tensor(
+        np.concatenate([x, np.zeros((pad, d), x.dtype)]), dtype=dtype,
+        device=device,
+    ).contiguous()
 
-    n_theta = 2
+    n_theta = (d + 1) if ard else 2
     nb_global = _N_WEIGHT_BLOCKS if n_importance % _N_WEIGHT_BLOCKS == 0 else 1
 
+    def split_theta(theta):
+        """``theta (B, n_theta) -> (log_ell (B, d) or (B,), log_sigma (B,))``."""
+        return (theta[:, :-1] if ard else theta[:, 0]), theta[:, -1]
+
+    def r_matrix(log_ell):
+        """R(ell) + jitter I: the sigma-independent correlation matrix."""
+        if ard:
+            # zero covariance to/from pad rows, pad diagonal exactly 1
+            return se_gram_ard_hopper(x_pad, log_ell, jitter,
+                                      mask if pad else None)
+        # sqdist padding already zeroes the off-diagonal pad entries
+        return se_gram_iso(sqdist, log_ell, 0.0, jitter)
+
     def chol_r(log_ell):
-        """chol(R(ell) + jitter I) for a batch ``log_ell (B,)``: the
+        """chol(R(ell) + jitter I) for a batch of lengthscales: the
         sigma-independent factor, through the escalating factorisation."""
-        return robust_cholesky(se_gram_iso(sqdist, log_ell, 0.0, jitter),
-                               jitter0=jitter)
+        return robust_cholesky(r_matrix(log_ell), jitter0=jitter)
 
     def _scale(log_sigma, factor):
         return torch.exp(log_sigma)[:, None, None] * factor
 
     def prepare(theta):
-        return _scale(theta[:, 1], chol_r(theta[:, 0]))
+        log_ell, log_sigma = split_theta(theta)
+        return _scale(log_sigma, chol_r(log_ell))
 
     log_lik_est_u = make_fused_estimator(
+        y_dev, mask, likelihood, n_blocks=nb_global, whiten_dtype=whiten_dtype
+    )
+    log_lik_est_rot = make_fused_rot_estimator(
         y_dev, mask, likelihood, n_blocks=nb_global, whiten_dtype=whiten_dtype
     )
 
@@ -197,25 +228,70 @@ def make_gp_classification(
 
         return run
 
-    # ---- carried chol_r cache -------------------------------------------
-    def cache_init(theta):
-        return {"chol_r": chol_r(theta[:, 0])}
+    # ---- per-coordinate probe factories ----------------------------------
+    def _full_coord_factory(i):
+        """Coordinate i through the full estimator: every probe factors the
+        Gram of its own candidate."""
+        return lambda theta, u: full_coord_probes(log_prior, log_lik_est,
+                                                  theta, u, i)
 
-    def prepare_c(theta, cache):
-        return _scale(theta[:, 1], cache["chol_r"])
-
-    def _ell_coord_factory_c(theta, u, cache):
-        del cache  # an ell probe must refactorise at its own candidate
+    def _sigma_probes(theta, u, chol0):
+        """log_sigma probes off the factor ``chol0 (B, n, n)`` of R(ell):
+        rescale per probe, never factor.  Probes go through the same
+        ``log_lik_est_u`` as every other estimator call."""
+        last = n_theta - 1
 
         def f(x):
-            th = torch.stack([x, theta[:, 1]], dim=1)
-            ll = log_lik_est(th, u)
+            th = set_coord(theta, last, x)
+            ll = log_lik_est_u(_scale(x, chol0), u)
             return log_prior(th) + ll, ll
 
-        return f
+        u2 = []
+
+        def f2(xs):
+            if not u2:
+                u2.append(torch.cat([u, u]))
+            th = set_coord(theta.repeat(2, 1), last, xs.reshape(-1))
+            scaled = (torch.exp(xs)[:, :, None, None] * chol0[None]).reshape(
+                -1, *chol0.shape[1:])
+            ll = log_lik_est_u(scaled, u2[0])
+            return (log_prior(th) + ll).view(2, -1), ll.view(2, -1)
+
+        return f, f2
+
+    def _sigma_coord_factory(theta, u):
+        """Factor once with chol(R) per sweep, rescale per probe."""
+        return _sigma_probes(theta, u, chol_r(split_theta(theta)[0]))
+
+    coord_estimators = tuple(
+        [_full_coord_factory(i) for i in range(n_theta - 1)]
+        + [_sigma_coord_factory]
+    )
+
+    # ---- carried chol_r cache -------------------------------------------
+    def cache_init(theta):
+        return {"chol_r": chol_r(split_theta(theta)[0])}
+
+    def prepare_c(theta, cache):
+        return _scale(split_theta(theta)[1], cache["chol_r"])
+
+    def _full_coord_factory_c(i):
+        base = _full_coord_factory(i)
+
+        def factory(theta, u, cache):
+            del cache  # an ell probe must refactorise at its own candidate
+            return base(theta, u)
+
+        return factory
 
     def _sigma_coord_factory_c(theta, u, cache):
-        _not_ported("the per-probe log_sigma slice path")
+        """log_sigma probes off the CARRIED factor: no factorisation."""
+        return _sigma_probes(theta, u, cache["chol_r"])
+
+    coord_estimators_c = tuple(
+        [_full_coord_factory_c(i) for i in range(n_theta - 1)]
+        + [_sigma_coord_factory_c]
+    )
 
     return Target(
         d=n_theta,
@@ -227,13 +303,15 @@ def make_gp_classification(
         name=name or f"gp_{likelihood}_n{n_raw}",
         prepare=prepare,
         log_lik_est_u=log_lik_est_u,
+        log_lik_est_rot=log_lik_est_rot,
         ess_sweep_factory=ess_sweep_factory,
+        coord_estimators=coord_estimators,
         sample_prior=lambda generator, n_draws: prior_mean
         + prior_std * torch.randn((n_draws, n_theta), generator=generator,
                                   dtype=dtype, device=device),
         n_weight_blocks=nb_global,
         cache_init=cache_init,
         prepare_c=prepare_c,
-        coord_estimators_c=(_ell_coord_factory_c, _sigma_coord_factory_c),
+        coord_estimators_c=coord_estimators_c,
         sigma_sweep_factory=sigma_sweep_factory,
     )

@@ -31,6 +31,9 @@ _F = ctypes.c_float
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
     "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _F, _I, _I, _P],
+    "auxpm_se_gram_ard": [_P, _P, _P, _I, _I, _I, _F, _P],
     "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _I, _P],
     "auxpm_sigma_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,

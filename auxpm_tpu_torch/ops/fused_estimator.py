@@ -1,7 +1,8 @@
 """Fused whiten -> likelihood -> log-sum-exp estimator.
 
 Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
-``_pallas_estimate`` / ``make_fused_estimator``).  For each chain b
+``_pallas_estimate`` / ``make_fused_estimator`` and ``_fused_rot_kernel`` /
+``_pallas_estimate_rot`` / ``make_fused_rot_estimator``).  For each chain b
 
     f   = u[b] @ C[b].T                        (S, n)
     lw  = sum_i mask_i * log lik(y_i f_si)     per importance sample
@@ -9,8 +10,13 @@ Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
 
 On a CUDA tensor ``fused_estimate`` launches the hand-written kernel
 ``csrc/fused_estimator.cu`` (one block per chain, f never stored); on a CPU
-tensor it takes the plain version ``_ref_estimate``.  The rotated-proposal
-and per-sample-weights variants of the reference are not ported yet.
+tensor it takes the plain version ``_ref_estimate``.
+
+``fused_estimate_rot`` is the same estimate at the elliptical-slice proposal
+``u cos a + v sin a`` (second entry of the same source; the proposal is
+formed inside the kernel and never stored), with ``_ref_estimate_rot`` as its
+plain version.  The per-sample-weights variants of the reference (its
+particle-sharded path) are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +36,8 @@ MAX_ROWS = 64       # importance samples a block can hold
 TILE_N = 64         # n must be a multiple of the column tile
 MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
 
-launches = 0  # kernel launches made by this module's wrapper
+launches = 0      # launches of the plain-estimator kernel by its wrapper
+launches_rot = 0  # launches of the rotated-estimator kernel by its wrapper
 
 
 def _dot_whiten(u, chol, whiten_dtype):
@@ -130,6 +137,77 @@ def fused_estimate(chol, u, y, mask, likelihood="logistic", n_blocks=1,
                           whiten_dtype)
 
 
+def rotate(u, v, angle):
+    """``u cos a + v sin a`` with ``angle (B,)`` against ``(B, S, n)``."""
+    return (u * torch.cos(angle)[:, None, None]
+            + v * torch.sin(angle)[:, None, None])
+
+
+def _ref_estimate_rot(chol, u, v, angle, y, mask, likelihood, n_blocks=1,
+                      log_s=None, whiten_dtype="float32", active=None):
+    """Plain estimate at the rotated proposal; ``(B,)``.  With ``active
+    (B,)`` (1 = wanted) the chains that are not wanted give 0."""
+    est = _ref_estimate(chol, rotate(u, v, angle), y, mask, likelihood,
+                        n_blocks, log_s, whiten_dtype)
+    if active is not None:
+        est = torch.where(active != 0, est, torch.zeros_like(est))
+    return est
+
+
+def _cuda_estimate_rot(chol, u, v, angle, y, mask, likelihood, n_blocks,
+                       log_s, whiten_dtype, active):
+    global launches_rot
+    if chol.dim() != 3 or u.dim() != 3:
+        raise ValueError("expected chol (B, n, n) and u (B, S, n)")
+    b, s, n = u.shape
+    if (chol.shape != (b, n, n) or v.shape != u.shape or angle.shape != (b,)
+            or y.shape != (n,) or mask.shape != (n,)
+            or (active is not None and active.shape != (b,))):
+        raise ValueError(
+            f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
+            f"v {tuple(v.shape)}, angle {tuple(angle.shape)}"
+        )
+    check_probe_shapes(s, n, n_blocks)
+    tensors = dict(chol=chol, u=u, v=v, angle=angle, y=y, mask=mask)
+    if active is not None:
+        tensors["active"] = active
+    device = _build.require_f32_contiguous(**tensors)
+    lib = _build.load_library()
+    out = torch.empty((b,), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.auxpm_fused_estimate_rot(
+            chol.data_ptr(), u.data_ptr(), v.data_ptr(), angle.data_ptr(),
+            None if active is None else active.data_ptr(), y.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), b, s, n, n_blocks,
+            _log_s(u, log_s), LIKELIHOOD_IDS[likelihood],
+            int(whiten_dtype == "bfloat16"),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "fused_estimate_rot_kernel")
+    launches_rot += 1
+    return out
+
+
+def fused_estimate_rot(chol, u, v, angle, y, mask, likelihood="logistic",
+                       n_blocks=1, log_s=None, whiten_dtype="float32",
+                       active=None):
+    """``chol (B, n, n), u, v (B, S, n), angle (B,) -> (B,)``: the estimate
+    at ``u cos a + v sin a``.  ``active (B,)`` float32, optional: chains with
+    0 are skipped and give 0 (the bracket loop's finished chains).
+
+    CUDA tensors go to the kernel (or raise); CPU tensors take the plain
+    version."""
+    if likelihood not in LIKELIHOOD_IDS:
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    if whiten_dtype not in WHITEN_DTYPES:
+        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+    if u.device.type == "cpu":
+        return _ref_estimate_rot(chol, u, v, angle, y, mask, likelihood,
+                                 n_blocks, log_s, whiten_dtype, active)
+    return _cuda_estimate_rot(chol, u, v, angle, y, mask, likelihood,
+                              n_blocks, log_s, whiten_dtype, active)
+
+
 def make_fused_estimator(y, mask, likelihood="logistic", n_blocks=1,
                          whiten_dtype="float32"):
     """Returns ``est(chol (B,n,n), u (B,S,n)) -> (B,)``; ``n_blocks`` fixes
@@ -139,6 +217,17 @@ def make_fused_estimator(y, mask, likelihood="logistic", n_blocks=1,
     mask = mask.to(torch.float32).contiguous()
     return lambda chol, u: fused_estimate(chol, u, y, mask, likelihood,
                                           n_blocks, None, whiten_dtype)
+
+
+def make_fused_rot_estimator(y, mask, likelihood="logistic", n_blocks=1,
+                             whiten_dtype="float32"):
+    """Returns ``est(chol, u, v, angle, active=None) -> (B,)`` for the
+    elliptical-slice loop: the estimate at the rotated proposal."""
+    y = y.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return lambda chol, u, v, angle, active=None: fused_estimate_rot(
+        chol, u, v, angle, y, mask, likelihood, n_blocks, None, whiten_dtype,
+        active)
 
 
 def probe_flops(s, n):

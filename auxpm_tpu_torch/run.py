@@ -2,7 +2,12 @@
 
     python -m auxpm_tpu_torch.run --preset pima_aux_slice --chains 128 \
         --max-step-out 0 --n-ess 4 --n-sigma-extra 1 --max-shrink-chol 3
+    python -m auxpm_tpu_torch.run --preset pima_ard_aux
+    AUXPM_ESS_SWEEP=0 python -m auxpm_tpu_torch.run --preset pima_ard_aux
     python -m auxpm_tpu_torch.run --list-presets
+
+``AUXPM_ESS_SWEEP=0`` in the environment sends the elliptical-slice update
+through its per-probe loop instead of the whole-sweep kernel.
 
 Counterpart of ``auxpm_tpu/run.py``: warm-up windows with global adaptation,
 a main run with windowed metrics, posterior summaries and ESS/sec on exit as

@@ -1,6 +1,6 @@
 """Elliptical slice update of the auxiliary draws u | theta.
 
-Counterpart of ``auxpm_tpu/samplers/ess_u.py`` (its whole-sweep path).
+Counterpart of ``auxpm_tpu/samplers/ess_u.py`` (both of its paths).
 Murray, Adams & MacKay (2010) ESS applied to the auxiliary block:
 
     v ~ N(0, I);  log_y = log L̂(theta, u) + log Uniform(0,1)
@@ -12,21 +12,39 @@ Murray, Adams & MacKay (2010) ESS applied to the auxiliary block:
 Rejection-free and tuning-free; the rotation preserves the N(0, I) prior on u
 exactly.  The shrink cap (32) is a safety net: on cap-hit the state is kept.
 
-All ``n_repeats`` updates of a step, every probe included, run as ONE call of
-the target's sweep (``ops/ess_sweep.py``) off the prepared factor, which is
-taken from the carried cache when the state has one (theta is fixed for the
-whole sweep, so the step pays no Cholesky).  The per-probe loop path of the
-reference is not ported yet.
+theta is fixed for every probe and repeat, so the expensive part of the
+estimator is prepared once per call, off the carried cache when the state has
+one (the step then pays no Cholesky).  Two paths, with the same random rows:
+
+- whole sweep: all ``n_repeats`` updates, every probe included, as ONE call
+  of the target's sweep (``ops/ess_sweep.py``).  Taken when the target has an
+  ``ess_sweep_factory``, unless the environment says ``AUXPM_ESS_SWEEP=0``
+  (read when the transition is built, as the reference reads it);
+- per-probe loop: a BATCHED Python loop over bracket shrinks with a per-chain
+  ``done`` mask, one estimator call per round.  A probe carries only the
+  angle: with ``target.log_lik_est_rot`` the rotation is fused into the
+  estimator kernel (``ops/fused_estimator.fused_estimate_rot``), which is
+  told which chains are still unfinished so that the others cost nothing;
+  otherwise the proposal is formed here and goes through ``log_lik_est_u``
+  (targets with ``prepare``) or ``log_lik_est``.  The accepted u' is formed
+  ONCE after the loop.  The loop reads one flag per round (is any chain
+  unfinished) to stop early: a host synchronisation per round.
+
+The two paths make the same decisions and agree in values to about an ulp,
+not bitwise: which path computes the probes is part of the realised float
+trajectory.
 """
 
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
 from auxpm_tpu_torch.core.state import ChainState, make_u_normal
 from auxpm_tpu_torch.ops.ess_sweep import MAX_SHRINK
+from auxpm_tpu_torch.ops.fused_estimator import rotate
 
 _TWO_PI = 2.0 * math.pi
 
@@ -36,12 +54,12 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
         raise NotImplementedError(
             "particle sharding is not ported yet; see ROADMAP.md"
         )
-    if target.ess_sweep_factory is None:
-        raise NotImplementedError(
-            "the per-probe loop path of the ESS update is not ported yet "
-            "(the target has no ess_sweep_factory); see ROADMAP.md"
-        )
-    sweep = target.ess_sweep_factory(n_repeats)
+    # AUXPM_ESS_SWEEP=0 disables the whole-sweep path (A/B runs); read at
+    # build time like the reference's other environment switches
+    sweep = None
+    if (target.ess_sweep_factory is not None
+            and os.environ.get("AUXPM_ESS_SWEEP", "1") != "0"):
+        sweep = target.ess_sweep_factory(n_repeats)
     draw_v = make_u_normal(target)
 
     def _prepare(state):
@@ -51,8 +69,8 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
         return target.prepare(state.theta)
 
     def draw(generator, state: ChainState):
-        """Rows of one sweep: ``scal (B, R, 3 + 32)`` = per repeat [ll0
-        (repeat 0 only), log U, a0, 32 shrink uniforms] and
+        """Rows of one call, the same for both paths: ``scal (B, R, 3 + 32)``
+        = per repeat [ll0 (repeat 0 only), log U, a0, 32 shrink uniforms] and
         ``v (B, R, S, n)``."""
         b = state.u.shape[0]
         dev = state.u.device
@@ -68,21 +86,78 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
         scal[:, :, 3:] = unif[:, :, 2:]
         return {"scal": scal, "v": v}
 
-    def apply(state: ChainState, rows: dict, params: dict):
+    def _info(n_shrink_total, moved_total):
+        return {"n_shrink": n_shrink_total / n_repeats,
+                "moved": moved_total / n_repeats}
+
+    def apply_sweep(state: ChainState, rows: dict, params: dict):
         del params  # tuning-free
         u, ll, n_shrink_total, moved_total = sweep(
             _prepare(state), state.u, rows["scal"], rows["v"])
-        new_state = state.replace(u=u, log_lik_hat=ll)
-        info = {
-            "n_shrink": n_shrink_total / n_repeats,
-            "moved": moved_total / n_repeats,
-        }
-        return new_state, info
+        return (state.replace(u=u, log_lik_hat=ll),
+                _info(n_shrink_total, moved_total))
+
+    def _rotated_estimator(state):
+        """``est(u, v, angle, active) -> (B,)`` by the target's best route;
+        ``active`` (None = all) is passed on where the route can use it."""
+        if target.prepare is None:
+            return lambda u, v, a, active: target.log_lik_est(
+                state.theta, rotate(u, v, a))
+        prepared = _prepare(state)
+        if target.log_lik_est_rot is not None:
+            return lambda u, v, a, active: target.log_lik_est_rot(
+                prepared, u, v, a, active)
+        return lambda u, v, a, active: target.log_lik_est_u(
+            prepared, rotate(u, v, a))
+
+    def apply_loop(state: ChainState, rows: dict, params: dict):
+        # tuning-free; ``params["probe_log"]``, an optional list, collects
+        # ``(chains the probe counted for, ll - log_y)`` of every probe
+        probe_log = params.get("probe_log")
+        est_rot = _rotated_estimator(state)
+        scal = rows["scal"]
+        u, ll = state.u, state.log_lik_hat
+        n_shrink_total = torch.zeros_like(ll)
+        moved_total = torch.zeros_like(ll)
+        for r in range(n_repeats):
+            v = rows["v"][:, r].contiguous()
+            log_y = ll + scal[:, r, 1]
+            a = scal[:, r, 2].contiguous()
+            a_min, a_max = a - _TWO_PI, a
+            ll_p = est_rot(u, v, a, None)
+            done = ll_p > log_y
+            if probe_log is not None:
+                probe_log.append((torch.ones_like(done), ll_p - log_y))
+            n_shrink = torch.zeros_like(ll)
+            for i in range(MAX_SHRINK):
+                active = ~done
+                if not bool(active.any()):  # host sync, see the module note
+                    break
+                # shrink toward 0, redraw the angle
+                a_min = torch.where(active & (a < 0), a, a_min)
+                a_max = torch.where(active & ~(a < 0), a, a_max)
+                a_new = a_min + (a_max - a_min) * scal[:, r, 3 + i]
+                ll_new = est_rot(u, v, a_new, active.to(ll.dtype))
+                if probe_log is not None:
+                    probe_log.append((active, ll_new - log_y))
+                a = torch.where(active, a_new, a)
+                ll_p = torch.where(active, ll_new, ll_p)
+                n_shrink = n_shrink + active.to(ll.dtype)
+                done = done | (active & (ll_new > log_y))
+            # the accepted u', once; cap-hit keeps the state (a no-op move)
+            u = torch.where(done[:, None, None], rotate(u, v, a), u)
+            ll = torch.where(done, ll_p, ll)
+            n_shrink_total = n_shrink_total + n_shrink
+            moved_total = moved_total + done.to(ll.dtype)
+        return (state.replace(u=u, log_lik_hat=ll),
+                _info(n_shrink_total, moved_total))
+
+    apply = apply_loop if sweep is None else apply_sweep
 
     def step(state: ChainState, params: dict):
         return apply(state, draw(state.generator, state), params)
 
     step.draw = draw
     step.apply = apply
-    step.uses_sweep = True
+    step.uses_sweep = sweep is not None
     return step

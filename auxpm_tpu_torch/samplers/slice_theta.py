@@ -1,64 +1,117 @@
-"""Linear slice sampling of theta | u (Neal 2003), shrinkage-only variant.
+"""Linear slice sampling of theta | u (Neal 2003): stepping out + shrinkage.
 
-Counterpart of ``auxpm_tpu/samplers/slice_theta.py`` (``make_slice_theta``,
-its carried-factor branch).  With u part of the chain state,
+Counterpart of ``auxpm_tpu/samplers/slice_theta.py`` (``make_slice_theta``).
+With u part of the chain state,
 
     f(theta') = log p(theta') + log L̂(theta', u)
 
 is a deterministic function of theta', so the pseudo-marginal problem is a
-plain slice-sampling problem.  Per 1-D update (Neal 2003, 4.1 and 5):
+plain slice-sampling problem.  Per 1-D update (Neal 2003, 4 and 5):
 
     log_y = f(theta) + log U
-    l = x0 - w U1; r = l + w            (no stepping out)
+    l = x0 - w U1; r = l + w
+    while f(l) > log_y and steps < m: l -= w      (step out left)
+    while f(r) > log_y and steps < m: r += w      (step out right)
     repeat: x ~ U(l, r)
             if f(x) > log_y: accept
             elif x < x0: l = x else r = x        (shrink)
 
-Per step, for the GP target theta = [log_ell, log_sigma]:
+Every loop is a BATCHED Python loop over the chains with per-chain masks: a
+chain that has finished keeps its values while the others go on.  Both
+step-out ends of every chain are probed in ONE estimator call per iteration
+(the factory's 2-point probe ``f2``, a batch of 2B); an end that has stopped
+expanding is still probed and its result ignored, and a chain's probe count
+is ``2 * (iterations while it was expanding) + shrinks``.  ``max_step_out ==
+0`` is the shrinkage-only variant: the randomly placed interval is used as it
+is.  On cap-hit the coordinate keeps its current value (an exact no-op).
 
-- log_ell: every probe factors its own Gram; a BATCHED Python loop over
-  shrink iterations with a per-chain ``done`` mask, capped at
-  ``max_shrink_chol`` (cap-hit keeps the current value, an exact no-op);
-- the carried factor is refreshed ONCE at the post-ell theta, outside the
-  loop;
-- log_sigma: all ``1 + n_sigma_extra`` updates in one call of the target's
-  sweep (``ops/sigma_sweep.py``) off that factor.
+Three branches, chosen as the reference chooses them:
 
-Host synchronisations: the log_ell loop reads one flag per shrink iteration
-(``done.all()``, at most ``max_shrink_chol`` per step) to stop early; a later
-change can drop the early exit or move the loop into device code.
+- carried factor (the state has a ``target_cache`` and the target has
+  ``coord_estimators_c``): the ell coordinates one after the other, each probe
+  factoring its own Gram, capped at ``max_shrink_chol``; ONE refresh of the
+  carried factor at the post-ell theta, outside every loop; then the last
+  coordinate (log_sigma) off that factor with ``1 + n_sigma_extra`` repeats,
+  capped at ``max_shrink``: all repeats in one call of the target's sweep
+  (``ops/sigma_sweep.py``) when ``max_step_out == 0``, per probe otherwise;
+- structure-aware without a cache (``coord_estimators``): the same with the
+  log_sigma factory factoring once per sweep;
+- generic (a target without factories, e.g. the Gaussian toy): every
+  coordinate through ``log_lik_est`` with ``max_shrink``; all its probes count
+  as ``n_probe_chol``.
 
-Stepping out (``max_step_out > 0``), the per-probe log_sigma path and the
-random-direction variant of the reference are not ported yet and raise.
+A cache that a non-cache-aware branch passed by is refreshed at the end, so
+``extras["target_cache"] == cache_init(theta)`` holds at every step boundary.
+
+Host synchronisations: each loop reads one flag per iteration (is any chain
+still expanding / shrinking) to stop early, so a coordinate costs up to
+``max_step_out + max_shrink`` reads and usually a handful; a later change can
+drop the early exits or move the loops into device code.
+
+The random-direction variant of the reference is not ported yet.
 
 Params:
-  widths: (d,) bracket widths w.
-  max_step_out: must be 0 here.
-  max_shrink_chol: shrink cap of the log_ell coordinate (default 32).
+  widths: scalar or (d,) bracket widths w.
+  max_step_out: cap m on step-out expansions each side (default 8).
+  max_shrink: shrink cap (default 32, at most 32: a row carries 32 shrink
+    uniforms).
+  max_shrink_chol: shrink cap of the coordinates whose probes pay a
+    factorisation (default ``max_shrink``).
+  probe_log: optional list that collects every per-probe decision margin
+    (see ``_slice_1d``); the sigma sweep, one call, logs nothing.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import torch
 
-from auxpm_tpu_torch.core.state import ChainState
+from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
+from auxpm_tpu_torch.models.base import full_coord_probes, set_coord
 from auxpm_tpu_torch.ops.sigma_sweep import MAX_SHRINK
 
 REP_COLS = 2 + MAX_SHRINK
 
 
-def _slice_1d_shrink(rep, x0, log_fx0, f, w, max_shrink):
-    """One batched shrinkage-only 1-D slice update.
+def _slice_1d(rep, x0, log_fx0, f, f2, w, max_step_out, max_shrink,
+              probe_log=None):
+    """One batched 1-D slice update.
 
     ``rep (B, 2 + 32)`` = [log U, U1, shrink uniforms]; ``f(x (B,)) ->
-    (log_post, log_lik)``.  Returns ``(x_new, log_post_new, log_lik_new,
-    done, n_probe)``; ``log_lik_new`` is valid only where ``done``."""
+    (log_post, log_lik)``; ``f2(xs (2, B)) -> ((2, B), (2, B))`` the 2-point
+    probe of the step-out loop.  Returns ``(x_new, log_post_new, log_lik_new,
+    done, n_probe)``; ``log_lik_new`` is valid only where ``done``.
+
+    ``probe_log``: optional list; every decision appends ``(chains it
+    counted for (B,) bool, log_post - log_y (B,))`` so a caller can see how
+    far each decision was from its boundary."""
     log_y = log_fx0 + rep[:, 0]
     l = x0 - w * rep[:, 1]
     r = l + w
+    n_probe = torch.zeros_like(x0)
+
+    # --- step out: both ends of every chain in one batched estimator call ---
+    if max_step_out > 0:
+        expand_l = torch.ones_like(x0, dtype=torch.bool)
+        expand_r = torch.ones_like(x0, dtype=torch.bool)
+        for _ in range(max_step_out):
+            expanding = expand_l | expand_r
+            if not bool(expanding.any()):  # host sync, see the module note
+                break
+            lps, _ = f2(torch.stack([l, r]))
+            if probe_log is not None:
+                probe_log.append((expand_l, lps[0] - log_y))
+                probe_log.append((expand_r, lps[1] - log_y))
+            expand_l = expand_l & (lps[0] > log_y)
+            expand_r = expand_r & (lps[1] > log_y)
+            l = torch.where(expand_l, l - w, l)
+            r = torch.where(expand_r, r + w, r)
+            n_probe = n_probe + 2.0 * expanding.to(x0.dtype)
+
+    # --- shrinkage ---
     x, lp, ll = x0, log_fx0, torch.zeros_like(x0)
     done = torch.zeros_like(x0, dtype=torch.bool)
-    n_probe = torch.zeros_like(x0)
     for i in range(max_shrink):
         active = ~done
         if not bool(active.any()):  # host sync, see the module note
@@ -66,6 +119,8 @@ def _slice_1d_shrink(rep, x0, log_fx0, f, w, max_shrink):
         x_new = l + (r - l) * rep[:, 2 + i]
         lp_new, ll_new = f(x_new)
         ok = lp_new > log_y
+        if probe_log is not None:
+            probe_log.append((active, lp_new - log_y))
         l = torch.where(active & ~(ok | (x_new >= x0)), x_new, l)
         r = torch.where(active & ~(ok | (x_new < x0)), x_new, r)
         x = torch.where(active, x_new, x)
@@ -83,23 +138,35 @@ def _slice_1d_shrink(rep, x0, log_fx0, f, w, max_shrink):
 
 
 def make_slice_theta(target, n_sigma_extra=0):
-    """Per-coordinate slice sampling of theta | u on the carried-factor path.
+    """Per-coordinate slice sampling of theta | u.
 
-    ``n_sigma_extra``: repeat the log_sigma update that many extra times per
-    sweep; the repeats share the sweep call and cost no Cholesky."""
-    if target.coord_estimators_c is None or target.sigma_sweep_factory is None:
-        raise NotImplementedError(
-            "make_slice_theta needs a target with the carried-factor "
-            "protocol (coord_estimators_c, sigma_sweep_factory); the generic "
-            "per-coordinate path is not ported yet, see ROADMAP.md"
+    ``n_sigma_extra`` (structure-aware targets only): repeat the LAST
+    coordinate's update that many extra times per sweep.  For the GP target
+    that is log_sigma, whose probes pay no factorisation."""
+    structured = (target.coord_estimators_c is not None
+                  or target.coord_estimators is not None)
+    if n_sigma_extra and not structured:
+        warnings.warn(
+            "n_sigma_extra > 0 requires a target with coord_estimators "
+            "(structure-aware per-coordinate probes); ignoring it for "
+            f"target {target.name!r}"
         )
-    n_coords = len(target.coord_estimators_c)
+        n_sigma_extra = 0
+    n_coords = target.d
+    for factories in (target.coord_estimators_c, target.coord_estimators):
+        if factories is not None and len(factories) != n_coords:
+            raise ValueError(
+                f"target {target.name!r} has {len(factories)} coordinate "
+                f"factories for d={n_coords}")
     sigma_reps = 1 + n_sigma_extra
-    sigma_sweep_fn = target.sigma_sweep_factory(sigma_reps)
+    sigma_sweep_fn = None
+    if target.sigma_sweep_factory is not None:
+        sigma_sweep_fn = target.sigma_sweep_factory(sigma_reps)
 
     def draw(generator, state: ChainState):
         """One ``rep (B, reps_i, 2 + 32)`` per coordinate i, each row
-        [log U (height), U1 (interval placement), 32 shrink uniforms]."""
+        [log U (height), U1 (interval placement), 32 shrink uniforms].
+        Stepping out draws nothing of its own."""
         b = state.theta.shape[0]
         rows = []
         for i in range(n_coords):
@@ -111,21 +178,13 @@ def make_slice_theta(target, n_sigma_extra=0):
         return tuple(rows)
 
     def apply(state: ChainState, rows: tuple, params: dict):
-        max_step_out = params.get("max_step_out", 8)
-        if max_step_out != 0:
-            raise NotImplementedError(
-                f"max_step_out={max_step_out}: stepping out is not ported "
-                "yet, only the shrinkage-only variant (max_step_out=0); see "
-                "ROADMAP.md"
-            )
-        cache = state.extras.get("target_cache")
-        if cache is None:
-            raise NotImplementedError(
-                "the uncached slice path is not ported yet: initialise the "
-                "chains with with_cache=True; see ROADMAP.md"
-            )
-        max_shrink_chol = params.get("max_shrink_chol",
-                                     params.get("max_shrink", MAX_SHRINK))
+        max_step_out = int(params.get("max_step_out", 8))
+        max_shrink = int(params.get("max_shrink", MAX_SHRINK))
+        max_shrink_chol = int(params.get("max_shrink_chol", max_shrink))
+        if max(max_shrink, max_shrink_chol) > MAX_SHRINK:
+            raise ValueError(
+                f"max_shrink={max_shrink} / max_shrink_chol={max_shrink_chol}"
+                f": a row carries {MAX_SHRINK} shrink uniforms")
         widths = torch.as_tensor(
             params.get("widths", 1.0), dtype=state.theta.dtype,
             device=state.theta.device,
@@ -136,32 +195,66 @@ def make_slice_theta(target, n_sigma_extra=0):
         log_post = target.log_prior(theta) + log_lik
         n_probe_total = torch.zeros_like(log_lik)
         n_probe_chol = torch.zeros_like(log_lik)
-        for i in range(n_coords - 1):
-            f = target.coord_estimators_c[i](theta, state.u, cache)
-            x_new, log_post, ll_new, done, n_probe = _slice_1d_shrink(
-                rows[i][:, 0], theta[:, i], log_post, f, widths[i],
-                max_shrink_chol,
-            )
-            theta = torch.cat(
-                [theta[:, :i], x_new[:, None], theta[:, i + 1:]], dim=1)
-            log_lik = torch.where(done, ll_new, log_lik)
-            n_probe_total = n_probe_total + n_probe
-            n_probe_chol = n_probe_chol + n_probe
-        # the ell coordinate is final: refresh the carried factor at the
-        # post-ell theta (the ONE extra factorisation of this path); it feeds
-        # the sigma sweep now and the ESS prepare of the next step
-        cache = target.cache_init(theta)
-        last = n_coords - 1
-        sig_new, log_lik, log_post, n_sh, _moved = sigma_sweep_fn(
-            theta, state.u, cache, log_lik, log_post, widths[last], rows[last]
-        )
-        theta = torch.cat([theta[:, :last], sig_new[:, None]], dim=1)
-        n_probe_total = n_probe_total + n_sh
+        cache = state.extras.get("target_cache")
+        new_extras = state.extras
 
-        new_state = state.replace(
-            theta=theta, log_lik_hat=log_lik,
-            extras={**state.extras, "target_cache": cache},
-        )
+        def update(i, rep, f, f2, cap):
+            """One 1-D update of coordinate i on (theta, log_post, log_lik)."""
+            x_new, lp_new, ll_new, done, n_probe = _slice_1d(
+                rep, theta[:, i], log_post, f, f2, widths[i], max_step_out,
+                cap, params.get("probe_log"))
+            return (set_coord(theta, i, x_new), lp_new,
+                    torch.where(done, ll_new, log_lik), n_probe)
+
+        cached = target.coord_estimators_c is not None and cache is not None
+        if cached or target.coord_estimators is not None:
+            last = n_coords - 1
+            for i in range(n_coords):
+                if cached and i == last:
+                    # the ell coordinates are final: refresh the carried
+                    # factor at the post-ell theta (the ONE extra
+                    # factorisation of this path); it feeds the log_sigma
+                    # probes now and the ESS prepare of the next step
+                    cache = target.cache_init(theta)
+                    if sigma_sweep_fn is not None and max_step_out == 0:
+                        sig_new, log_lik, log_post, n_sh, _moved = \
+                            sigma_sweep_fn(theta, state.u, cache, log_lik,
+                                           log_post, widths[last], rows[last])
+                        theta = set_coord(theta, last, sig_new)
+                        n_probe_total = n_probe_total + n_sh
+                        continue
+                if cached:
+                    f, f2 = target.coord_estimators_c[i](theta, state.u, cache)
+                else:
+                    f, f2 = target.coord_estimators[i](theta, state.u)
+                # the factory closes over the OTHER coordinates only, so it
+                # stays valid across repeats of its own coordinate
+                for rep in range(sigma_reps if i == last else 1):
+                    theta, log_post, log_lik, n_probe = update(
+                        i, rows[i][:, rep], f, f2,
+                        max_shrink if i == last else max_shrink_chol)
+                    n_probe_total = n_probe_total + n_probe
+                    if i != last:
+                        n_probe_chol = n_probe_chol + n_probe
+            if cached:
+                new_extras = {**state.extras, "target_cache": cache}
+        else:
+            for i in range(n_coords):
+                f, f2 = full_coord_probes(target.log_prior,
+                                          target.log_lik_est, theta, state.u,
+                                          i)
+                theta, log_post, log_lik, n_probe = update(
+                    i, rows[i][:, 0], f, f2, max_shrink)
+                n_probe_total = n_probe_total + n_probe
+            # every probe paid the full estimator
+            n_probe_chol = n_probe_total
+
+        if cache is not None and new_extras is state.extras:
+            # a branch that does not know the cache ran while one was
+            # carried: refresh so that cache == cache_init(theta) holds
+            new_extras = refresh_target_cache(target, state.extras, theta)
+        new_state = state.replace(theta=theta, log_lik_hat=log_lik,
+                                  extras=new_extras)
         info = {"n_probe": n_probe_total, "n_probe_chol": n_probe_chol}
         return new_state, info
 

@@ -2,10 +2,11 @@
 
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
-same here.  Fields that select a part of the system not ported yet (the toy
-target, other samplers, SMC, sharding, checkpoints, plots, profiling) are
-accepted by the parser and refused with ``NotImplementedError`` when used
-(``unsupported``).  ``PRESETS`` holds the presets the port can run.
+same here.  Fields that select a part of the system not ported yet (other
+samplers than ``aux_slice``, the Laplace proposal, other datasets than Pima,
+SMC, sharding, checkpoints, plots, profile traces) are accepted by the parser
+and refused with ``NotImplementedError`` when used (``unsupported``).
+``PRESETS`` holds the presets the port can run.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class RunConfig:
     preset: str = "pima_aux_slice"
     device: str = "cuda"  # "cuda" raises without a GPU; tests pass "cpu"
     # target
-    target: str = "gp"  # gp (gaussian_toy: not ported yet)
+    target: str = "gp"  # gp | gaussian_toy
     dataset: str = "pima"  # pima (breast_cancer | abalone: not ported yet)
     n_importance: int = 16
     likelihood: str = "logistic"
@@ -40,7 +41,7 @@ class RunConfig:
     max_step_out: int = 8  # slice stepping-out cap; 0 = shrinkage-only
     n_ess: int = 1  # ESS u-update repeats per step
     n_sigma_extra: int = 0  # extra Cholesky-free log_sigma slice updates
-    chol_cache: bool = True  # carry chol_r in state.extras
+    chol_cache: bool = True  # carry chol_r in state.extras (False: uncached)
     max_shrink_chol: int = 32  # shrink cap of the Cholesky-paying coordinate
     nuts_step_size: float = 0.3
     # SMC
@@ -85,6 +86,19 @@ PRESETS = {
         steps=1000,
         widths=1.0,
     ),
+    # config 2 variant: ARD kernel (per-dimension lengthscales, theta is
+    # (d+1)-dimensional); every ell probe builds its Gram with the ARD Gram
+    # kernel (ops/gram.se_gram_ard_hopper)
+    "pima_ard_aux": RunConfig(
+        preset="pima_ard_aux",
+        target="gp",
+        dataset="pima",
+        n_importance=64,
+        sampler="aux_slice",
+        chains=64,
+        steps=1000,
+        ard=True,
+    ),
 }
 
 
@@ -94,12 +108,14 @@ def unsupported(cfg: RunConfig):
     from auxpm_tpu_torch.samplers.composite import SAMPLERS
 
     asked = []
-    if cfg.target != "gp":
-        asked.append(f"target={cfg.target!r}")
+    if cfg.target not in ("gp", "gaussian_toy"):
+        raise ValueError(f"unknown target {cfg.target!r}")
     if cfg.sampler not in SAMPLERS:
         asked.append(f"sampler={cfg.sampler!r}")
-    if not cfg.chol_cache:
-        asked.append("chol_cache=False (the uncached slice path)")
+    if cfg.target == "gp" and cfg.proposal == "laplace":
+        asked.append("proposal='laplace'")
+    if cfg.target == "gp" and cfg.dataset != "pima":
+        asked.append(f"dataset={cfg.dataset!r}")
     if cfg.sharded or cfg.multihost or cfg.particle_shards > 1:
         asked.append("sharded / multihost / particle_shards")
     for field in ("profile_dir", "checkpoint_dir", "plots"):
@@ -114,6 +130,13 @@ def unsupported(cfg: RunConfig):
 
 def build_target(cfg: RunConfig):
     unsupported(cfg)
+    if cfg.target == "gaussian_toy":
+        from auxpm_tpu_torch.models.gaussian_toy import make_gaussian_toy
+
+        return make_gaussian_toy(
+            n_importance=cfg.n_importance, noise_frac=cfg.noise_frac,
+            device=cfg.device,
+        )
     from auxpm_tpu_torch.models.datasets import load
     from auxpm_tpu_torch.models.gp_classification import make_gp_classification
 

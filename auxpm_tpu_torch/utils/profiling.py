@@ -1,13 +1,18 @@
 """Where a step's time goes on the card.
 
     python -m auxpm_tpu_torch.utils.profiling --chains 128 --steps 10
+    python -m auxpm_tpu_torch.utils.profiling --preset pima_ard_aux --steps 5
 
-Builds the config-2 target at full width (Pima n=532 padded to 640, S=64),
+Builds the preset's target at full width (Pima n=532 padded to 640, S=64),
 warms the ``aux_slice`` step up, then runs ``--steps`` steps under
-``torch.profiler`` and prints one JSON line: wall time per step (from an untraced run of
-the same steps), the device's busy and idle share, and device time per step
-grouped by kernel name.  Needs a
-GPU (it raises without one); nothing here is a CPU number.
+``torch.profiler`` and prints one JSON line: wall time per step (from an
+untraced run of the same steps), the device's busy and idle share, kernel
+launches and host synchronisations per step, and device time per step grouped
+by kernel name.  ``pima_aux_slice`` (the default) runs with the bench
+settings (``max_step_out=0, n_ess=4, n_sigma_extra=1, max_shrink_chol=3``),
+``pima_ard_aux`` as the CLI runs it; ``AUXPM_ESS_SWEEP=0`` in the environment
+selects the per-probe elliptical-slice loop.  Needs a GPU (it raises without
+one); nothing here is a CPU number.
 """
 
 from __future__ import annotations
@@ -42,7 +47,11 @@ def profile_steps(step, states, params, n_steps):
             states, _ = step(states, params)
         torch.cuda.synchronize()
     by_kernel = {}
+    # a host synchronisation on this path is a scalar read (``bool(flag)``)
+    host_syncs = 0
     for evt in prof.key_averages():
+        if evt.key == "aten::_local_scalar_dense":
+            host_syncs += evt.count
         # kernels only: an operator's device time repeats its kernels'
         if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
@@ -59,6 +68,7 @@ def profile_steps(step, states, params, n_steps):
         "kernel_launches_per_step": sum(
             evt.count for evt in prof.key_averages()
             if evt.device_type == DeviceType.CUDA) / n_steps,
+        "host_syncs_per_step": host_syncs / n_steps,
         "device_ms_per_step_by_kernel": {
             k[:80]: round(v / n_steps, 4) for k, v in top
         },
@@ -68,7 +78,10 @@ def profile_steps(step, states, params, n_steps):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--chains", type=int, default=128)
+    p.add_argument("--preset", default="pima_aux_slice",
+                   choices=["pima_aux_slice", "pima_ard_aux"])
+    p.add_argument("--chains", type=int, default=None,
+                   help="default: the preset's")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warm-steps", type=int, default=5)
     args = p.parse_args(argv)
@@ -83,10 +96,12 @@ def main(argv=None):
         initial_params,
     )
 
-    cfg = PRESETS["pima_aux_slice"].replace(
-        chains=args.chains, max_step_out=0, n_ess=4, n_sigma_extra=1,
-        max_shrink_chol=3,
-    )
+    cfg = PRESETS[args.preset]
+    if args.preset == "pima_aux_slice":  # the bench settings
+        cfg = cfg.replace(max_step_out=0, n_ess=4, n_sigma_extra=1,
+                          max_shrink_chol=3)
+    if args.chains:
+        cfg = cfg.replace(chains=args.chains)
     target = build_target(cfg)  # raises without a GPU
     params = initial_params(cfg, target)
     states = init_chain_states(cfg.seed, target, cfg.chains,
@@ -97,7 +112,9 @@ def main(argv=None):
         states, _ = step(states, params)
     _, report = profile_steps(step, states, params, args.steps)
     report["device"] = torch.cuda.get_device_name(0)
-    report["chains"] = args.chains
+    report["preset"] = args.preset
+    report["chains"] = cfg.chains
+    report["ess_uses_sweep"] = step.stages["ess_u"].uses_sweep
     print(json.dumps(report))
     return 0
 

@@ -1,23 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: ``python3 chip_smoke.py``.
 
-Drives the port's main path (BASELINE config 2: ``aux_slice`` on the GP
-classification posterior, Pima n=532 padded to 640, S=64, 128 chains) through
-``auxpm_tpu_torch.run.main`` and holds each of its four hand-written CUDA
-kernels against its plain PyTorch version on the card.  Phases, one JSON line
-each; any failure raises and the script exits non-zero:
+Drives the port's main paths through ``auxpm_tpu_torch.run.main`` (BASELINE
+config 2 with the bench settings: ``aux_slice`` on the GP classification
+posterior, Pima n=532 padded to 640, S=64, 128 chains; and the preset
+``pima_ard_aux`` as the CLI runs it: ARD kernel, theta of 8, 64 chains,
+stepping-out slices, once with the whole-sweep elliptical-slice kernel and
+once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop) and holds each of its six
+hand-written CUDA kernels against its plain PyTorch version on the card.
+Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. ``device``     the card (name and power limit from ``nvidia-smi``) and the
                   build of ``auxpm_tpu_torch/csrc/*.cu`` with ``nvcc``;
-2. ``kernels``    each kernel vs its plain version at the main path's shapes
-                  (B=128, S=64, n=640), timed with CUDA events between L2
-                  flushes, beside the least time the card could take;
-3. ``main_path``  the CLI run; every kernel's launch count must rise, the
-                  chains must be finite and moving, and the carried factor
+2. ``kernels``    each kernel vs its plain version at the main paths' shapes
+                  (B=128 and 64, S=64, n=640, d=7), timed with CUDA events
+                  between L2 flushes, beside the least time the card could
+                  take;
+3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
+                  the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
 4. ``path_parity`` one step from the final state with the same random rows,
                   kernels vs plain versions: decisions equal, values within
-                  the bars stated where they are checked.
+                  the bars stated where they are checked;
+5. ``main_path_ard`` the ``pima_ard_aux`` CLI run, twice (sweep, loop), with
+                  the same checks and the launches each run must and must not
+                  make; then launches and host synchronisations per step from
+                  a short profiled window;
+6. ``path_parity_ard`` one step from the loop run's final state, the new
+                  kernels and the estimator vs their plain versions.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -30,6 +40,22 @@ moved counts must be EQUAL on every chain whose decisions all sat further
 than the value tolerance from their slice level (the plain version records
 the margins); a chain with a decision inside the tolerance may fall either
 way and is reported, and more than two such chains fail the run.
+
+The ARD Gram: kernel and plain version both evaluate exp(-0.5 d2) with d2
+from the expansion sq_i + sq_j - 2 xs_i.xs_j in float32; d2 carries a few ulp
+of its largest term, so the bar is 8 eps max(sq), computed from the inputs.
+The ARD step as a whole (``path_parity_ard``): the two paths build every
+probe's Gram by different routines, and entries that differ by ~1e-6 move an
+estimate taken through the factor of a matrix whose smallest eigenvalues are
+the 1e-5 jitter by up to ~1e-2 (``ARD_PATH_LL_TOL``).  A step is ~60 decisions
+per chain, so chains with a decision inside that window are common: they are
+excused and counted (at most ``ARD_MAX_AMBIGUOUS_SHARE`` of the chains), the
+others must agree in every count.  The sampled lengthscales are long (ell
+~5 on standardised features), R(ell) is close to singular, and the two
+factors of the accepted Gram differ elementwise by more than on the first
+path: ``ARD_PATH_CHOL_TOL``.  Both sides of that phase factor with the panel
+kernel, which the first path's parity phase already holds to its plain
+version.
 """
 
 from __future__ import annotations
@@ -37,6 +63,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -47,6 +74,9 @@ LL_TOL, LL_RTOL, U_TOL, CHOL_TOL, SIGMA_TOL = 2e-4, 2e-6, 1e-5, 5e-4, 1e-5
 BF16_SCALED_TOL = 2e-2
 PATH_CHOL_TOL, PATH_LL_TOL = 1e-2, 5e-2   # through a refactorisation
 MAX_AMBIGUOUS = 2
+B_ARD, D_ARD = 64, 7
+ARD_PATH_LL_TOL, ARD_MAX_AMBIGUOUS_SHARE = 1e-2, 0.5
+ARD_PATH_CHOL_TOL = 2e-2   # ARD Grams at long lengthscales: see the note above
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
 CLI_ARGS = [
@@ -54,6 +84,10 @@ CLI_ARGS = [
     "--n-ess", str(N_ESS), "--n-sigma-extra", str(N_SIGMA - 1),
     "--max-shrink-chol", "3", "--warmup-windows", "2", "--window-steps", "10",
     "--steps", "20",
+]
+ARD_CLI_ARGS = [
+    "--preset", "pima_ard_aux", "--warmup-windows", "1", "--window-steps", "5",
+    "--steps", "10",
 ]
 
 
@@ -95,8 +129,11 @@ def main():
     from auxpm_tpu_torch.ops import _build, chol_hopper, cholesky
     from auxpm_tpu_torch.ops import ess_sweep as ess
     from auxpm_tpu_torch.ops import fused_estimator as fe
+    from auxpm_tpu_torch.ops import gram as gr
     from auxpm_tpu_torch.ops import sigma_sweep as sig
     from auxpm_tpu_torch.ops.gram import se_gram_iso
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+    from auxpm_tpu_torch.utils.profiling import profile_steps
 
     dev = torch.device("cuda")
     t_start = time.time()
@@ -399,6 +436,120 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
 
+    # ------------------------------------------------- rotated estimator
+    log("kernels: rotated estimator")
+    v0 = v[:, 0].contiguous()
+    angle = t(scal_np[:, 0, 2] - np.pi)          # both signs
+    rot_err = {}
+    for lik, wd in (("logistic", "float32"), ("probit", "float32"),
+                    ("logistic", "bfloat16")):
+        k_out = fe.fused_estimate_rot(chol, u, v0, angle, y, mask, lik, 8,
+                                      None, wd)
+        p_out = fe._ref_estimate_rot(chol, u, v0, angle, y, mask, lik, 8,
+                                     None, wd)
+        torch.cuda.synchronize()
+        # bfloat16: u' is rounded to bf16 after the rotation; an ulp of
+        # difference in u' moves an element across a bf16 boundary (a 2^-8
+        # relative step): the looser bar of the scaled sigma sweep
+        rot_err[f"{lik}/{wd}"] = check_close(
+            "fused_estimator_rot", f"{lik}/{wd}", k_out, p_out,
+            LL_TOL if wd == "float32" else BF16_SCALED_TOL, rtol=LL_RTOL)
+    # finished chains cost nothing and give 0; the others are untouched
+    active = (torch.arange(B, device=dev) % 3 != 0).to(torch.float32)
+    k_act = fe.fused_estimate_rot(chol, u, v0, angle, y, mask, "logistic", 8,
+                                  None, "float32", active)
+    k_all = fe.fused_estimate_rot(chol, u, v0, angle, y, mask, "logistic", 8)
+    if not (torch.equal(k_act[active != 0], k_all[active != 0])
+            and bool((k_act[active == 0] == 0).all())):
+        failures.append("fused_estimator_rot: the active mask changed a "
+                        "wanted chain or did not zero an unwanted one")
+    half = slice(0, B_ARD)
+    rot_args = [a[half].contiguous() for a in (chol, u, v0, angle)]
+    rot_err["B=64"] = check_close(
+        "fused_estimator_rot", "B=64",
+        fe.fused_estimate_rot(*rot_args, y, mask, "logistic", 8),
+        fe._ref_estimate_rot(*rot_args, y, mask, "logistic", 8), LL_TOL,
+        rtol=LL_RTOL)
+    b_ms, b_by = bound(4 * (B_ARD * (N * N + 2 * S * N + 2) + 2 * N),
+                       B_ARD * fe.probe_flops(S, N))
+    kernels["fused_estimator_rot"] = {
+        "name": "fused_estimator_rot", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/fused_estimator.cu",
+        "replaces": "auxpm_tpu/ops/fused_estimator.py:294",
+        "max_abs_err": rot_err["B=64"], "tol": LL_TOL,
+        "variants_max_abs_err": rot_err, "shape": {"B": B_ARD, "S": S, "n": N},
+        "ms": time_ms(lambda: fe.fused_estimate_rot(*rot_args, y, mask,
+                                                    "logistic", 8)),
+        "plain_ms": time_ms(lambda: fe._ref_estimate_rot(*rot_args, y, mask,
+                                                         "logistic", 8)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_B128": time_ms(lambda: fe.fused_estimate_rot(
+            chol, u, v0, angle, y, mask, "logistic", 8)),
+        "plain_estimator_ms_B64": time_ms(lambda: fe.fused_estimate(
+            rot_args[0], rot_args[1], y, mask, "logistic", 8)),
+    }
+
+    # ------------------------------------------------------------ ARD Gram
+    log("kernels: ARD Gram")
+    x_pad = t(np.concatenate([x, np.zeros((N - len(x), D_ARD), x.dtype)]))
+    assert x.shape[1] == D_ARD
+    log_ells = t(rng.normal(size=(B, D_ARD)) * 0.5)
+    eps = float(np.finfo(np.float32).eps)
+    gram_err, gram_ms = {}, {}
+    for bb in (B_ARD, B):
+        le = log_ells[:bb].contiguous()
+        sq_max = float(((x_pad[None] * torch.exp(-le)[:, None, :]) ** 2)
+                       .sum(-1).max())
+        gram_tol = 8.0 * eps * max(sq_max, 1.0)
+        g_k = gr.se_gram_ard_hopper(x_pad, le, 1e-5, mask)
+        g_p = gr.se_gram_ard_masked(x_pad, le, 1e-5, mask)
+        torch.cuda.synchronize()
+        gram_err[f"B={bb}"] = check_close("se_gram_ard", f"B={bb}", g_k, g_p,
+                                          gram_tol)
+        diag = torch.diagonal(g_k, dim1=-2, dim2=-1)
+        n_real = len(x)
+        if not (bool((diag[:, n_real:] == 1.0).all())
+                and bool((g_k[:, n_real:, :n_real] == 0).all())
+                and bool((g_k[:, :n_real, n_real:] == 0).all())
+                and float((diag[:, :n_real] - (1.0 + 1e-5)).abs().max())
+                <= 2e-7):
+            failures.append(f"se_gram_ard: pad fix-up or diagonal wrong at "
+                            f"B={bb}")
+        gram_ms[bb] = (
+            time_ms(lambda: gr.se_gram_ard_hopper(x_pad, le, 1e-5, mask)),
+            time_ms(lambda: gr.se_gram_ard_masked(x_pad, le, 1e-5, mask)))
+        if bb == B_ARD:
+            gram_tol_main, gram_sym = gram_tol, torch.equal(g_k, g_k.mT)
+            # what the path does with it: the escalating factorisation
+            l_g, extra_g = cholesky._robust_cholesky_impl(g_k, jitter0=1e-5)
+            if not bool(torch.isfinite(l_g).all()):
+                failures.append("se_gram_ard: its Gram does not factor")
+            gram_back = max_err(torch.bmm(l_g, l_g.mT),
+                                g_k + extra_g[:, None, None]
+                                * torch.eye(N, device=dev))
+            gram_escalated = int((extra_g > 0).sum())
+    # without a mask (an unpadded target) the plain Gram
+    gram_err["no_mask"] = check_close(
+        "se_gram_ard", "no mask",
+        gr.se_gram_ard_hopper(x_pad, log_ells[:4].contiguous(), 1e-5),
+        gr.se_gram_ard(x_pad, log_ells[:4].contiguous(), 0.0, 1e-5),
+        gram_tol)
+    b_ms, b_by = bound(4 * (B_ARD * (N * N + N * D_ARD) + N),
+                       B_ARD * N * N * (2.0 * D_ARD + 8.0))
+    kernels["se_gram_ard"] = {
+        "name": "se_gram_ard", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/se_gram.cu",
+        "replaces": "auxpm_tpu/ops/gram.py:112",
+        "max_abs_err": gram_err[f"B={B_ARD}"], "tol": gram_tol_main,
+        "variants_max_abs_err": gram_err, "symmetric": gram_sym,
+        "factor_backward_err": gram_back, "escalated": gram_escalated,
+        "shape": {"B": B_ARD, "n": N, "d": D_ARD},
+        "ms": gram_ms[B_ARD][0], "plain_ms": gram_ms[B_ARD][1],
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_B128": gram_ms[B][0], "plain_ms_B128": gram_ms[B][1],
+        "bound_ms_B128": bound(4 * (B * (N * N + N * D_ARD) + N), 0)[0],
+    }
+
     # ------------------------------------------- a small shape, the shrink cap
     log("kernels: a small shape and the shrink cap")
     bs, ss, ns = 5, 16, 256
@@ -433,6 +584,28 @@ def main():
             and torch.equal(out_c[2], chain_s[:, 1])
             and bool((out_c[3] == 32).all()) and bool((out_c[4] == 0).all())):
         failures.append("sigma_sweep: cap-hit did not keep the point")
+    for nb in (1, 8):
+        edge[f"estimate_rot_n_blocks_{nb}"] = check_close(
+            "fused_estimator_rot", f"S={ss} n={ns} n_blocks={nb}",
+            fe.fused_estimate_rot(chol_s, u_s, v[:bs, 0, :ss, :ns].contiguous(),
+                                  angle[:bs].contiguous(), y_s, mask_s,
+                                  "logistic", nb),
+            fe._ref_estimate_rot(chol_s, u_s, v[:bs, 0, :ss, :ns].contiguous(),
+                                 angle[:bs].contiguous(), y_s, mask_s,
+                                 "logistic", nb),
+            LL_TOL, rtol=LL_RTOL)
+    # an odd Gram shape: n not a multiple of the 64-tile, d = 3
+    x_odd = t(rng.standard_normal((100, 3)))
+    le_odd = t(rng.normal(size=(bs, 3)) * 0.5)
+    m_odd = (torch.arange(100, device=dev) < 90).to(torch.float32)
+    sq_odd = float(((x_odd[None] * torch.exp(-le_odd)[:, None, :]) ** 2)
+                   .sum(-1).max())
+    for name, m in (("mask", m_odd), ("no_mask", None)):
+        edge[f"se_gram_ard_n100_d3_{name}"] = check_close(
+            "se_gram_ard", f"n=100 d=3 {name}",
+            gr.se_gram_ard_hopper(x_odd, le_odd, 1e-5, m),
+            gr.se_gram_ard_masked(x_odd, le_odd, 1e-5, m),
+            8.0 * eps * max(sq_odd, 1.0))
     torch.cuda.synchronize()
     emit({"phase": "kernels", "shape": {"B": B, "S": S, "n": N},
           "kernels": list(kernels.values()),
@@ -442,21 +615,41 @@ def main():
 
     # ------------------------------------------------------------ main path
     log("main path:", " ".join(CLI_ARGS))
-    modules = {"fused_estimator": fe, "chol_panel": chol_hopper,
-               "ess_sweep": ess, "sigma_sweep": sig}
-    for m in modules.values():
-        m.launches = 0
-    result = {}
-    with contextlib.redirect_stdout(sys.stderr):   # its summary line
-        rc = port_run.main(CLI_ARGS, result=result)
-    torch.cuda.synchronize()
-    counts = {name: m.launches for name, m in modules.items()}
-    if rc != 0:
-        raise AssertionError(f"run.main returned {rc}")
-    for name, c in counts.items():
-        kernels[name]["launches"] = c
-        if c <= 0:
-            raise AssertionError(f"main path never launched {name}")
+    counters = {"fused_estimator": (fe, "launches"),
+                "chol_panel": (chol_hopper, "launches"),
+                "ess_sweep": (ess, "launches"),
+                "sigma_sweep": (sig, "launches"),
+                "fused_estimator_rot": (fe, "launches_rot"),
+                "se_gram_ard": (gr, "launches")}
+
+    def read_counts():
+        return {name: getattr(m, attr) for name, (m, attr) in counters.items()}
+
+    def run_cli(args, must, must_not):
+        """Counts to 0, the CLI run, counts read; ``must`` kernels have to
+        have launched, ``must_not`` kernels must not."""
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        result = {}
+        with contextlib.redirect_stdout(sys.stderr):   # its summary line
+            rc = port_run.main(args, result=result)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if rc != 0:
+            raise AssertionError(f"run.main returned {rc}")
+        for name in must:
+            if counts[name] <= 0:
+                raise AssertionError(f"{args[1]}: never launched {name}")
+        for name in must_not:
+            if counts[name] != 0:
+                raise AssertionError(f"{args[1]}: launched {name}")
+        return result, counts
+
+    first_path = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep")
+    result, counts = run_cli(CLI_ARGS, first_path,
+                             ("fused_estimator_rot", "se_gram_ard"))
+    for name in first_path:
+        kernels[name]["launches"] = counts[name]
     states, tgt, params = result["states"], result["target"], result["params"]
     summary = result["summary"]
     if states.u.shape != (B, S, N) or not states.u.is_cuda:
@@ -495,9 +688,9 @@ def main():
                 (sig, "_cuda_sigma_sweep", sig._ref_sigma_sweep),
                 (chol_hopper, "_cuda_chol_panel", chol_hopper._ref_chol_panel)):
             stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
-        before = {name: m.launches for name, m in modules.items()}
+        before = read_counts()
         s_p, i_p = one_step(states)
-        if {name: m.launches for name, m in modules.items()} != before:
+        if read_counts() != before:
             raise AssertionError("plain path launched a kernel")
     torch.cuda.synchronize()
     agree = torch.ones(B, dtype=torch.bool, device=dev)
@@ -533,6 +726,135 @@ def main():
     emit({"phase": "path_parity", "chains_with_a_differing_decision":
           n_disagree, "max_abs_err": parity,
           "probes": {k: float(v.sum()) for k, v in i_k.items()}})
+    end_phase()
+
+    # -------------------------------------------------------- ARD main path
+    ard = {}
+    for mode, env, must, must_not in (
+            ("sweep", None,
+             ("se_gram_ard", "chol_panel", "fused_estimator", "ess_sweep"),
+             ("fused_estimator_rot", "sigma_sweep")),
+            ("loop", "0",
+             ("se_gram_ard", "chol_panel", "fused_estimator",
+              "fused_estimator_rot"),
+             ("ess_sweep", "sigma_sweep"))):
+        log(f"main path (ARD, {mode}):", " ".join(ARD_CLI_ARGS))
+        saved = os.environ.pop("AUXPM_ESS_SWEEP", None)
+        if env is not None:
+            os.environ["AUXPM_ESS_SWEEP"] = env   # read when the step is built
+        try:
+            res, cnt = run_cli(ARD_CLI_ARGS, must, must_not)
+            st_a, tgt_a, par_a = res["states"], res["target"], res["params"]
+            step_a = SAMPLERS["aux_slice"](tgt_a)
+        finally:
+            os.environ.pop("AUXPM_ESS_SWEEP", None)
+            if saved is not None:
+                os.environ["AUXPM_ESS_SWEEP"] = saved
+        if step_a.stages["ess_u"].uses_sweep != (mode == "sweep"):
+            raise AssertionError(f"ARD {mode}: wrong elliptical-slice path")
+        if st_a.u.shape != (B_ARD, S, N) or not st_a.u.is_cuda or \
+                st_a.theta.shape != (B_ARD, D_ARD + 1):
+            raise AssertionError("ARD path did not run at full width on the "
+                                 "GPU")
+        if not np.isfinite(res["theta"]).all() or \
+                not bool(torch.isfinite(st_a.log_lik_hat).all()):
+            raise AssertionError("ARD path: non-finite theta or log L-hat")
+        health_a = _sampler_health(res)
+        # the carried factor against a fresh factorisation of the same theta:
+        # the same routine on the same input, so the PR-1 bar holds
+        cache_err_a = max_err(st_a.extras["target_cache"]["chol_r"],
+                              tgt_a.cache_init(st_a.theta)["chol_r"])
+        if not cache_err_a <= CHOL_TOL:
+            raise AssertionError(f"ARD carried factor off by {cache_err_a:.3e}")
+        # launches and host synchronisations per step, from a profiled window
+        _, prof = profile_steps(step_a, st_a, par_a, 3)
+        n_steps = 15                      # 1 x 5 warm-up + 10 sampled
+        ard[mode] = {
+            "launches": cnt, "summary": res["summary"],
+            "chain_steps_per_sec": res["summary"]["chain_steps_per_sec"],
+            "cache_max_abs_err": cache_err_a, **health_a,
+            "own_kernel_launches_per_step": {
+                k: round(c / n_steps, 2) for k, c in cnt.items()},
+            "all_kernel_launches_per_step": prof["kernel_launches_per_step"],
+            "host_syncs_per_step": prof["host_syncs_per_step"],
+            "wall_ms_per_step": prof["wall_ms_per_step"],
+            "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+        }
+        if mode == "sweep":
+            kernels["se_gram_ard"]["launches"] = cnt["se_gram_ard"]
+        else:
+            kernels["fused_estimator_rot"]["launches"] = \
+                cnt["fused_estimator_rot"]
+    emit({"phase": "main_path_ard", "card": smi, "args": ARD_CLI_ARGS,
+          "sweep": ard["sweep"], "loop": ard["loop"]})
+    end_phase()
+
+    # ------------------------------------------------------ ARD path parity
+    log("path parity (ARD, loop)")
+    ess_a, sl_a = step_a.stages["ess_u"], step_a.stages["slice_theta"]
+    rows_ea = ess_a.draw(st_a.generator, st_a)
+    rows_sa = sl_a.draw(st_a.generator, st_a)
+
+    def one_step_ard(state, probe_log=None):
+        extra = {} if probe_log is None else {"probe_log": probe_log}
+        mid, info_e = ess_a.apply(state, rows_ea, {**par_a["ess_u"], **extra})
+        out, info_s = sl_a.apply(mid, rows_sa,
+                                 {**par_a["slice_theta"], **extra})
+        return out, {**info_e, **info_s}
+
+    sa_k, ia_k = one_step_ard(st_a)
+    probe_log = []
+    with contextlib.ExitStack() as stack:
+        for mod, cuda_fn, plain_fn in (
+                (fe, "_cuda_estimate", fe._ref_estimate),
+                (fe, "_cuda_estimate_rot", fe._ref_estimate_rot),
+                (gr, "_cuda_se_gram_ard", gr.se_gram_ard_masked)):
+            stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
+        before = read_counts()
+        sa_p, ia_p = one_step_ard(st_a, probe_log)
+        after = read_counts()
+        if any(after[k] != before[k] for k in after if k != "chol_panel"):
+            raise AssertionError("plain ARD path launched a patched kernel")
+    torch.cuda.synchronize()
+    amb_a = torch.zeros(B_ARD, dtype=torch.bool, device=dev)
+    for counted, margin in probe_log:
+        amb_a |= counted & (margin.abs() <= ARD_PATH_LL_TOL)
+    agree_a = torch.ones(B_ARD, dtype=torch.bool, device=dev)
+    for k in ia_k:
+        agree_a &= ia_k[k] == ia_p[k]
+    n_amb_a = int(amb_a.sum())
+    n_bad_a = int((~agree_a & ~amb_a).sum())
+    if n_amb_a > ARD_MAX_AMBIGUOUS_SHARE * B_ARD:
+        failures.append(f"path_parity_ard: {n_amb_a} of {B_ARD} chains had a "
+                        "decision inside the tolerance")
+    if n_bad_a:
+        failures.append(f"path_parity_ard: decisions differ on {n_bad_a} "
+                        "chains whose margins were all outside the tolerance")
+    keep_a = agree_a
+    parity_a = {
+        "theta": check_close("path_parity_ard", "theta", sa_k.theta,
+                             sa_p.theta, SIGMA_TOL, keep_a),
+        "u": check_close("path_parity_ard", "u", sa_k.u, sa_p.u, U_TOL,
+                         keep_a),
+        "chol_r": check_close("path_parity_ard", "chol_r",
+                              sa_k.extras["target_cache"]["chol_r"],
+                              sa_p.extras["target_cache"]["chol_r"],
+                              ARD_PATH_CHOL_TOL, keep_a),
+        "ll": check_close("path_parity_ard", "ll", sa_k.log_lik_hat,
+                          sa_p.log_lik_hat, PATH_LL_TOL, keep_a),
+        "ll_vs_plain_estimate_of_own_state": check_close(
+            "path_parity_ard", "ll of own state", sa_k.log_lik_hat,
+            fe._ref_estimate(
+                tgt_a.prepare_c(sa_k.theta, sa_k.extras["target_cache"]),
+                sa_k.u, y, mask, "logistic", 8), LL_TOL, None, LL_RTOL),
+    }
+    emit({"phase": "path_parity_ard", "decisions_logged": len(probe_log),
+          "chains_with_a_decision_inside_tolerance": n_amb_a,
+          "chains_with_a_differing_decision": int((~agree_a).sum()),
+          "of_those_outside_tolerance": n_bad_a,
+          "max_abs_err": parity_a,
+          "probes": {k: float(v.sum()) for k, v in ia_k.items()}})
     end_phase()
 
     # ---------------------------------------------------------------- result

@@ -173,7 +173,8 @@ def test_init_chain_states_holds_the_cache_invariant(targets):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"ard": True}, {"proposal": "laplace"}, {"particle_axis": "particles"},
+    {"ard": True, "proposal": "laplace"}, {"proposal": "laplace"},
+    {"particle_axis": "particles"},
 ])
 def test_unported_options_stop_loudly(kwargs):
     x, y = _data()

@@ -229,17 +229,26 @@ def test_unported_paths_stop_loudly(slice_run):
     *_, step_t, tt = slice_run
     st = t_init(1, tt, 2, with_cache=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step_t(st, {"slice_theta": {"max_step_out": 8}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        step_t(t_init(1, tt, 2), {"slice_theta": {"max_step_out": 0}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_aux_slice(tt, particle_axis="particles")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.coord_estimators_c[-1](st.theta, st.u, st.extras["target_cache"])
+    with pytest.raises(ValueError, match="shrink uniforms"):
+        step_t(st, {"slice_theta": {"max_shrink": 64}})
     with pytest.raises(ValueError, match="unknown param group"):
         step_t(st, {"slice_thet": {}})
     assert compose([]).stage_names == ()
     assert sorted(SAMPLERS) == ["aux_slice"]
+    # what used to stop here now runs (held against the reference in
+    # test_torch_stepout.py): stepping out with the per-probe log_sigma
+    # coordinate, and the uncached path
+    for state in (st, t_init(1, tt, 2)):
+        out, info = step_t(state, {"slice_theta": {"max_step_out": 8}})
+        assert torch.isfinite(out.theta).all()
+        assert (info["slice_theta/n_probe"] >= 2).all()
+    f, f2 = tt.coord_estimators_c[-1](st.theta, st.u,
+                                      st.extras["target_cache"])
+    lp, ll = f(st.theta[:, 1])
+    lp2, ll2 = f2(torch.stack([st.theta[:, 1], st.theta[:, 1] + 0.5]))
+    assert torch.allclose(ll2[0], ll, atol=1e-5) and lp2.shape == (2, 2)
+    assert torch.allclose(ll, st.log_lik_hat, atol=1e-5)
 
 
 # ------------------------------------------------------ runner and adaptation
@@ -330,8 +339,8 @@ def test_cli_lists_presets(capsys):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"target": "gaussian_toy"}, {"sampler": "pm_mh"}, {"sharded": True},
-    {"chol_cache": False}, {"plots": "fig"},
+    {"proposal": "laplace"}, {"sampler": "pm_mh"}, {"sharded": True},
+    {"dataset": "abalone"}, {"plots": "fig"},
 ])
 def test_config_refuses_unported_parts(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
