@@ -9,6 +9,11 @@ coordinate in the params) crosses like an isotropic one.  Targets are built
 on both sides from the same NumPy arrays: ``(x, y)`` for the GP target, from
 which each side derives its padded ``x_pad`` and mask; ``y`` and ``sigma_y``
 for the Gaussian toy.
+
+For the particle-sharded path ``shard_numpy_state`` cuts the reference's whole
+state into the shares of the ranks of a (chains, particles) mesh, so that both
+packages start from the same state: rank ``ci * K + pi`` gets the chains of
+chain shard ci and, of each chain's u, the rows of particle shard pi.
 """
 
 from __future__ import annotations
@@ -17,29 +22,57 @@ import numpy as np
 import torch
 
 from auxpm_tpu_torch._device import resolve_device
-from auxpm_tpu_torch.core.state import ChainState
+from auxpm_tpu_torch.core.state import ChainState, make_generators
 
 _STATIC_PARAM_KEYS = ("max_step_out", "max_shrink", "max_shrink_chol")
 
 
-def chain_states_from_numpy(d, device="cuda", seed=0):
+def shard_numpy_state(d, n_chain_shards, n_particle_shards):
+    """Split the dict ``d`` of ``chain_states_from_numpy`` (a whole state)
+    into the list of per-rank dicts of an ``n_chain_shards`` x
+    ``n_particle_shards`` mesh, in rank order."""
+    b, s = d["u"].shape[:2]
+    if b % n_chain_shards or s % n_particle_shards:
+        raise ValueError(f"{b} chains x {s} rows do not split over a "
+                         f"{n_chain_shards} x {n_particle_shards} mesh")
+    per, rows = b // n_chain_shards, s // n_particle_shards
+    out = []
+    for ci in range(n_chain_shards):
+        cs = slice(ci * per, (ci + 1) * per)
+        for pi in range(n_particle_shards):
+            share = {k: np.asarray(v)[cs] for k, v in d.items()
+                     if v is not None}
+            share["u"] = np.asarray(d["u"])[cs, pi * rows:(pi + 1) * rows]
+            out.append(share)
+    return out
+
+
+def chain_states_from_numpy(d, device="cuda", seed=0, target=None, mesh=None):
     """``d``: dict with ``theta (B, d)``, ``u (B, S, n)``, ``log_lik_hat
     (B,)`` and, for the carried-factor path, ``chol_r (B, n, n)`` (the
     reference's ``extras["target_cache"]["chol_r"]``; absent or None gives a
-    state without a cache, which takes the uncached paths)."""
+    state without a cache, which takes the uncached paths).
+
+    With ``target`` the state gets the generators ``init_chain_states`` would
+    give it (block generators for the u-shaped draws; with ``mesh``, those
+    of the rank's share, ``d`` being one entry of ``shard_numpy_state``)."""
     device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
-    generator = torch.Generator(device=device)
-    generator.manual_seed(int(seed))
+    if target is not None:
+        generator, block_generators = make_generators(seed, target, mesh)
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
+        block_generators = ()
     extras = {}
     if d.get("chol_r") is not None:
         extras = {"target_cache": {"chol_r": t(d["chol_r"])}}
     return ChainState(theta=t(d["theta"]), u=t(d["u"]),
                       log_lik_hat=t(d["log_lik_hat"]), generator=generator,
-                      extras=extras)
+                      extras=extras, block_generators=block_generators)
 
 
 def params_from_numpy(params, device="cuda"):

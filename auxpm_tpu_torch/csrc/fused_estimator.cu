@@ -28,9 +28,68 @@
 // so a round costs what its unfinished chains cost.  cosf / sinf in full
 // precision: the accepted u' is formed afterwards by the caller, and the
 // carried estimate has to be the estimate of that u'.
+//
+// Third and fourth entry, the per-sample weights: the (S_local,) log-weights
+// of the block's rows with NO log-sum-exp, plain and at the rotated proposal.
+// Replace auxpm_tpu/ops/fused_estimator.py::_fused_weights_kernel and
+// ::_fused_rot_weights_kernel (wrappers _pallas_weights, _pallas_rot_weights),
+// the local half of the particle-sharded estimator: a rank scores its own
+// S_local = S / K rows against the replicated factor and a collective folds
+// the blocked partials of all ranks.  They are probe_weights of probe.cuh and
+// a store of sm.lw, so a row gives the same bits here, in the estimators and
+// in a call that holds other rows beside it.  Bound: bytes (C is read whole
+// for S_local rows: 2*S_local/4 = 16 FLOPs per byte at S_local = 32, below
+// the card's FP32 balance of 20).  A block still computes kRows = 64 rows, so
+// at S_local = 32 half of its products are on zero pad rows (at 16, three
+// quarters); packing two chains into a block is the way out and is left to
+// later work.
 #include "probe.cuh"
 
 namespace auxpm {
+
+template <int LIK, bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_weights_kernel(const float* __restrict__ chol,
+                     const float* __restrict__ u,
+                     const float* __restrict__ y,
+                     const float* __restrict__ mask,
+                     float* __restrict__ out, int S, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const ProbeSmem sm = carve_smem(smem, n);
+  const int b = blockIdx.x;
+  const float* ub = u + size_t(b) * S * n;
+  zero_pad_rows(sm, S, n);
+  fill_left<BF16>(sm, S, n, [&](int idx) { return ub[idx]; });
+  probe_weights<LIK, BF16>(sm, chol + size_t(b) * n * n, 1.0f, y, mask, n);
+  if (threadIdx.x < S) out[size_t(b) * S + threadIdx.x] = sm.lw[threadIdx.x];
+}
+
+template <int LIK, bool BF16>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_rot_weights_kernel(const float* __restrict__ chol,
+                         const float* __restrict__ u,
+                         const float* __restrict__ v,
+                         const float* __restrict__ angle,
+                         const float* __restrict__ active,  // or nullptr
+                         const float* __restrict__ y,
+                         const float* __restrict__ mask,
+                         float* __restrict__ out, int S, int n) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.x;
+  if (active != nullptr && active[b] == 0.0f) {  // uniform over the block
+    if (threadIdx.x < S) out[size_t(b) * S + threadIdx.x] = 0.0f;
+    return;
+  }
+  const ProbeSmem sm = carve_smem(smem, n);
+  const float* ub = u + size_t(b) * S * n;
+  const float* vb = v + size_t(b) * S * n;
+  const float ca = cosf(angle[b]), sa = sinf(angle[b]);
+  zero_pad_rows(sm, S, n);
+  fill_left<BF16>(sm, S, n,
+                  [&](int idx) { return ub[idx] * ca + vb[idx] * sa; });
+  probe_weights<LIK, BF16>(sm, chol + size_t(b) * n * n, 1.0f, y, mask, n);
+  if (threadIdx.x < S) out[size_t(b) * S + threadIdx.x] = sm.lw[threadIdx.x];
+}
 
 template <int LIK, bool BF16>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -125,6 +184,54 @@ extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
             static_cast<const float*>(chol), static_cast<const float*>(u),   \
             static_cast<const float*>(y), static_cast<const float*>(mask),   \
             static_cast<float*>(out), S, n, n_blocks, log_s);                \
+    err = cudaGetLastError();                                                \
+  }
+  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+extern "C" int auxpm_fused_weights(const void* chol, const void* u,
+                                   const void* y, const void* mask, void* out,
+                                   int B, int S, int n, int likelihood,
+                                   int bf16, void* stream) {
+  using namespace auxpm;
+  const size_t smem = probe_smem_bytes(n);
+  cudaError_t err = cudaSuccess;
+#define CALL(LIK, BF)                                                        \
+  err = allow_smem(fused_weights_kernel<LIK, BF>, smem);                     \
+  if (err == cudaSuccess) {                                                  \
+    fused_weights_kernel<LIK, BF>                                            \
+        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
+            static_cast<const float*>(chol), static_cast<const float*>(u),   \
+            static_cast<const float*>(y), static_cast<const float*>(mask),   \
+            static_cast<float*>(out), S, n);                                 \
+    err = cudaGetLastError();                                                \
+  }
+  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
+#undef CALL
+  return static_cast<int>(err);
+}
+
+extern "C" int auxpm_fused_rot_weights(const void* chol, const void* u,
+                                       const void* v, const void* angle,
+                                       const void* active, const void* y,
+                                       const void* mask, void* out, int B,
+                                       int S, int n, int likelihood, int bf16,
+                                       void* stream) {
+  using namespace auxpm;
+  const size_t smem = probe_smem_bytes(n);
+  cudaError_t err = cudaSuccess;
+#define CALL(LIK, BF)                                                        \
+  err = allow_smem(fused_rot_weights_kernel<LIK, BF>, smem);                 \
+  if (err == cudaSuccess) {                                                  \
+    fused_rot_weights_kernel<LIK, BF>                                        \
+        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
+            static_cast<const float*>(chol), static_cast<const float*>(u),   \
+            static_cast<const float*>(v), static_cast<const float*>(angle),  \
+            static_cast<const float*>(active), static_cast<const float*>(y), \
+            static_cast<const float*>(mask), static_cast<float*>(out), S,    \
+            n);                                                              \
     err = cudaGetLastError();                                                \
   }
   AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);

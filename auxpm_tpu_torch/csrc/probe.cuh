@@ -1,5 +1,6 @@
 // Shared probe body of the estimator kernels (fused_estimator.cu: plain and
-// rotated entry; ess_sweep.cu; sigma_sweep.cu).
+// rotated estimate, plain and rotated per-sample weights; ess_sweep.cu;
+// sigma_sweep.cu).
 //
 // Replaces the probe body that the three TPU kernels share in
 // auxpm_tpu/ops/fused_estimator.py (_dot_whiten, _log_lik_tile,
@@ -166,17 +167,22 @@ __device__ inline void fill_left(const ProbeSmem& sm, int S, int n, F value) {
   __syncthreads();
 }
 
-// One probe: the estimate at the left operand currently in shared memory and
-// scale * C.  Every thread of the block must call it; every thread gets the
-// same return value.  Ends with a block barrier.
+// The per-sample log-weights of one probe: fills sm.lw[0..kRows) from the
+// left operand currently in shared memory and scale * C (rows past the
+// caller's S are pad rows and hold the weight of a zero sample).  Every thread
+// of the block must call it.  Ends with a block barrier.
+//
+// A row's weight does not depend on which of the block's rows it occupies or
+// on how many rows the call holds: each micro-tile row runs k in the same
+// fixed order and the sum over columns is the same shuffle tree for every
+// row.  The particle-sharded estimator rests on that (a shard's rows give the
+// bits the whole block would give).
 template <int LIK, bool BF16>
-__device__ inline float probe_estimate(const ProbeSmem& sm,
-                                       const float* __restrict__ C,
-                                       float scale,
-                                       const float* __restrict__ y,
-                                       const float* __restrict__ mask,
-                                       int S, int n, int n_blocks,
-                                       float log_s) {
+__device__ inline void probe_weights(const ProbeSmem& sm,
+                                     const float* __restrict__ C,
+                                     float scale,
+                                     const float* __restrict__ y,
+                                     const float* __restrict__ mask, int n) {
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
@@ -264,9 +270,24 @@ __device__ inline float probe_estimate(const ProbeSmem& sm,
     if (tx == 0) sm.lw[ty * 4 + r] = v;
   }
   __syncthreads();
-  if (tid < 32) {
+}
+
+// One probe: the estimate at the left operand currently in shared memory and
+// scale * C, i.e. probe_weights and the blocked log-sum-exp of its first S
+// rows.  Every thread of the block must call it; every thread gets the same
+// return value.  Ends with a block barrier.
+template <int LIK, bool BF16>
+__device__ inline float probe_estimate(const ProbeSmem& sm,
+                                       const float* __restrict__ C,
+                                       float scale,
+                                       const float* __restrict__ y,
+                                       const float* __restrict__ mask,
+                                       int S, int n, int n_blocks,
+                                       float log_s) {
+  probe_weights<LIK, BF16>(sm, C, scale, y, mask, n);
+  if (threadIdx.x < 32) {
     const float est = blocked_lse(sm.lw, S, n_blocks) - log_s;
-    if (tid == 0) sm.ctrl[0] = est;
+    if (threadIdx.x == 0) sm.ctrl[0] = est;
   }
   __syncthreads();
   return sm.ctrl[0];

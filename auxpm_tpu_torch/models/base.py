@@ -59,6 +59,13 @@ class Target:
       sigma_sweep_factory: ``n_reps -> fn(theta, u, cache, ll0, lp0, width,
         rep) -> (sigma', ll', lp', n_shrink, moved)``, all log_sigma slice
         updates in one call (``ops/sigma_sweep.py``).
+      log_weights_u: ``(prepared, u (B, S', n)) -> (B, S')`` per-sample
+        log-weights of any subset of rows; what the generic particle-sharded
+        wrap (``parallel/particle_shard.py``) reduces with a collective.
+      make_sharded: ``mesh -> Target``, the target rebuilt with a
+        collective-aware estimator over the mesh's particle group (u then
+        holds this rank's ``S / K`` rows); None on a target that is already
+        sharded or has no such rebuild.
       sample_prior: ``(generator, n) -> theta (n, d)`` exact prior draws.
       exact_log_post / posterior_mean / posterior_cov: closed forms, for
         targets that have them (the Gaussian toy).
@@ -82,6 +89,8 @@ class Target:
     prepare_c: Optional[Callable] = None
     coord_estimators_c: Optional[tuple] = None
     sigma_sweep_factory: Optional[Callable] = None
+    log_weights_u: Optional[Callable] = None
+    make_sharded: Optional[Callable] = None
     exact_log_post: Optional[Callable] = None
     posterior_mean: Optional[torch.Tensor] = None
     posterior_cov: Optional[torch.Tensor] = None

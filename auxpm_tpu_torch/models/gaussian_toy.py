@@ -109,4 +109,5 @@ def make_gaussian_toy(
                       device=device),
         prepare=lambda theta: theta,  # no theta-only precomputation to cache
         log_lik_est_u=lambda theta, u: log_lik_est(theta, u),
+        log_weights_u=log_weights_u,
     )

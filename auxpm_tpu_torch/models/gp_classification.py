@@ -36,6 +36,16 @@ ends of every chain as ONE batch of 2B chains.  An ell probe pays Gram +
 factorisation + estimate; a log_sigma probe rescales a factor (the carried
 one, or one factored once per sweep) and pays only the estimate.
 
+Particle sharding (``particle_axis``, a ``parallel.mesh.Mesh``): u holds this
+rank's ``S / K`` rows, the per-sample weights kernels
+(``ops/fused_estimator.fused_weights`` / ``fused_rot_weights``) score them
+against the factor, which every rank of the group computes for itself
+(replicated), and a collective folds the blocked partials of all ranks in
+global block order (``parallel/collectives.allgather_blocked_logsumexp``), so
+every rank holds bitwise the same estimate.  Every estimator call of such a
+target (the coordinate factories included) goes through that one function.
+It has no whole-sweep factories: a sweep kernel reduces inside its block.
+
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  On the card both whole-sweep kernels are always available; the
 reference's memory gates on its sweeps belong to the TPU and have no
@@ -57,6 +67,8 @@ from auxpm_tpu_torch.ops.fused_estimator import (
     WHITEN_DTYPES,
     make_fused_estimator,
     make_fused_rot_estimator,
+    make_fused_rot_weights,
+    make_fused_weights,
 )
 from auxpm_tpu_torch.ops.gram import se_gram_ard_hopper, se_gram_iso
 from auxpm_tpu_torch.ops.sigma_sweep import make_fused_sigma_sweep
@@ -104,14 +116,19 @@ def make_gp_classification(
         whiten product rounded to bf16, f32 accumulate).  Part of the
         estimator's definition.
       device: where the target lives; "cuda" (default) raises without a GPU.
-      proposal="laplace" / particle_axis: not ported yet.
+      particle_axis: this rank's ``parallel.mesh.Mesh`` for a target whose
+        u is split over the mesh's particle group (see the module note);
+        ``Target.make_sharded`` is the usual way to get one.
+      proposal="laplace": not ported yet.
     """
     if proposal == "laplace":
         _not_ported("the Laplace proposal")
     if proposal != "prior":
         raise ValueError(f"unknown proposal {proposal!r}")
     if particle_axis is not None:
-        _not_ported("particle sharding (particle_axis)")
+        from auxpm_tpu_torch.parallel.mesh import require_mesh
+
+        require_mesh(particle_axis)
     if likelihood not in ("logistic", "probit"):
         raise ValueError(f"unknown likelihood {likelihood!r}")
     if whiten_dtype not in WHITEN_DTYPES:
@@ -175,12 +192,53 @@ def make_gp_classification(
         log_ell, log_sigma = split_theta(theta)
         return _scale(log_sigma, chol_r(log_ell))
 
-    log_lik_est_u = make_fused_estimator(
-        y_dev, mask, likelihood, n_blocks=nb_global, whiten_dtype=whiten_dtype
-    )
-    log_lik_est_rot = make_fused_rot_estimator(
-        y_dev, mask, likelihood, n_blocks=nb_global, whiten_dtype=whiten_dtype
-    )
+    log_weights_u = make_fused_weights(y_dev, mask, likelihood,
+                                       whiten_dtype=whiten_dtype)
+    log_s_fac = float(np.log(np.float32(n_importance)))
+
+    def _combine_local_lw(lw, u_rows):
+        """Blocked lse of this rank's log-weights ``(B, u_rows)`` over the
+        particle group, minus log S (global S)."""
+        from auxpm_tpu_torch.parallel.collectives import (
+            allgather_blocked_logsumexp,
+            psum_logsumexp,
+        )
+
+        k_shards = n_importance // u_rows
+        if k_shards != particle_axis.n_particle_shards \
+                or k_shards * u_rows != n_importance:
+            raise ValueError(
+                f"u holds {u_rows} of S={n_importance} rows on a particle "
+                f"group of {particle_axis.n_particle_shards}")
+        if nb_global % k_shards or u_rows % (nb_global // k_shards):
+            # S does not fit the fixed blocked tree (e.g. S % 8 != 0 gives
+            # nb_global == 1): the generic collective log-sum-exp, still the
+            # exact global estimate and the same on every rank, but not the
+            # unsharded tree
+            return psum_logsumexp(lw, particle_axis) - log_s_fac
+        return allgather_blocked_logsumexp(
+            lw, nb_global // k_shards, particle_axis) - log_s_fac
+
+    if particle_axis is None:
+        log_lik_est_u = make_fused_estimator(
+            y_dev, mask, likelihood, n_blocks=nb_global,
+            whiten_dtype=whiten_dtype)
+        log_lik_est_rot = make_fused_rot_estimator(
+            y_dev, mask, likelihood, n_blocks=nb_global,
+            whiten_dtype=whiten_dtype)
+    else:
+        _lw_rot = make_fused_rot_weights(y_dev, mask, likelihood,
+                                         whiten_dtype=whiten_dtype)
+
+        def log_lik_est_u(chol, u):
+            return _combine_local_lw(log_weights_u(chol, u), u.shape[-2])
+
+        def log_lik_est_rot(chol, u, v, angle, active=None):
+            est = _combine_local_lw(_lw_rot(chol, u, v, angle, active),
+                                    u.shape[-2])
+            if active is not None:
+                est = torch.where(active != 0, est, torch.zeros_like(est))
+            return est
 
     def log_lik_est(theta, u):
         return log_lik_est_u(prepare(theta), u)
@@ -191,7 +249,7 @@ def make_gp_classification(
         r = (theta - prior_mean) / prior_std
         return -0.5 * (r * r).sum(-1) - log_norm
 
-    def ess_sweep_factory(n_repeats):
+    def _ess_sweep_factory(n_repeats):
         return make_fused_ess_sweep(
             y_dev, mask, likelihood, n_blocks=nb_global,
             whiten_dtype=whiten_dtype, n_repeats=n_repeats,
@@ -199,7 +257,7 @@ def make_gp_classification(
 
     hiv = 0.5 / float(prior_std) ** 2
 
-    def sigma_sweep_factory(n_reps):
+    def _sigma_sweep_factory(n_reps):
         sweep = make_fused_sigma_sweep(
             y_dev, mask, likelihood, n_blocks=nb_global,
             whiten_dtype=whiten_dtype, n_reps=n_reps,
@@ -293,6 +351,16 @@ def make_gp_classification(
         + [_sigma_coord_factory_c]
     )
 
+    def make_sharded(mesh):
+        """Particle-sharded rebuild of this target: the same arguments, the
+        collective estimator over ``mesh``'s particle group."""
+        return make_gp_classification(
+            x, y, n_importance=n_importance, likelihood=likelihood, ard=ard,
+            jitter=jitter, prior_mean=prior_mean, prior_std=prior_std,
+            name=name, pad_to_tiles=pad_to_tiles, proposal=proposal,
+            particle_axis=mesh, whiten_dtype=whiten_dtype, device=device)
+
+    sharded = particle_axis is not None
     return Target(
         d=n_theta,
         u_shape=(n_importance, n),
@@ -300,11 +368,15 @@ def make_gp_classification(
         log_lik_est=log_lik_est,
         theta_init=torch.zeros((n_theta,), dtype=dtype, device=device),
         device=device,
-        name=name or f"gp_{likelihood}_n{n_raw}",
+        name=name or f"gp_{likelihood}_n{n_raw}"
+        + (f"@{particle_axis.name}" if sharded else ""),
         prepare=prepare,
         log_lik_est_u=log_lik_est_u,
         log_lik_est_rot=log_lik_est_rot,
-        ess_sweep_factory=ess_sweep_factory,
+        # a sweep kernel reduces over S inside its block: unsharded only
+        ess_sweep_factory=None if sharded else _ess_sweep_factory,
+        log_weights_u=log_weights_u,
+        make_sharded=None if sharded else make_sharded,
         coord_estimators=coord_estimators,
         sample_prior=lambda generator, n_draws: prior_mean
         + prior_std * torch.randn((n_draws, n_theta), generator=generator,
@@ -313,5 +385,5 @@ def make_gp_classification(
         cache_init=cache_init,
         prepare_c=prepare_c,
         coord_estimators_c=coord_estimators_c,
-        sigma_sweep_factory=sigma_sweep_factory,
+        sigma_sweep_factory=None if sharded else _sigma_sweep_factory,
     )

@@ -11,6 +11,7 @@ never at import, and is redone when a source's hash changes.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -33,12 +34,17 @@ _SIGNATURES = {
     "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _F, _I, _I, _P],
+    "auxpm_fused_weights": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "auxpm_fused_rot_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _P],
     "auxpm_se_gram_ard": [_P, _P, _P, _I, _I, _I, _F, _P],
     "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                         _I, _I, _P],
     "auxpm_sigma_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _I, _I, _P],
     "auxpm_chol_panel": [_P, _P, _P, _I, _P],
+    "auxpm_chol_panel_v1": [_P, _P, _P, _I, _P],
+    "auxpm_chol_panel_v2": [_P, _P, _I, _P],
 }
 
 _lib = None
@@ -84,7 +90,16 @@ def _run_all(commands):
 
 def build(force=False):
     """Compile ``csrc/*.cu`` into the shared library if it is missing or
-    stale; return its path."""
+    stale; return its path.  Processes that get here together (the ranks of a
+    sharded run) take turns behind a file lock: the first builds, the others
+    find the library fresh."""
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(_BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked(force)
+
+
+def _build_locked(force):
     cu = sorted(_CSRC.glob("*.cu"))
     if not cu:
         raise RuntimeError(f"no CUDA sources under {_CSRC}")
@@ -99,7 +114,6 @@ def build(force=False):
     ):
         return lib_path
     nvcc = _find_nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objects = [_BUILD_DIR / (src.stem + ".o") for src in cu]
     log = _run_all(
         [[nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]

@@ -15,8 +15,17 @@ tensor it takes the plain version ``_ref_estimate``.
 ``fused_estimate_rot`` is the same estimate at the elliptical-slice proposal
 ``u cos a + v sin a`` (second entry of the same source; the proposal is
 formed inside the kernel and never stored), with ``_ref_estimate_rot`` as its
-plain version.  The per-sample-weights variants of the reference (its
-particle-sharded path) are not ported yet.
+plain version.
+
+``fused_weights`` / ``fused_rot_weights`` (``_pallas_weights`` /
+``_pallas_rot_weights`` / ``make_fused_weights`` / ``make_fused_rot_weights``
+in the reference) return the per-sample log-weights ``lw`` with no
+log-sum-exp: the local half of the particle-sharded estimator, where a rank
+holds ``S_local = S / K`` rows of u and a collective folds the blocked
+partials (``parallel/collectives.allgather_blocked_logsumexp``).  Third and
+fourth entry of the same source, the same probe body, so a row's weight has
+the same bits whichever rows share its call.  No backward kernel: nothing on
+the ported paths differentiates through them.
 """
 
 from __future__ import annotations
@@ -36,8 +45,10 @@ MAX_ROWS = 64       # importance samples a block can hold
 TILE_N = 64         # n must be a multiple of the column tile
 MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
 
-launches = 0      # launches of the plain-estimator kernel by its wrapper
-launches_rot = 0  # launches of the rotated-estimator kernel by its wrapper
+launches = 0        # launches of the plain-estimator kernel by its wrapper
+launches_rot = 0    # launches of the rotated-estimator kernel by its wrapper
+launches_w = 0      # launches of the weights kernel by its wrapper
+launches_rot_w = 0  # launches of the rotated-weights kernel by its wrapper
 
 
 def _dot_whiten(u, chol, whiten_dtype):
@@ -77,13 +88,15 @@ def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
     return blocked_logsumexp(lw, n_blocks) - _log_s(u, log_s)
 
 
-def check_probe_shapes(s, n, n_blocks):
-    """Raise on shapes the probe body does not take."""
+def check_probe_shapes(s, n, n_blocks=None):
+    """Raise on shapes the probe body does not take (``n_blocks=None``: an
+    entry without a log-sum-exp)."""
     if n % TILE_N:
         raise ValueError(f"n={n} must be a multiple of {TILE_N} (pad the target)")
-    if s > MAX_ROWS:
-        raise ValueError(f"S={s} exceeds the {MAX_ROWS} rows a block holds")
-    if n_blocks < 1 or n_blocks > 32 or s % n_blocks:
+    if s < 1 or s > MAX_ROWS:
+        raise ValueError(f"S={s}: a block holds 1 to {MAX_ROWS} rows")
+    if n_blocks is not None and (n_blocks < 1 or n_blocks > 32
+                                 or s % n_blocks):
         raise ValueError(f"n_blocks={n_blocks} must divide S={s} and be <= 32")
     smem = 4 * (MAX_ROWS * (n + 4) + TILE_N * 36 + MAX_ROWS + 8)
     if smem > MAX_SMEM:
@@ -126,10 +139,7 @@ def fused_estimate(chol, u, y, mask, likelihood="logistic", n_blocks=1,
 
     CUDA tensors go to the kernel (or raise); CPU tensors take the plain
     version."""
-    if likelihood not in LIKELIHOOD_IDS:
-        raise ValueError(f"unknown likelihood {likelihood!r}")
-    if whiten_dtype not in WHITEN_DTYPES:
-        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+    _check_names(likelihood, whiten_dtype)
     if u.device.type == "cpu":
         return _ref_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
                              whiten_dtype)
@@ -197,15 +207,118 @@ def fused_estimate_rot(chol, u, v, angle, y, mask, likelihood="logistic",
 
     CUDA tensors go to the kernel (or raise); CPU tensors take the plain
     version."""
-    if likelihood not in LIKELIHOOD_IDS:
-        raise ValueError(f"unknown likelihood {likelihood!r}")
-    if whiten_dtype not in WHITEN_DTYPES:
-        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+    _check_names(likelihood, whiten_dtype)
     if u.device.type == "cpu":
         return _ref_estimate_rot(chol, u, v, angle, y, mask, likelihood,
                                  n_blocks, log_s, whiten_dtype, active)
     return _cuda_estimate_rot(chol, u, v, angle, y, mask, likelihood,
                               n_blocks, log_s, whiten_dtype, active)
+
+
+def _check_names(likelihood, whiten_dtype):
+    if likelihood not in LIKELIHOOD_IDS:
+        raise ValueError(f"unknown likelihood {likelihood!r}")
+    if whiten_dtype not in WHITEN_DTYPES:
+        raise ValueError(f"unknown whiten_dtype {whiten_dtype!r}")
+
+
+def _ref_rot_weights(chol, u, v, angle, y, mask, likelihood,
+                     whiten_dtype="float32", active=None):
+    """Plain per-sample log-weights at the rotated proposal; ``(B, S)``.
+    With ``active (B,)`` (1 = wanted) the chains that are not wanted give 0."""
+    lw = _ref_weights(chol, rotate(u, v, angle), y, mask, likelihood,
+                      whiten_dtype)
+    if active is not None:
+        lw = torch.where((active != 0)[:, None], lw, torch.zeros_like(lw))
+    return lw
+
+
+def _cuda_weights(chol, u, y, mask, likelihood, whiten_dtype):
+    global launches_w
+    if chol.dim() != 3 or u.dim() != 3:
+        raise ValueError("expected chol (B, n, n) and u (B, S, n)")
+    b, s, n = u.shape
+    if chol.shape != (b, n, n) or y.shape != (n,) or mask.shape != (n,):
+        raise ValueError(
+            f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
+            f"y {tuple(y.shape)}, mask {tuple(mask.shape)}"
+        )
+    check_probe_shapes(s, n)
+    device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
+    lib = _build.load_library()
+    out = torch.empty((b, s), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.auxpm_fused_weights(
+            chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), b, s, n, LIKELIHOOD_IDS[likelihood],
+            int(whiten_dtype == "bfloat16"),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "fused_weights_kernel")
+    launches_w += 1
+    return out
+
+
+def fused_weights(chol, u, y, mask, likelihood="logistic",
+                  whiten_dtype="float32"):
+    """``chol (B, n, n), u (B, S_local, n) -> (B, S_local)`` per-sample
+    log-weights.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors take the plain
+    version."""
+    _check_names(likelihood, whiten_dtype)
+    if u.device.type == "cpu":
+        return _ref_weights(chol, u, y, mask, likelihood, whiten_dtype)
+    return _cuda_weights(chol, u, y, mask, likelihood, whiten_dtype)
+
+
+def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
+                      active):
+    global launches_rot_w
+    if chol.dim() != 3 or u.dim() != 3:
+        raise ValueError("expected chol (B, n, n) and u (B, S, n)")
+    b, s, n = u.shape
+    if (chol.shape != (b, n, n) or v.shape != u.shape or angle.shape != (b,)
+            or y.shape != (n,) or mask.shape != (n,)
+            or (active is not None and active.shape != (b,))):
+        raise ValueError(
+            f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
+            f"v {tuple(v.shape)}, angle {tuple(angle.shape)}"
+        )
+    check_probe_shapes(s, n)
+    tensors = dict(chol=chol, u=u, v=v, angle=angle, y=y, mask=mask)
+    if active is not None:
+        tensors["active"] = active
+    device = _build.require_f32_contiguous(**tensors)
+    lib = _build.load_library()
+    out = torch.empty((b, s), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.auxpm_fused_rot_weights(
+            chol.data_ptr(), u.data_ptr(), v.data_ptr(), angle.data_ptr(),
+            None if active is None else active.data_ptr(), y.data_ptr(),
+            mask.data_ptr(), out.data_ptr(), b, s, n,
+            LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check_launch(err, "fused_rot_weights_kernel")
+    launches_rot_w += 1
+    return out
+
+
+def fused_rot_weights(chol, u, v, angle, y, mask, likelihood="logistic",
+                      whiten_dtype="float32", active=None):
+    """``chol (B, n, n), u, v (B, S_local, n), angle (B,) -> (B, S_local)``:
+    the per-sample log-weights at ``u cos a + v sin a``.  ``active (B,)``
+    float32, optional: chains with 0 are skipped and give 0.
+
+    CUDA tensors go to the kernel (or raise); CPU tensors take the plain
+    version."""
+    _check_names(likelihood, whiten_dtype)
+    if u.device.type == "cpu":
+        return _ref_rot_weights(chol, u, v, angle, y, mask, likelihood,
+                                whiten_dtype, active)
+    return _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood,
+                             whiten_dtype, active)
 
 
 def make_fused_estimator(y, mask, likelihood="logistic", n_blocks=1,
@@ -228,6 +341,24 @@ def make_fused_rot_estimator(y, mask, likelihood="logistic", n_blocks=1,
     return lambda chol, u, v, angle, active=None: fused_estimate_rot(
         chol, u, v, angle, y, mask, likelihood, n_blocks, None, whiten_dtype,
         active)
+
+
+def make_fused_weights(y, mask, likelihood="logistic", whiten_dtype="float32"):
+    """Returns ``lw(chol (B,n,n), u (B,S_local,n)) -> (B, S_local)``."""
+    y = y.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return lambda chol, u: fused_weights(chol, u, y, mask, likelihood,
+                                         whiten_dtype)
+
+
+def make_fused_rot_weights(y, mask, likelihood="logistic",
+                           whiten_dtype="float32"):
+    """Returns ``lw(chol, u, v, angle, active=None) -> (B, S_local)`` at the
+    rotated proposal."""
+    y = y.to(torch.float32).contiguous()
+    mask = mask.to(torch.float32).contiguous()
+    return lambda chol, u, v, angle, active=None: fused_rot_weights(
+        chol, u, v, angle, y, mask, likelihood, whiten_dtype, active)
 
 
 def probe_flops(s, n):

@@ -1,0 +1,103 @@
+"""Cross-rank reductions, batched over a leading chains axis.
+
+Counterpart of ``auxpm_tpu/parallel/collectives.py`` on a process group of
+``torch.distributed``.  Every function leaves bitwise the same result on every
+rank of its group: the ranks of a particle group take their accept and shrink
+decisions, and so the trip counts of their batched loops, from these values,
+and a rank that decided otherwise would wait in a collective the others never
+enter.
+
+The gather of block partials is written as ``all_reduce(SUM)`` into a zeroed
+buffer in which each rank filled only its own row.  Adding 0.0 is exact (a
+``-0.0`` max comes back as ``+0.0``, which no sum or comparison downstream
+tells apart), the rows come back in rank order by construction, and
+``all_reduce`` is the one collective that both NCCL and gloo provide for CUDA
+tensors (gloo has no ``all_gather`` for them), so one code path serves one
+card per rank, ranks sharing a card, and the CPU.
+
+``calls`` counts the collectives this rank has entered.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from auxpm_tpu_torch.ops.logsumexp import (
+    _finite_or_zero,
+    block_partials,
+    combine_block_partials,
+)
+
+calls = 0
+
+
+def _all_reduce(x, op, group):
+    global calls
+    dist.all_reduce(x, op=op, group=group)
+    calls += 1
+    return x
+
+
+def psum_logsumexp(log_w_local, mesh):
+    """Global log-sum-exp over the last axis AND the particle group of
+    ``log_w_local (..., S_local)``: global max, then the sum of the shifted
+    exponential sums.  Two small collectives; the association of the sum is
+    the backend's, so this is exact but not the blocked tree."""
+    group = mesh.particle_group
+    m = _all_reduce(log_w_local.max(dim=-1).values.contiguous(),
+                    dist.ReduceOp.MAX, group)
+    m_safe = _finite_or_zero(m)
+    s = _all_reduce(torch.exp(log_w_local - m_safe[..., None]).sum(-1),
+                    dist.ReduceOp.SUM, group)
+    return torch.log(s) + m_safe
+
+
+def allgather_blocked_logsumexp(logw_local, n_blocks_local, mesh):
+    """Global blocked log-sum-exp of ``logw_local (B, S_local)``: the same
+    value on every rank, and the same fold as the unsharded
+    ``ops.logsumexp.blocked_logsumexp`` at ``K * n_blocks_local`` blocks.
+
+    Each rank computes the (max, shifted sum) partials of its own contiguous
+    blocks, the partials of all ranks are gathered in rank order (which is
+    global block order: a rank's rows are one contiguous slice), and every
+    rank folds them left to right."""
+    k, pi = mesh.n_particle_shards, mesh.particle_index
+    m, se = block_partials(logw_local, n_blocks_local)     # (B, nb_local)
+    buf = torch.zeros((k, 2, *m.shape), dtype=m.dtype, device=m.device)
+    buf[pi, 0] = m
+    buf[pi, 1] = se
+    _all_reduce(buf, dist.ReduceOp.SUM, mesh.particle_group)
+    # (K, B, nb_local) -> (B, K * nb_local): shard-major is global order
+    m_all = buf[:, 0].movedim(0, -2).reshape(*m.shape[:-1], -1)
+    se_all = buf[:, 1].movedim(0, -2).reshape(*m.shape[:-1], -1)
+    return combine_block_partials(m_all, se_all)
+
+
+def pmean_tree(tree, group, size):
+    """Mean over the ``size`` ranks of ``group`` of every tensor in the dict
+    ``tree`` (one collective for the whole dict)."""
+    if size == 1 or not tree:
+        return dict(tree)
+    keys = sorted(tree)
+    flat = torch.cat([tree[k].reshape(-1).to(torch.float32) for k in keys])
+    _all_reduce(flat, dist.ReduceOp.SUM, group)
+    flat = flat / size
+    out, at = {}, 0
+    for k in keys:
+        n = tree[k].numel()
+        out[k] = flat[at:at + n].reshape(tree[k].shape)
+        at += n
+    return out
+
+
+def allgather_chains(x, mesh):
+    """``x (B_local, ...)`` of every chain shard stacked in shard order,
+    ``(C * B_local, ...)``, on every rank of the chain group."""
+    c, ci = mesh.n_chain_shards, mesh.chain_index
+    if c == 1:
+        return x
+    buf = torch.zeros((c, *x.shape), dtype=x.dtype, device=x.device)
+    buf[ci] = x
+    _all_reduce(buf, dist.ReduceOp.SUM, mesh.chain_group)
+    return buf.reshape(-1, *x.shape[1:])

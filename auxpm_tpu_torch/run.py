@@ -5,6 +5,15 @@
     python -m auxpm_tpu_torch.run --preset pima_ard_aux
     AUXPM_ESS_SWEEP=0 python -m auxpm_tpu_torch.run --preset pima_ard_aux
     python -m auxpm_tpu_torch.run --list-presets
+    torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sharded true \
+        --particle-shards 2 --preset pima_aux_slice --max-step-out 0 ...
+
+``--sharded true`` runs on the ``torch.distributed`` world that ``torchrun``
+started: ``world / K`` chain shards by ``--particle-shards K`` particle shards
+(``parallel/mesh.py``).  With K > 1 each chain's S importance samples are
+split over the K ranks of a particle group and the estimator's log-sum-exp is
+a collective; rank 0 alone prints and writes metrics.  One card per rank runs
+on NCCL; ranks that share a card (or the CPU) on gloo.
 
 ``AUXPM_ESS_SWEEP=0`` in the environment sends the elliptical-slice update
 through its per-probe loop instead of the whole-sweep kernel.
@@ -20,6 +29,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -51,9 +61,10 @@ def main(argv=None, result=None):
     """Run the configured sampler; returns the exit code.
 
     ``result``: optional dict that is filled with the final ``states``,
-    ``params``, the ``target``, the recorded ``theta``, the per-window
-    metrics (``windows``) and the ``summary``, for a caller that drives the
-    CLI from Python."""
+    ``params``, the ``target``, the ``step``, the recorded ``theta``, the
+    per-window metrics (``windows``), the ``summary`` and, for a sharded run,
+    this rank's ``mesh`` (states and target are then the rank's share), for
+    a caller that drives the CLI from Python."""
     args = parse_args(argv)
     from auxpm_tpu_torch.utils.config import PRESETS, build_target, initial_params
 
@@ -83,43 +94,85 @@ def main(argv=None, result=None):
     )
     from auxpm_tpu_torch.utils.metrics import MetricsWriter, logger
 
-    device = resolve_device(cfg.device)
+    mesh = None
+    if cfg.sharded:
+        from auxpm_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+        world = int(os.environ.get("WORLD_SIZE", "0"))
+        if 0 < world < cfg.particle_shards:
+            raise RuntimeError(
+                f"--particle-shards {cfg.particle_shards} needs at least "
+                f"that many ranks, the world has {world}; start them with "
+                f"`torchrun --nproc-per-node {cfg.particle_shards} -m "
+                "auxpm_tpu_torch.run --sharded true ...`")
+        device = distributed_init(cfg.device)   # raises without a world
+        cfg = cfg.replace(device=str(device))
+        mesh = make_mesh(cfg.particle_shards)
+    else:
+        device = resolve_device(cfg.device)
+    lead = mesh is None or mesh.rank == 0      # the rank that reports
     on_gpu = device.type == "cuda"
     device_name = torch.cuda.get_device_name(device) if on_gpu else "cpu"
-    logger.info(f"preset={cfg.preset} device={device} ({device_name})")
+    if lead:
+        logger.info(f"preset={cfg.preset} device={device} ({device_name})"
+                    + ("" if mesh is None else
+                       f" mesh={mesh.n_chain_shards}x{mesh.n_particle_shards}"))
 
     def sync():
         if on_gpu:
             torch.cuda.synchronize(device)
 
     target = build_target(cfg)
-    metrics = MetricsWriter(cfg.metrics_path)
+    metrics = MetricsWriter(cfg.metrics_path if lead else None,
+                            quiet=not lead)
     params = initial_params(cfg, target)
+    n_chains, particle_axis = cfg.chains, None
+    if mesh is not None:
+        from auxpm_tpu_torch.parallel.sharded_chain import run_chains_sharded
+
+        if cfg.chains % mesh.n_chain_shards:
+            raise ValueError(f"--chains {cfg.chains} does not split over "
+                             f"{mesh.n_chain_shards} chain shards")
+        n_chains = cfg.chains // mesh.n_chain_shards
+        if mesh.n_particle_shards > 1:
+            from auxpm_tpu_torch.parallel.particle_shard import (
+                shard_target_particles,
+            )
+
+            target, _ = shard_target_particles(target, mesh)
+            particle_axis = mesh
     states = init_chain_states(
-        cfg.seed, target, cfg.chains, jitter_scale=cfg.jitter_scale,
-        with_cache=cfg.chol_cache,
+        cfg.seed, target, n_chains, jitter_scale=cfg.jitter_scale,
+        with_cache=cfg.chol_cache, mesh=mesh,
     )
-    step = SAMPLERS[cfg.sampler](target, n_ess=cfg.n_ess,
+    step = SAMPLERS[cfg.sampler](target, particle_axis=particle_axis,
+                                 n_ess=cfg.n_ess,
                                  n_sigma_extra=cfg.n_sigma_extra)
 
-    def run_step_fn(t, s, p, n):
+    def run_step_fn(t, s, p, n, gather=False):
+        if mesh is not None:
+            return run_chains_sharded(t, s, p, n, mesh, thin=cfg.thin,
+                                      gather=gather)
         return run_chains(t, s, p, n, thin=cfg.thin)
 
     t0 = time.time()
     states, params, history = warmup(
         run_step_fn, states, params, cfg.warmup_windows, cfg.window_steps,
-        step=step,
+        step=step, mesh=mesh,
     )
     sync()
     for h in history:
         metrics.write({"phase": "warmup", **h})
-    logger.info(f"warmup done in {time.time()-t0:.1f}s; params={params}")
+    if lead:
+        logger.info(f"warmup done in {time.time()-t0:.1f}s; params={params}")
 
     all_theta, windows = [], []
     t0 = time.time()
     n_windows = max(cfg.steps // cfg.window_steps, 1)
     for w in range(n_windows):
-        states, recs, infos = run_step_fn(step, states, params, cfg.window_steps)
+        # every chain shard's records, for the report
+        states, recs, infos = run_step_fn(step, states, params,
+                                          cfg.window_steps, gather=True)
         # one copy to the host per window (it also waits for the device)
         all_theta.append(recs["theta"].cpu().numpy())
         windows.append(
@@ -149,13 +202,15 @@ def main(argv=None, result=None):
     }
     metrics.write(summary)
     metrics.close()
-    print(json.dumps(summary))
-    if cfg.out:
+    if lead:
+        print(json.dumps(summary))
+    if cfg.out and lead:
         np.savez(cfg.out, theta=theta)
         logger.info(f"chains saved to {cfg.out}")
     if result is not None:
         result.update(states=states, params=params, target=target,
-                      theta=theta, windows=windows, summary=summary)
+                      theta=theta, windows=windows, summary=summary,
+                      mesh=mesh, step=step)
     return 0
 
 

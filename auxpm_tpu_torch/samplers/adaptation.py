@@ -6,6 +6,12 @@ those samplers).  Slice widths are set to ``width_scale`` x the global
 per-coordinate posterior std of the window's samples over ALL chains,
 clamped to a sane range.  Warm-up only: params are frozen afterwards, so the
 main chain is a fixed valid kernel.
+
+On a mesh with several chain shards a rank sees only its own chains: the
+window's moments (and the means of the infos, for the log) are averaged over
+the chain group with ``parallel/collectives.pmean_tree``, mean first and the
+squared deviations from the GLOBAL mean second, so every rank arrives at the
+same widths.
 """
 
 from __future__ import annotations
@@ -13,13 +19,31 @@ from __future__ import annotations
 import torch
 
 
+def _chain_shards(mesh):
+    return 1 if mesh is None else mesh.n_chain_shards
+
+
+def _global_std(theta, mesh):
+    """Per-coordinate std of ``theta (chains, steps, d)`` over the chains of
+    ALL chain shards (equal shares)."""
+    flat = theta.reshape(-1, theta.shape[-1])
+    if _chain_shards(mesh) == 1:
+        return flat.std(dim=0, unbiased=False)
+    from auxpm_tpu_torch.parallel.collectives import pmean_tree
+
+    c, group = mesh.n_chain_shards, mesh.chain_group
+    mean = pmean_tree({"m": flat.mean(0)}, group, c)["m"]
+    var = pmean_tree({"v": ((flat - mean) ** 2).mean(0)}, group, c)["v"]
+    return torch.sqrt(var)
+
+
 def adapt_params(params, recs, infos, width_scale=2.0,
-                 width_bounds=(1e-3, 1e3)):
-    """One window update; returns a new params dict."""
+                 width_bounds=(1e-3, 1e3), mesh=None):
+    """One window update; returns a new params dict.  ``mesh``: this rank's
+    ``parallel.mesh.Mesh`` when ``recs`` hold one chain shard's chains."""
     new = {k: dict(v) if isinstance(v, dict) else v for k, v in params.items()}
     if any(k.startswith("slice_theta/") for k in infos):
-        theta = recs["theta"]
-        stds = theta.reshape(-1, theta.shape[-1]).std(dim=0, unbiased=False)
+        stds = _global_std(recs["theta"], mesh)
         g = dict(new.get("slice_theta", {}))
         g["widths"] = torch.clamp(width_scale * stds, *width_bounds).to(
             torch.float32)
@@ -27,16 +51,21 @@ def adapt_params(params, recs, infos, width_scale=2.0,
     return new
 
 
-def warmup(run_fn, states, params, n_windows, window_size, step, **adapt_kw):
+def warmup(run_fn, states, params, n_windows, window_size, step, mesh=None,
+           **adapt_kw):
     """Run ``n_windows`` adaptation windows; returns (states, params, log).
 
     ``run_fn(transition, states, params, n_steps) -> (states, recs, infos)``
-    is the chain runner; ``step`` is the transition."""
+    is the chain runner; ``step`` is the transition; ``mesh`` as in
+    ``adapt_params`` (the log then holds the means over all chain shards)."""
     history = []
     for w in range(n_windows):
         states, recs, infos = run_fn(step, states, params, window_size)
-        params = adapt_params(params, recs, infos, **adapt_kw)
-        history.append(
-            {"window": w, **{k: float(v.mean()) for k, v in infos.items()}}
-        )
+        params = adapt_params(params, recs, infos, mesh=mesh, **adapt_kw)
+        means = {k: v.mean() for k, v in infos.items()}
+        if _chain_shards(mesh) > 1:
+            from auxpm_tpu_torch.parallel.collectives import pmean_tree
+
+            means = pmean_tree(means, mesh.chain_group, mesh.n_chain_shards)
+        history.append({"window": w, **{k: float(v) for k, v in means.items()}})
     return states, params, history

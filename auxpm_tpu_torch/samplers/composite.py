@@ -19,7 +19,9 @@ def make_aux_slice(target, particle_axis=None, n_ess=1, n_sigma_extra=0):
 
     ``n_ess`` repeats the elliptical-slice u-update per iteration (the
     repeats are Cholesky-free: theta is fixed); ``n_sigma_extra`` repeats the
-    Cholesky-free log_sigma slice update per sweep."""
+    Cholesky-free log_sigma slice update per sweep.  ``particle_axis``: this
+    rank's ``parallel.mesh.Mesh`` when ``target`` is particle sharded (only
+    the u-update draws u-shaped rows and needs to know)."""
     return compose(
         [
             ("ess_u", make_ess_u(target, particle_axis, n_repeats=n_ess)),

@@ -18,8 +18,9 @@ one (the step then pays no Cholesky).  Two paths, with the same random rows:
 
 - whole sweep: all ``n_repeats`` updates, every probe included, as ONE call
   of the target's sweep (``ops/ess_sweep.py``).  Taken when the target has an
-  ``ess_sweep_factory``, unless the environment says ``AUXPM_ESS_SWEEP=0``
-  (read when the transition is built, as the reference reads it);
+  ``ess_sweep_factory`` and is not particle sharded, unless the environment
+  says ``AUXPM_ESS_SWEEP=0`` (read when the transition is built, as the
+  reference reads it);
 - per-probe loop: a BATCHED Python loop over bracket shrinks with a per-chain
   ``done`` mask, one estimator call per round.  A probe carries only the
   angle: with ``target.log_lik_est_rot`` the rotation is fused into the
@@ -50,17 +51,22 @@ _TWO_PI = 2.0 * math.pi
 
 
 def make_ess_u(target, particle_axis=None, n_repeats=1):
+    """``particle_axis``: this rank's ``parallel.mesh.Mesh`` when ``target``
+    is particle sharded.  The update then takes the per-probe loop (a sweep
+    kernel reduces over S inside its block), v is drawn block by block from
+    the state's block generators, and every probe is one call of the
+    target's collective estimator."""
     if particle_axis is not None:
-        raise NotImplementedError(
-            "particle sharding is not ported yet; see ROADMAP.md"
-        )
+        from auxpm_tpu_torch.parallel.mesh import require_mesh
+
+        require_mesh(particle_axis)
     # AUXPM_ESS_SWEEP=0 disables the whole-sweep path (A/B runs); read at
     # build time like the reference's other environment switches
     sweep = None
-    if (target.ess_sweep_factory is not None
+    if (target.ess_sweep_factory is not None and particle_axis is None
             and os.environ.get("AUXPM_ESS_SWEEP", "1") != "0"):
         sweep = target.ess_sweep_factory(n_repeats)
-    draw_v = make_u_normal(target)
+    draw_v = make_u_normal(target, particle_axis)
 
     def _prepare(state):
         cache = state.extras.get("target_cache")
@@ -74,7 +80,8 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
         ``v (B, R, S, n)``."""
         b = state.u.shape[0]
         dev = state.u.device
-        v = draw_v(generator, (b, n_repeats, *state.u.shape[1:]))
+        v = draw_v(generator, (b, n_repeats, *state.u.shape[1:]),
+                   state.block_generators)
         unif = torch.rand((b, n_repeats, 2 + MAX_SHRINK), generator=generator,
                           dtype=torch.float32, device=dev)
         scal = torch.empty((b, n_repeats, 3 + MAX_SHRINK),

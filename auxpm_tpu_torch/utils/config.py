@@ -4,7 +4,8 @@ Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
 same here.  Fields that select a part of the system not ported yet (other
 samplers than ``aux_slice``, the Laplace proposal, other datasets than Pima,
-SMC, sharding, checkpoints, plots, profile traces) are accepted by the parser
+SMC, multi-host runs, checkpoints, plots, profile traces) are accepted by the
+parser
 and refused with ``NotImplementedError`` when used (``unsupported``).
 ``PRESETS`` holds the presets the port can run.
 """
@@ -116,8 +117,10 @@ def unsupported(cfg: RunConfig):
         asked.append("proposal='laplace'")
     if cfg.target == "gp" and cfg.dataset != "pima":
         asked.append(f"dataset={cfg.dataset!r}")
-    if cfg.sharded or cfg.multihost or cfg.particle_shards > 1:
-        asked.append("sharded / multihost / particle_shards")
+    if cfg.multihost:
+        asked.append("multihost")
+    if cfg.particle_shards > 1 and not cfg.sharded:
+        raise ValueError("--particle-shards > 1 needs --sharded true")
     for field in ("profile_dir", "checkpoint_dir", "plots"):
         if getattr(cfg, field):
             asked.append(field)

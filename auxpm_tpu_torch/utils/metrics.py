@@ -22,10 +22,13 @@ if not logger.handlers:
 
 
 class MetricsWriter:
-    """Append-only JSONL metrics file (no file when ``path`` is None)."""
+    """Append-only JSONL metrics file (no file when ``path`` is None);
+    ``quiet`` also keeps the records out of the log (the ranks of a sharded
+    run that do not report)."""
 
-    def __init__(self, path=None):
+    def __init__(self, path=None, quiet=False):
         self.path = path
+        self.quiet = quiet
         self.t0 = time.time()
         self._fh = None
         if path:
@@ -37,6 +40,8 @@ class MetricsWriter:
         if self._fh:
             self._fh.write(json.dumps(record, default=float) + "\n")
             self._fh.flush()
+        if self.quiet:
+            return
         logger.info(
             " ".join(
                 f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"

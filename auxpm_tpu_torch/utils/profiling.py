@@ -32,7 +32,8 @@ def profile_steps(step, states, params, n_steps):
 
     # wall time from an untraced run of the same length: tracing the host
     # side slows the Python loop many times over
-    generator_state = states.generator.get_state()
+    generators = (states.generator, *states.block_generators)
+    generator_states = [g.get_state() for g in generators]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probe_states = states
@@ -40,7 +41,8 @@ def profile_steps(step, states, params, n_steps):
         probe_states, _ = step(probe_states, params)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    states.generator.set_state(generator_state)  # trace the same steps
+    for g, saved in zip(generators, generator_states):
+        g.set_state(saved)  # trace the same steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):

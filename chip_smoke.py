@@ -3,19 +3,22 @@
 
 Drives the port's main paths through ``auxpm_tpu_torch.run.main`` (BASELINE
 config 2 with the bench settings: ``aux_slice`` on the GP classification
-posterior, Pima n=532 padded to 640, S=64, 128 chains; and the preset
+posterior, Pima n=532 padded to 640, S=64, 128 chains; the preset
 ``pima_ard_aux`` as the CLI runs it: ARD kernel, theta of 8, 64 chains,
 stepping-out slices, once with the whole-sweep elliptical-slice kernel and
-once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop) and holds each of its six
+once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop; and config 2 again with
+``--sharded true --particle-shards 2``: two ranks on the one card, each
+holding 32 of every chain's 64 importance samples) and holds each of its ten
 hand-written CUDA kernels against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. ``device``     the card (name and power limit from ``nvidia-smi``) and the
                   build of ``auxpm_tpu_torch/csrc/*.cu`` with ``nvcc``;
 2. ``kernels``    each kernel vs its plain version at the main paths' shapes
-                  (B=128 and 64, S=64, n=640, d=7), timed with CUDA events
-                  between L2 flushes, beside the least time the card could
-                  take;
+                  (B=128 and 64, S=64 and S_local=32, n=640, d=7; 128 tiles),
+                  timed with CUDA events between L2 flushes, beside the least
+                  time the card could take; the weights kernels' rows must
+                  not depend on the rows that share their call (bitwise);
 3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
                   the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
@@ -27,7 +30,18 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   make; then launches and host synchronisations per step from
                   a short profiled window;
 6. ``path_parity_ard`` one step from the loop run's final state, the new
-                  kernels and the estimator vs their plain versions.
+                  kernels and the estimator vs their plain versions;
+7. ``main_path_sharded`` the sharded CLI run on two spawned ranks: both must
+                  launch the two weights kernels and no estimator or sweep
+                  kernel, and end with bitwise the same theta and log L-hat;
+                  then a short profiled window on rank 0;
+8. ``path_parity_sharded`` one step from phase 3's final state on the same
+                  rows, two ranks against the unsharded per-probe path: equal
+                  counts, values within 1e-4, the two ranks bitwise equal;
+9. ``chol_variants`` ``utils/chol_bench.bench`` (``torch.linalg.cholesky`` and
+                  the v1, v2, v3 routes at B=128, n=640) and ``cholesky_fast``
+                  at n=532: each backward error below 1e-5 relative, each
+                  panel inverse residual below 1e-4.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -47,7 +61,10 @@ of its largest term, so the bar is 8 eps max(sq), computed from the inputs.
 The ARD step as a whole (``path_parity_ard``): the two paths build every
 probe's Gram by different routines, and entries that differ by ~1e-6 move an
 estimate taken through the factor of a matrix whose smallest eigenvalues are
-the 1e-5 jitter by up to ~1e-2 (``ARD_PATH_LL_TOL``).  A step is ~60 decisions
+the 1e-5 jitter by up to ~2e-2 (measured 2.2e-2 and 1.5e-2 between chains
+that agreed in every count; ``ARD_PATH_LL_TOL`` = 2.5e-2, since a window
+narrower than the differences it has to excuse lets a run fail on its draw of
+random numbers).  A step is ~60 decisions
 per chain, so chains with a decision inside that window are common: they are
 excused and counted (at most ``ARD_MAX_AMBIGUOUS_SHARE`` of the chains), the
 others must agree in every count.  The sampled lengthscales are long (ell
@@ -75,7 +92,11 @@ BF16_SCALED_TOL = 2e-2
 PATH_CHOL_TOL, PATH_LL_TOL = 1e-2, 5e-2   # through a refactorisation
 MAX_AMBIGUOUS = 2
 B_ARD, D_ARD = 64, 7
-ARD_PATH_LL_TOL, ARD_MAX_AMBIGUOUS_SHARE = 1e-2, 0.5
+K_SHARDS, S_LOCAL = 2, 32          # the particle-sharded path: two ranks
+COMBINE_RTOL = 2e-6                # weights + combine vs the fused estimate
+SHARDED_LL_TOL = 1e-4              # sharded step vs the unsharded loop path
+CHOL_BACK_RTOL, CHOL_INV_TOL = 1e-5, 1e-4
+ARD_PATH_LL_TOL, ARD_MAX_AMBIGUOUS_SHARE = 2.5e-2, 0.5
 ARD_PATH_CHOL_TOL = 2e-2   # ARD Grams at long lengthscales: see the note above
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
@@ -84,6 +105,13 @@ CLI_ARGS = [
     "--n-ess", str(N_ESS), "--n-sigma-extra", str(N_SIGMA - 1),
     "--max-shrink-chol", "3", "--warmup-windows", "2", "--window-steps", "10",
     "--steps", "20",
+]
+SHARDED_CLI_ARGS = [
+    "--sharded", "true", "--particle-shards", str(K_SHARDS),
+    "--preset", "pima_aux_slice", "--chains", str(B), "--max-step-out", "0",
+    "--n-ess", str(N_ESS), "--n-sigma-extra", str(N_SIGMA - 1),
+    "--max-shrink-chol", "3", "--warmup-windows", "1", "--window-steps", "3",
+    "--steps", "6",
 ]
 ARD_CLI_ARGS = [
     "--preset", "pima_ard_aux", "--warmup-windows", "1", "--window-steps", "5",
@@ -550,6 +578,155 @@ def main():
         "bound_ms_B128": bound(4 * (B * (N * N + N * D_ARD) + N), 0)[0],
     }
 
+    # ------------------------------------------- per-sample weights kernels
+    log("kernels: per-sample weights (plain and rotated)")
+    u_loc = u[:, :S_LOCAL].contiguous()
+    v_loc = v0[:, :S_LOCAL].contiguous()
+    w_err, wr_err = {}, {}
+    for lik, wd in (("logistic", "float32"), ("probit", "float32"),
+                    ("logistic", "bfloat16")):
+        tol = LL_TOL if wd == "float32" else BF16_SCALED_TOL
+        w_err[f"{lik}/{wd}"] = check_close(
+            "fused_weights", f"{lik}/{wd}",
+            fe.fused_weights(chol, u_loc, y, mask, lik, wd),
+            fe._ref_weights(chol, u_loc, y, mask, lik, wd), tol, rtol=LL_RTOL)
+        wr_err[f"{lik}/{wd}"] = check_close(
+            "fused_rot_weights", f"{lik}/{wd}",
+            fe.fused_rot_weights(chol, u_loc, v_loc, angle, y, mask, lik, wd),
+            fe._ref_rot_weights(chol, u_loc, v_loc, angle, y, mask, lik, wd),
+            tol, rtol=LL_RTOL)
+    # a row's weight must not depend on which rows share its call: the
+    # particle-sharded estimator rests on it
+    lw_full = fe.fused_weights(chol, u, y, mask)
+    lwr_full = fe.fused_rot_weights(chol, u, v0, angle, y, mask)
+    rows_bitwise = True
+    for s_loc in (8, 16, 32):
+        for r0 in range(0, S, s_loc):
+            sl = slice(r0, r0 + s_loc)
+            rows_bitwise &= torch.equal(
+                fe.fused_weights(chol, u[:, sl].contiguous(), y, mask),
+                lw_full[:, sl])
+            rows_bitwise &= torch.equal(
+                fe.fused_rot_weights(chol, u[:, sl].contiguous(),
+                                     v0[:, sl].contiguous(), angle, y, mask),
+                lwr_full[:, sl])
+    if not rows_bitwise:
+        failures.append("fused_weights: a row's weight depends on the rows "
+                        "that share its call")
+    # weights + the fold of the block partials against the fused estimate
+    from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+    est_full = fe.fused_estimate(chol, u, y, mask, "logistic", 8)
+    comb = blocked_logsumexp(lw_full, 8) - float(np.log(np.float32(S)))
+    combine_rel = float(((comb - est_full) / est_full).abs().max())
+    if not combine_rel <= COMBINE_RTOL:
+        failures.append(f"fused_weights + combine vs fused_estimate: "
+                        f"{combine_rel:.3e} relative")
+    k_act = fe.fused_rot_weights(chol, u_loc, v_loc, angle, y, mask,
+                                 "logistic", "float32", active)
+    k_all = fe.fused_rot_weights(chol, u_loc, v_loc, angle, y, mask)
+    if not (torch.equal(k_act[active != 0], k_all[active != 0])
+            and bool((k_act[active == 0] == 0).all())):
+        failures.append("fused_rot_weights: the active mask changed a wanted "
+                        "chain or did not zero an unwanted one")
+    w_extra = {"rows_bitwise_independent": rows_bitwise,
+               "combine_vs_estimate_bitwise": torch.equal(comb, est_full),
+               "combine_vs_estimate_max_rel": combine_rel,
+               "shape": {"B": B, "S_local": S_LOCAL, "n": N},
+               # a block computes 64 rows whatever S_local is
+               "share_of_products_on_pad_rows": 1.0 - S_LOCAL / 64.0}
+    b_ms, b_by = bound(4 * (B * (N * N + S_LOCAL * N + S_LOCAL) + 2 * N),
+                       B * fe.probe_flops(S_LOCAL, N))
+    kernels["fused_weights"] = {
+        "name": "fused_weights", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/fused_estimator.cu",
+        "replaces": "auxpm_tpu/ops/fused_estimator.py:437",
+        "max_abs_err": w_err["logistic/float32"], "tol": LL_TOL,
+        "variants_max_abs_err": w_err, **w_extra,
+        "ms": time_ms(lambda: fe.fused_weights(chol, u_loc, y, mask)),
+        "plain_ms": time_ms(lambda: fe._ref_weights(chol, u_loc, y, mask,
+                                                    "logistic")),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_S64": time_ms(lambda: fe.fused_weights(chol, u, y, mask)),
+    }
+    b_ms, b_by = bound(4 * (B * (N * N + 2 * S_LOCAL * N + S_LOCAL + 2)
+                            + 2 * N), B * fe.probe_flops(S_LOCAL, N))
+    kernels["fused_rot_weights"] = {
+        "name": "fused_rot_weights", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/fused_estimator.cu",
+        "replaces": "auxpm_tpu/ops/fused_estimator.py:461",
+        "max_abs_err": wr_err["logistic/float32"], "tol": LL_TOL,
+        "variants_max_abs_err": wr_err,
+        "shape": {"B": B, "S_local": S_LOCAL, "n": N},
+        "ms": time_ms(lambda: fe.fused_rot_weights(chol, u_loc, v_loc, angle,
+                                                   y, mask)),
+        "plain_ms": time_ms(lambda: fe._ref_rot_weights(
+            chol, u_loc, v_loc, angle, y, mask, "logistic")),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+    # ------------------------------------------- Cholesky panels v1 and v2
+    log("kernels: Cholesky panels v1 and v2")
+    l1_k, x1_k = chol_hopper.chol_panel_batched(tiles)
+    l1_p, x1_p = chol_hopper._ref_chol_panel_v1(tiles)
+    l2_k = chol_hopper.chol_panel_batched2(tiles)
+    l2_p = chol_hopper._ref_chol_panel_v2(tiles)
+    torch.cuda.synchronize()
+    err_l1 = check_close("chol_panel_v1", "L", l1_k, l1_p, CHOL_TOL)
+    err_l2 = check_close("chol_panel_v2", "L", l2_k, l2_p, CHOL_TOL)
+    resid1 = max_err(torch.bmm(x1_k, l1_k), eye.expand(B, 128, 128))
+    resid2 = max_err(torch.bmm(chol_hopper.tri_inv_newton(l2_k), l2_k),
+                     eye.expand(B, 128, 128))
+    for name, r in (("v1", resid1), ("v2 + Newton", resid2)):
+        if not r <= 2e-4 * max(1.0, inv_scale):
+            failures.append(f"chol_panel {name}: |inv(L) L - I| = {r:.3e}")
+    if max(float(torch.triu(l1_k, 1).abs().max()),
+           float(torch.triu(x1_k, 1).abs().max()),
+           float(torch.triu(l2_k, 1).abs().max())) != 0.0:
+        failures.append("chol_panel v1/v2: an output is not lower triangular")
+    for name, fn in (("v1", lambda a: chol_hopper.chol_panel_batched(a)[0]),
+                     ("v2", chol_hopper.chol_panel_batched2)):
+        d_s = torch.diagonal(fn(sick), dim1=-2, dim2=-1)
+        if not bool(torch.isnan(d_s[5]).any()) or \
+                not bool(torch.isfinite(torch.cat([d_s[:5], d_s[6:]])).all()):
+            failures.append(f"chol_panel {name}: NaN contract broken")
+    # a small odd batch (one block, three blocks) gives the same tiles
+    for nb_ in (1, 3):
+        if not (torch.equal(chol_hopper.chol_panel_batched(
+                    tiles[:nb_].contiguous())[1], x1_k[:nb_])
+                and torch.equal(chol_hopper.chol_panel_batched2(
+                    tiles[:nb_].contiguous()), l2_k[:nb_])):
+            failures.append(f"chol_panel v1/v2: a batch of {nb_} differs")
+
+    def _lib_v1():
+        l_ = torch.linalg.cholesky(tiles)
+        return torch.linalg.solve_triangular(l_, eye.expand_as(l_),
+                                             upper=False)
+
+    b_ms, b_by = bound(4 * 3 * B * 128 * 128, B * 2 * 128**3 / 3.0)
+    kernels["chol_panel_v1"] = {
+        "name": "chol_panel_v1", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/chol_panel_v12.cu",
+        "replaces": "auxpm_tpu/ops/chol_pallas.py:108",
+        "max_abs_err": err_l1, "tol": CHOL_TOL, "inverse_residual": resid1,
+        "ms": time_ms(lambda: chol_hopper.chol_panel_batched(tiles)),
+        "plain_ms": time_ms(lambda: chol_hopper._ref_chol_panel_v1(tiles)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # two PyTorch calls: the factor, then the triangular solve
+        "library_ms": time_ms(_lib_v1), "library_calls": 2,
+    }
+    b_ms, b_by = bound(4 * 2 * B * 128 * 128, B * 128**3 / 3.0)
+    kernels["chol_panel_v2"] = {
+        "name": "chol_panel_v2", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/chol_panel_v12.cu",
+        "replaces": "auxpm_tpu/ops/chol_pallas.py:262",
+        "max_abs_err": err_l2, "tol": CHOL_TOL,
+        "newton_inverse_residual": resid2,
+        "ms": time_ms(lambda: chol_hopper.chol_panel_batched2(tiles)),
+        "plain_ms": time_ms(lambda: chol_hopper._ref_chol_panel_v2(tiles)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: torch.linalg.cholesky(tiles)),
+    }
+
     # ------------------------------------------- a small shape, the shrink cap
     log("kernels: a small shape and the shrink cap")
     bs, ss, ns = 5, 16, 256
@@ -594,6 +771,19 @@ def main():
                                  angle[:bs].contiguous(), y_s, mask_s,
                                  "logistic", nb),
             LL_TOL, rtol=LL_RTOL)
+    # the weights kernels on 5 rows (a block's rows need no multiple)
+    u_5, v_5 = u_s[:, :5].contiguous(), v[:bs, 0, :5, :ns].contiguous()
+    edge["weights_S5"] = check_close(
+        "fused_weights", f"S=5 n={ns}",
+        fe.fused_weights(chol_s, u_5, y_s, mask_s),
+        fe._ref_weights(chol_s, u_5, y_s, mask_s, "logistic"), LL_TOL,
+        rtol=LL_RTOL)
+    edge["rot_weights_S5"] = check_close(
+        "fused_rot_weights", f"S=5 n={ns}",
+        fe.fused_rot_weights(chol_s, u_5, v_5, angle[:bs].contiguous(), y_s,
+                             mask_s),
+        fe._ref_rot_weights(chol_s, u_5, v_5, angle[:bs].contiguous(), y_s,
+                            mask_s, "logistic"), LL_TOL, rtol=LL_RTOL)
     # an odd Gram shape: n not a multiple of the 64-tile, d = 3
     x_odd = t(rng.standard_normal((100, 3)))
     le_odd = t(rng.normal(size=(bs, 3)) * 0.5)
@@ -620,7 +810,13 @@ def main():
                 "ess_sweep": (ess, "launches"),
                 "sigma_sweep": (sig, "launches"),
                 "fused_estimator_rot": (fe, "launches_rot"),
-                "se_gram_ard": (gr, "launches")}
+                "se_gram_ard": (gr, "launches"),
+                "fused_weights": (fe, "launches_w"),
+                "fused_rot_weights": (fe, "launches_rot_w"),
+                "chol_panel_v1": (chol_hopper, "launches_v1"),
+                "chol_panel_v2": (chol_hopper, "launches_v2")}
+    only_sharded = ("fused_weights", "fused_rot_weights")
+    only_bench = ("chol_panel_v1", "chol_panel_v2")
 
     def read_counts():
         return {name: getattr(m, attr) for name, (m, attr) in counters.items()}
@@ -647,7 +843,8 @@ def main():
 
     first_path = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep")
     result, counts = run_cli(CLI_ARGS, first_path,
-                             ("fused_estimator_rot", "se_gram_ard"))
+                             ("fused_estimator_rot", "se_gram_ard",
+                              *only_sharded, *only_bench))
     for name in first_path:
         kernels[name]["launches"] = counts[name]
     states, tgt, params = result["states"], result["target"], result["params"]
@@ -733,11 +930,12 @@ def main():
     for mode, env, must, must_not in (
             ("sweep", None,
              ("se_gram_ard", "chol_panel", "fused_estimator", "ess_sweep"),
-             ("fused_estimator_rot", "sigma_sweep")),
+             ("fused_estimator_rot", "sigma_sweep", *only_sharded,
+              *only_bench)),
             ("loop", "0",
              ("se_gram_ard", "chol_panel", "fused_estimator",
               "fused_estimator_rot"),
-             ("ess_sweep", "sigma_sweep"))):
+             ("ess_sweep", "sigma_sweep", *only_sharded, *only_bench))):
         log(f"main path (ARD, {mode}):", " ".join(ARD_CLI_ARGS))
         saved = os.environ.pop("AUXPM_ESS_SWEEP", None)
         if env is not None:
@@ -855,6 +1053,197 @@ def main():
           "of_those_outside_tolerance": n_bad_a,
           "max_abs_err": parity_a,
           "probes": {k: float(v.sum()) for k, v in ia_k.items()}})
+    end_phase()
+
+    # -------------------------------------------------- sharded main path
+    # Two ranks on the one card (gloo: NCCL refuses ranks that share a card),
+    # each holding S / 2 rows of every chain's u.  The ranks are fresh
+    # processes: they load the library built above and count their own
+    # launches, which come back with their results.
+    log("main path (sharded):", " ".join(SHARDED_CLI_ARGS))
+    from auxpm_tpu_torch.parallel import rank_jobs
+    from auxpm_tpu_torch.parallel.launch import spawn
+
+    t0 = time.time()
+    ranks = spawn(rank_jobs.cli, K_SHARDS, SHARDED_CLI_ARGS, 3,
+                  timeout_s=400, threads=0)
+    spawn_s = time.time() - t0
+    n_steps_sh = 3 + 6                    # 1 x 3 warm-up + 6 sampled
+    r0 = ranks[0]
+    for r in ranks:
+        c = r["counts"]
+        if r["u_shape"] != (B, S_LOCAL, N) or not r["device"].startswith("cuda"):
+            raise AssertionError(f"sharded rank {r['rank']}: u {r['u_shape']} "
+                                 f"on {r['device']}")
+        if c["fused_weights"] <= 0 or c["fused_rot_weights"] <= 0:
+            raise AssertionError(f"sharded rank {r['rank']} never launched a "
+                                 f"weights kernel: {c}")
+        if any(c[k_] for k_ in ("fused_estimator", "fused_estimator_rot",
+                                "ess_sweep", "sigma_sweep")):
+            raise AssertionError(f"sharded rank {r['rank']} launched an "
+                                 f"estimator or sweep kernel: {c}")
+        if not (np.isfinite(r["recorded_theta"]).all()
+                and np.isfinite(r["log_lik_hat"]).all()):
+            raise AssertionError("sharded path: non-finite theta or log L-hat")
+        if not r["cache_max_abs_err"] <= CHOL_TOL:
+            raise AssertionError("sharded path: carried factor off by "
+                                 f"{r['cache_max_abs_err']:.3e}")
+    ranks_bitwise = all(
+        np.array_equal(r["theta"], r0["theta"])
+        and np.array_equal(r["log_lik_hat"], r0["log_lik_hat"])
+        and np.array_equal(r["recorded_theta"], r0["recorded_theta"])
+        for r in ranks)
+    if not ranks_bitwise:
+        raise AssertionError("sharded path: the ranks of the particle group "
+                             "do not hold bitwise the same theta / log L-hat")
+    health_sh = _sampler_health(r0)
+    prof_sh = r0["profile"]
+    for name in only_sharded:
+        kernels[name]["launches"] = r0["counts"][name]
+    emit({"phase": "main_path_sharded", "card": smi, "args": SHARDED_CLI_ARGS,
+          "ranks": K_SHARDS, "backend": "gloo", "target": r0["target"],
+          "u_shape_per_rank": list(r0["u_shape"]),
+          "summary": r0["summary"],
+          "chain_steps_per_sec": r0["summary"]["chain_steps_per_sec"],
+          "ranks_bitwise_equal": ranks_bitwise,
+          "launches": [r["counts"] for r in ranks],
+          "launches_per_step": {
+              k_: round(r0["counts"][k_] / n_steps_sh, 2)
+              for k_ in ("fused_weights", "fused_rot_weights", "chol_panel",
+                         "collectives")},
+          "cache_max_abs_err": r0["cache_max_abs_err"], **health_sh,
+          "profile_rank0": {k_: prof_sh[k_] for k_ in (
+              "wall_ms_per_step", "device_busy_ms_per_step",
+              "device_idle_share", "kernel_launches_per_step",
+              "host_syncs_per_step", "collectives_per_step",
+              "collective_ms")},
+          "device_ms_per_step_by_kernel":
+              prof_sh["device_ms_per_step_by_kernel"],
+          "seconds_with_start_up": round(spawn_s, 1)})
+    end_phase()
+
+    # ------------------------------------------------ sharded path parity
+    # One step from the first path's final state, on the same random rows:
+    # the sharded path (two ranks) against the unsharded per-probe path
+    # (loop elliptical-slice update, per-probe log_sigma: the same algorithm
+    # with the estimator kernel where the sharded path has the weights
+    # kernel and the collective).
+    log("path parity (sharded)")
+    import dataclasses
+
+    tgt_loop = dataclasses.replace(tgt, ess_sweep_factory=None,
+                                   sigma_sweep_factory=None)
+    step_l = port_run_step(tgt_loop)
+    ess_l, sl_l = step_l.stages["ess_u"], step_l.stages["slice_theta"]
+    if ess_l.uses_sweep:
+        raise AssertionError("sharded parity: the unsharded side took the "
+                             "sweep")
+    rows_el = ess_l.draw(states.generator, states)
+    rows_sl = sl_l.draw(states.generator, states)
+    probe_log = []
+    mid_l, info_el = ess_l.apply(states, rows_el,
+                                 {**params["ess_u"], "probe_log": probe_log})
+    out_l, info_sl = sl_l.apply(mid_l, rows_sl, {**params["slice_theta"],
+                                                 "probe_log": probe_log})
+    torch.cuda.synchronize()
+    info_l = {**{f"ess_u/{k_}": v_ for k_, v_ in info_el.items()},
+              **{f"slice_theta/{k_}": v_ for k_, v_ in info_sl.items()}}
+    amb_sh = torch.zeros(B, dtype=torch.bool, device=dev)
+    for counted, margin in probe_log:
+        amb_sh |= counted & (margin.abs() <= SHARDED_LL_TOL)
+
+    def to_np(a):
+        return a.detach().cpu().numpy()
+
+    state_np = {"theta": to_np(states.theta), "u": to_np(states.u),
+                "log_lik_hat": to_np(states.log_lik_hat),
+                "chol_r": to_np(states.extras["target_cache"]["chol_r"])}
+    rows_np = {"scal": to_np(rows_el["scal"]), "v": to_np(rows_el["v"]),
+               "reps": tuple(to_np(r) for r in rows_sl)}
+    params_np = {g: {k_: (to_np(v_) if torch.is_tensor(v_) else v_)
+                     for k_, v_ in sub.items()} for g, sub in params.items()}
+    sh = [r[0] for r in spawn(
+        rank_jobs.run_all, K_SHARDS,
+        [("step", ("gp", x, y_np, {"n_importance": S}), state_np, rows_np,
+          params_np, {"n_ess": N_ESS, "n_sigma_extra": N_SIGMA - 1}, False,
+          False)],                      # no probe log, no factor back
+        K_SHARDS, "cuda", timeout_s=400, threads=0)]
+    del state_np, rows_np
+    group_bitwise = all(np.array_equal(r["theta"], sh[0]["theta"])
+                        and np.array_equal(r["log_lik_hat"],
+                                           sh[0]["log_lik_hat"]) for r in sh)
+    if not group_bitwise:
+        failures.append("path_parity_sharded: the two ranks differ in theta "
+                        "or log L-hat")
+    agree_sh = torch.ones(B, dtype=torch.bool, device=dev)
+    for k_, v_ in info_l.items():
+        agree_sh &= v_ == t(sh[0]["info"][k_])
+    n_amb_sh = int(amb_sh.sum())
+    n_bad_sh = int((~agree_sh & ~amb_sh).sum())
+    if n_bad_sh:
+        failures.append(f"path_parity_sharded: counts differ on {n_bad_sh} "
+                        "chains whose margins were all outside the tolerance")
+    if n_amb_sh > MAX_AMBIGUOUS:
+        failures.append(f"path_parity_sharded: {n_amb_sh} chains had a "
+                        "decision inside the tolerance")
+    u_sh = torch.cat([t(r["u"]) for r in sh], dim=1)     # rows in rank order
+    parity_sh = {
+        "theta": check_close("path_parity_sharded", "theta",
+                             t(sh[0]["theta"]), out_l.theta, SHARDED_LL_TOL,
+                             agree_sh),
+        "ll": check_close("path_parity_sharded", "ll",
+                          t(sh[0]["log_lik_hat"]), out_l.log_lik_hat,
+                          SHARDED_LL_TOL, agree_sh),
+        "u": check_close("path_parity_sharded", "u", u_sh, out_l.u, U_TOL,
+                         agree_sh),
+    }
+    emit({"phase": "path_parity_sharded", "ranks": K_SHARDS,
+          "ranks_bitwise_equal": group_bitwise,
+          "decisions_logged": len(probe_log),
+          "chains_with_a_decision_inside_tolerance": n_amb_sh,
+          "chains_with_a_differing_count": int((~agree_sh).sum()),
+          "of_those_outside_tolerance": n_bad_sh,
+          "bitwise_equal_to_unsharded": {
+              "theta": bool(torch.equal(t(sh[0]["theta"]), out_l.theta)),
+              "ll": bool(torch.equal(t(sh[0]["log_lik_hat"]),
+                                     out_l.log_lik_hat)),
+              "u": bool(torch.equal(u_sh, out_l.u))},
+          "max_abs_err": parity_sh, "tol": SHARDED_LL_TOL,
+          "launches_rank0": sh[0]["counts"],
+          "probes": {k_: float(v_.sum()) for k_, v_ in info_l.items()}})
+    end_phase()
+
+    # ------------------------------------------------------ Cholesky routes
+    # The v1 and v2 panel kernels' own path: the factorisation bench, which
+    # runs every route at the bench's shape, and cholesky_fast on a size
+    # that needs identity padding.
+    log("chol variants")
+    from auxpm_tpu_torch.utils import chol_bench
+
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    bench = chol_bench.bench(batch=B, n=N, reps=5)
+    k532 = t(chol_bench.make_batch(B, 532, seed=1))
+    l532 = chol_hopper.cholesky_fast(k532)
+    torch.cuda.synchronize()
+    counts_b = read_counts()
+    for name in only_bench:
+        if counts_b[name] <= 0:
+            raise AssertionError(f"chol_variants: never launched {name}")
+        kernels[name]["launches"] = counts_b[name]
+    back532 = max_err(torch.bmm(l532, l532.mT), k532) / float(k532.abs().max())
+    if l532.shape != k532.shape or not back532 <= CHOL_BACK_RTOL:
+        failures.append(f"cholesky_fast n=532: backward error {back532:.3e}")
+    for name, r in bench["routes"].items():
+        if not (r["finite"] and r["lower"]
+                and r["backward_err_rel"] <= CHOL_BACK_RTOL):
+            failures.append(f"chol_variants: route {name}: {r}")
+    for name, r in bench["panel_inverse_residual"].items():
+        if not r <= CHOL_INV_TOL:
+            failures.append(f"chol_variants: {name} inverse residual {r:.3e}")
+    emit({"phase": "chol_variants", "card": smi, **bench,
+          "cholesky_fast_n532_backward_err_rel": back532,
+          "launches": {k_: counts_b[k_] for k_ in (*only_bench, "chol_panel")}})
     end_phase()
 
     # ---------------------------------------------------------------- result

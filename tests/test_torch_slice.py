@@ -228,7 +228,9 @@ def test_step_is_draw_then_apply(slice_run):
 def test_unported_paths_stop_loudly(slice_run):
     *_, step_t, tt = slice_run
     st = t_init(1, tt, 2, with_cache=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # particle sharding is ported (tests/test_torch_parallel.py); the axis is
+    # a parallel.mesh.Mesh, the reference's axis NAME is refused
+    with pytest.raises(TypeError, match="Mesh"):
         make_aux_slice(tt, particle_axis="particles")
     with pytest.raises(ValueError, match="shrink uniforms"):
         step_t(st, {"slice_theta": {"max_shrink": 64}})
@@ -339,12 +341,16 @@ def test_cli_lists_presets(capsys):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"proposal": "laplace"}, {"sampler": "pm_mh"}, {"sharded": True},
+    {"proposal": "laplace"}, {"sampler": "pm_mh"}, {"multihost": True},
     {"dataset": "abalone"}, {"plots": "fig"},
 ])
 def test_config_refuses_unported_parts(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         unsupported(RunConfig().replace(**overrides))
+    # sharding on one host is ported; it needs a world to run in
+    unsupported(RunConfig().replace(sharded=True, particle_shards=2))
+    with pytest.raises(ValueError, match="--sharded"):
+        unsupported(RunConfig().replace(particle_shards=2))
 
 
 def test_default_device_is_the_gpu_and_is_never_replaced(monkeypatch):
