@@ -32,6 +32,7 @@ import torch
 import torch.distributed as dist
 
 INIT_METHOD_ENV = "AUXPM_DIST_INIT_METHOD"
+_TIMEOUT = datetime.timedelta(seconds=600)   # of the rendezvous and each collective
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,14 +51,15 @@ class Mesh:
         return "particles"
 
 
-def distributed_init(device="cuda", backend=None, init_method=None,
-                     timeout_s=600):
+def distributed_init(device="cuda"):
     """Join the world that the launcher described in the environment and
     return this rank's ``torch.device``.  Idempotent.
 
     A missing or failed world is an error, never a quiet world of one: a rank
     that went on alone would compute on a wrong, local-only mesh.  ``device``
-    "cuda" gives rank r the card ``LOCAL_RANK % device_count``."""
+    "cuda" gives rank r the card ``LOCAL_RANK % device_count``.  The
+    rendezvous is ``$AUXPM_DIST_INIT_METHOD`` where the launcher set it, else
+    ``env://`` (what ``torchrun`` provides)."""
     missing = [k for k in ("RANK", "WORLD_SIZE") if k not in os.environ]
     if missing:
         raise RuntimeError(
@@ -78,18 +80,17 @@ def distributed_init(device="cuda", backend=None, init_method=None,
         n_cards = torch.cuda.device_count()
         dev = torch.device("cuda", local_rank % n_cards)
         torch.cuda.set_device(dev)
-        default_backend = "nccl" if local_world <= n_cards else "gloo"
+        backend = "nccl" if local_world <= n_cards else "gloo"
     elif dev.type == "cpu":
-        default_backend = "gloo"
+        backend = "gloo"
     else:
         raise ValueError(f"unsupported device type {dev.type!r}")
     if dist.is_initialized():
         return dev
     dist.init_process_group(
-        backend=backend or default_backend,
-        init_method=init_method or os.environ.get(INIT_METHOD_ENV, "env://"),
-        world_size=world, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s),
+        backend=backend,
+        init_method=os.environ.get(INIT_METHOD_ENV, "env://"),
+        world_size=world, rank=rank, timeout=_TIMEOUT,
     )
     return dev
 

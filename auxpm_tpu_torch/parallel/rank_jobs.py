@@ -11,15 +11,7 @@ in fresh processes:
                                                # a 2 x 2 mesh on the CPU
 
 ``chip_smoke.py`` drives the sharded path on the card through them and the
-CPU tests hold it to the reference through them.  As a program,
-
-    python -m auxpm_tpu_torch.parallel.rank_jobs --world 4 --profile-steps 3 \
-        -- --sharded true --particle-shards 2 --preset pima_aux_slice ...
-
-runs the command line on ``--world`` spawned ranks (one card each where the
-host has that many, else sharing) and prints one JSON line: rank 0's summary
-and profile, every rank's launches, and whether the ranks of each particle
-group ended bitwise equal.
+CPU tests hold it to the reference through them.
 
 ``target_spec``: ``("gp", x, y, kwargs)`` for ``make_gp_classification`` or
 ``("gaussian_toy", kwargs)`` for ``make_gaussian_toy``.
@@ -175,39 +167,15 @@ def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
     return result
 
 
-def _time_collective(states, mesh, n_blocks, reps=20):
-    """Milliseconds of one blocked log-sum-exp over the particle group at the
-    estimator's shape (block partials, the collective, the fold), the stream
-    drained before and after."""
-    import time
-
-    from auxpm_tpu_torch.parallel.collectives import (
-        allgather_blocked_logsumexp,
-    )
-
-    lw = states.u[:, :, 0].contiguous()              # (B, S_local) floats
-    nb_local = n_blocks // mesh.n_particle_shards
-
-    def sync():
-        if lw.is_cuda:
-            torch.cuda.synchronize(lw.device)
-
-    allgather_blocked_logsumexp(lw, nb_local, mesh)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        allgather_blocked_logsumexp(lw, nb_local, mesh)
-    sync()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
 def cli(argv, profile_steps=0):
     """``auxpm_tpu_torch.run.main(argv)`` on this rank (``argv`` must ask for
     ``--sharded true``); returns the rank's final state, the recorded theta
     of all chains, the summary, and the kernel launches and collectives of
     the run.  ``profile_steps > 0``: then that many more steps under
-    ``utils/profiling.profile_steps`` (every rank runs them, each reports its
+    ``utils/profiling.profile_run`` (every rank runs them, each reports its
     own view of the card)."""
+    import torch.distributed as dist
+
     from auxpm_tpu_torch import run as port_run
 
     result = {}
@@ -224,7 +192,8 @@ def cli(argv, profile_steps=0):
         "rank": mesh.rank, "chain_index": mesh.chain_index,
         "particle_index": mesh.particle_index,
         "target": result["target"].name,
-        "device": str(states.u.device), "u_shape": tuple(states.u.shape),
+        "device": str(states.u.device), "backend": dist.get_backend(),
+        "u_shape": tuple(states.u.shape),
         "theta": _np(states.theta), "log_lik_hat": _np(states.log_lik_hat),
         "recorded_theta": result["theta"], "summary": result["summary"],
         "windows": result["windows"],
@@ -236,54 +205,7 @@ def cli(argv, profile_steps=0):
         fresh = result["target"].cache_init(states.theta)["chol_r"]
         out["cache_max_abs_err"] = float((cache["chol_r"] - fresh).abs().max())
     if profile_steps:
-        from auxpm_tpu_torch.utils.profiling import profile_steps as prof
+        from auxpm_tpu_torch.utils.profiling import profile_run
 
-        c0 = _counts()
-        _, report = prof(result["step"], states, result["params"],
-                         profile_steps)
-        c1 = _counts()
-        # the window runs twice (untraced for the wall time, then traced)
-        report["collectives_per_step"] = (
-            (c1["collectives"] - c0["collectives"]) / (2 * profile_steps))
-        if mesh.n_particle_shards > 1:
-            report["collective_ms"] = _time_collective(
-                states, mesh, result["target"].n_weight_blocks)
-        out["profile"] = report
+        out["profile"] = profile_run(result, profile_steps)
     return out
-
-
-def main(argv=None):
-    import argparse
-    import json
-
-    from auxpm_tpu_torch.parallel.launch import spawn
-
-    p = argparse.ArgumentParser(description=__doc__)
-    p.add_argument("--world", type=int, required=True)
-    p.add_argument("--profile-steps", type=int, default=0)
-    p.add_argument("cli_args", nargs=argparse.REMAINDER,
-                   help="after --: the arguments of auxpm_tpu_torch.run")
-    args = p.parse_args(argv)
-    cli_args = [a for a in args.cli_args if a != "--"]
-    k = int(cli_args[cli_args.index("--particle-shards") + 1]) \
-        if "--particle-shards" in cli_args else 1
-    ranks = spawn(cli, args.world, cli_args, args.profile_steps, threads=0)
-    groups_equal = all(
-        np.array_equal(r["theta"], ranks[r["rank"] - r["particle_index"]]["theta"])
-        and np.array_equal(r["log_lik_hat"],
-                           ranks[r["rank"] - r["particle_index"]]["log_lik_hat"])
-        for r in ranks)
-    print(json.dumps({
-        "world": args.world, "particle_shards": k,
-        "devices": [r["device"] for r in ranks],
-        "u_shape_per_rank": list(ranks[0]["u_shape"]),
-        "particle_groups_bitwise_equal": groups_equal,
-        "summary": ranks[0]["summary"],
-        "launches": [r["counts"] for r in ranks],
-        "profile_rank0": ranks[0].get("profile"),
-    }))
-    return 0 if groups_equal else 1
-
-
-if __name__ == "__main__":
-    raise SystemExit(main())

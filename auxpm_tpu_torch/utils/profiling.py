@@ -2,6 +2,8 @@
 
     python -m auxpm_tpu_torch.utils.profiling --chains 128 --steps 10
     python -m auxpm_tpu_torch.utils.profiling --preset pima_ard_aux --steps 5
+    torchrun --nproc-per-node 4 -m auxpm_tpu_torch.utils.profiling \
+        --particle-shards 2 --steps 3
 
 Builds the preset's target at full width (Pima n=532 padded to 640, S=64),
 warms the ``aux_slice`` step up, then runs ``--steps`` steps under
@@ -11,14 +13,21 @@ launches and host synchronisations per step, and device time per step grouped
 by kernel name.  ``pima_aux_slice`` (the default) runs with the bench
 settings (``max_step_out=0, n_ess=4, n_sigma_extra=1, max_shrink_chol=3``),
 ``pima_ard_aux`` as the CLI runs it; ``AUXPM_ESS_SWEEP=0`` in the environment
-selects the per-probe elliptical-slice loop.  Needs a GPU (it raises without
+selects the per-probe elliptical-slice loop.  ``--particle-shards K`` profiles
+the sharded run on the world ``torchrun`` started (``world / K`` chain shards
+by K particle shards, through ``run.main``): rank 0 prints its own view of its
+card, with the run's chain-steps/s, the collectives per step, the time of one
+collective estimate and whether the ranks of every particle group ended with
+bitwise the same theta and log L-hat.  Needs a GPU (it raises without
 one); nothing here is a CPU number.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import sys
 import time
 
 
@@ -49,13 +58,18 @@ def profile_steps(step, states, params, n_steps):
             states, _ = step(states, params)
         torch.cuda.synchronize()
     by_kernel = {}
+    n_launches = 0
     # a host synchronisation on this path is a scalar read (``bool(flag)``)
     host_syncs = 0
     for evt in prof.key_averages():
         if evt.key == "aten::_local_scalar_dense":
             host_syncs += evt.count
-        # kernels only: an operator's device time repeats its kernels'
-        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0:
+        # kernels only: an operator's device time repeats its kernels', and
+        # so does the "nccl:..." range that wraps a collective's kernel
+        if evt.device_type != DeviceType.CUDA or evt.key.startswith("nccl:"):
+            continue
+        n_launches += evt.count
+        if evt.self_device_time_total > 0:
             by_kernel[evt.key] = (by_kernel.get(evt.key, 0.0)
                                   + evt.self_device_time_total / 1e3)
     if not by_kernel:
@@ -67,15 +81,102 @@ def profile_steps(step, states, params, n_steps):
         "wall_ms_per_step": wall_ms / n_steps,
         "device_busy_ms_per_step": busy_ms / n_steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
-        "kernel_launches_per_step": sum(
-            evt.count for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA) / n_steps,
+        "kernel_launches_per_step": n_launches / n_steps,
         "host_syncs_per_step": host_syncs / n_steps,
         "device_ms_per_step_by_kernel": {
             k[:80]: round(v / n_steps, 4) for k, v in top
         },
     }
     return states, report
+
+
+def time_collective(states, mesh, n_blocks, reps=20):
+    """Milliseconds of one blocked log-sum-exp over the particle group at the
+    estimator's shape (block partials, the collective, the fold), the stream
+    drained before and after."""
+    import torch
+
+    from auxpm_tpu_torch.parallel.collectives import (
+        allgather_blocked_logsumexp,
+    )
+
+    lw = states.u[:, :, 0].contiguous()              # (B, S_local) floats
+    nb_local = n_blocks // mesh.n_particle_shards
+
+    def sync():
+        if lw.is_cuda:
+            torch.cuda.synchronize(lw.device)
+
+    allgather_blocked_logsumexp(lw, nb_local, mesh)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        allgather_blocked_logsumexp(lw, nb_local, mesh)
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profile_run(result, n_steps):
+    """``profile_steps`` on ``n_steps`` more steps of a finished
+    ``run.main(argv, result=result)``; a sharded run's report also has the
+    collectives entered per step and, with particle shards, the time of one
+    collective estimate.  Every rank of the world must call it."""
+    from auxpm_tpu_torch.parallel import collectives
+
+    states, mesh = result["states"], result["mesh"]
+    c0 = collectives.calls
+    _, report = profile_steps(result["step"], states, result["params"],
+                              n_steps)
+    if mesh is not None:
+        # the window runs twice (untraced for the wall time, then traced)
+        report["collectives_per_step"] = (
+            (collectives.calls - c0) / (2 * n_steps))
+        if mesh.n_particle_shards > 1:
+            report["collective_ms"] = time_collective(
+                states, mesh, result["target"].n_weight_blocks)
+    return report
+
+
+def _main_sharded(args):
+    """The ``--particle-shards`` branch of ``main``, on one rank of the
+    world."""
+    import torch
+    import torch.distributed as dist
+
+    from auxpm_tpu_torch import run as port_run
+
+    argv = ["--sharded", "true", "--particle-shards",
+            str(args.particle_shards), "--preset", args.preset,
+            "--warmup-windows", "1", "--window-steps", str(args.warm_steps),
+            "--steps", str(args.warm_steps)]
+    if args.preset == "pima_aux_slice":  # the bench settings
+        argv += ["--max-step-out", "0", "--n-ess", "4", "--n-sigma-extra",
+                 "1", "--max-shrink-chol", "3"]
+    if args.chains:
+        argv += ["--chains", str(args.chains)]
+    result = {}
+    with contextlib.redirect_stdout(sys.stderr):   # rank 0's summary line
+        port_run.main(argv, result=result)
+    states, mesh = result["states"], result["mesh"]
+    report = profile_run(result, args.steps)
+    equal = torch.ones((), device=states.theta.device)
+    for x in (states.theta, states.log_lik_hat):
+        hi, lo = x.clone(), x.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.particle_group)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.particle_group)
+        equal *= float(torch.equal(hi, lo))
+    dist.all_reduce(equal, op=dist.ReduceOp.MIN)       # over every group
+    report.update(
+        device=torch.cuda.get_device_name(states.theta.device),
+        preset=args.preset, chains=result["theta"].shape[0],
+        mesh=[mesh.n_chain_shards, mesh.n_particle_shards],
+        backend=dist.get_backend(), u_shape_per_rank=list(states.u.shape),
+        chain_steps_per_sec=result["summary"]["chain_steps_per_sec"],
+        particle_groups_bitwise_equal=bool(equal))
+    if mesh.rank == 0:
+        print(json.dumps(report))
+    dist.destroy_process_group()
+    return 0 if bool(equal) else 1
 
 
 def main(argv=None):
@@ -86,7 +187,11 @@ def main(argv=None):
                    help="default: the preset's")
     p.add_argument("--steps", type=int, default=10)
     p.add_argument("--warm-steps", type=int, default=5)
+    p.add_argument("--particle-shards", type=int, default=0,
+                   help="K > 0: the sharded run, one rank of torchrun's world")
     args = p.parse_args(argv)
+    if args.particle_shards:
+        return _main_sharded(args)
 
     import torch
 

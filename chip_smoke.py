@@ -58,21 +58,18 @@ way and is reported, and more than two such chains fail the run.
 The ARD Gram: kernel and plain version both evaluate exp(-0.5 d2) with d2
 from the expansion sq_i + sq_j - 2 xs_i.xs_j in float32; d2 carries a few ulp
 of its largest term, so the bar is 8 eps max(sq), computed from the inputs.
-The ARD step as a whole (``path_parity_ard``): the two paths build every
-probe's Gram by different routines, and entries that differ by ~1e-6 move an
-estimate taken through the factor of a matrix whose smallest eigenvalues are
-the 1e-5 jitter by up to ~2e-2 (measured 2.2e-2 and 1.5e-2 between chains
-that agreed in every count; ``ARD_PATH_LL_TOL`` = 2.5e-2, since a window
-narrower than the differences it has to excuse lets a run fail on its draw of
-random numbers).  A step is ~60 decisions
-per chain, so chains with a decision inside that window are common: they are
-excused and counted (at most ``ARD_MAX_AMBIGUOUS_SHARE`` of the chains), the
-others must agree in every count.  The sampled lengthscales are long (ell
-~5 on standardised features), R(ell) is close to singular, and the two
-factors of the accepted Gram differ elementwise by more than on the first
-path: ``ARD_PATH_CHOL_TOL``.  Both sides of that phase factor with the panel
-kernel, which the first path's parity phase already holds to its plain
-version.
+The ARD step as a whole (``path_parity_ard``): both sides build every probe's
+Gram with the ARD Gram kernel (held to its plain version above) and factor it
+with the panel kernel, so they see the same factor bit for bit, and the plain
+side differs only in the estimator and the rotated estimator.  R(ell) at the
+sampled lengthscales (ell ~5 on standardised features) is close to singular:
+two builds of one Gram that differ by ~1e-6 move log L-hat by ~2e-2 through
+the factor, more than the decisions' margins, which is why the Gram is shared
+and not compared here.  A step is ~130 decisions per chain; a chain with a
+decision inside ``ARD_DECISION_TOL`` (ten times the estimator's bar) is
+excused and counted, at most ``ARD_MAX_AMBIGUOUS`` of the 64 chains; the
+others must agree in every count, and log L-hat of the chains that agree
+within ``ARD_PATH_LL_TOL``.
 """
 
 from __future__ import annotations
@@ -96,8 +93,7 @@ K_SHARDS, S_LOCAL = 2, 32          # the particle-sharded path: two ranks
 COMBINE_RTOL = 2e-6                # weights + combine vs the fused estimate
 SHARDED_LL_TOL = 1e-4              # sharded step vs the unsharded loop path
 CHOL_BACK_RTOL, CHOL_INV_TOL = 1e-5, 1e-4
-ARD_PATH_LL_TOL, ARD_MAX_AMBIGUOUS_SHARE = 2.5e-2, 0.5
-ARD_PATH_CHOL_TOL = 2e-2   # ARD Grams at long lengthscales: see the note above
+ARD_PATH_LL_TOL, ARD_DECISION_TOL, ARD_MAX_AMBIGUOUS = 1e-2, 2e-3, 8
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
 CLI_ARGS = [
@@ -1006,24 +1002,24 @@ def main():
     with contextlib.ExitStack() as stack:
         for mod, cuda_fn, plain_fn in (
                 (fe, "_cuda_estimate", fe._ref_estimate),
-                (fe, "_cuda_estimate_rot", fe._ref_estimate_rot),
-                (gr, "_cuda_se_gram_ard", gr.se_gram_ard_masked)):
+                (fe, "_cuda_estimate_rot", fe._ref_estimate_rot)):
             stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
         before = read_counts()
         sa_p, ia_p = one_step_ard(st_a, probe_log)
         after = read_counts()
-        if any(after[k] != before[k] for k in after if k != "chol_panel"):
+        if any(after[k] != before[k] for k in after
+               if k not in ("chol_panel", "se_gram_ard")):
             raise AssertionError("plain ARD path launched a patched kernel")
     torch.cuda.synchronize()
     amb_a = torch.zeros(B_ARD, dtype=torch.bool, device=dev)
     for counted, margin in probe_log:
-        amb_a |= counted & (margin.abs() <= ARD_PATH_LL_TOL)
+        amb_a |= counted & (margin.abs() <= ARD_DECISION_TOL)
     agree_a = torch.ones(B_ARD, dtype=torch.bool, device=dev)
     for k in ia_k:
         agree_a &= ia_k[k] == ia_p[k]
     n_amb_a = int(amb_a.sum())
     n_bad_a = int((~agree_a & ~amb_a).sum())
-    if n_amb_a > ARD_MAX_AMBIGUOUS_SHARE * B_ARD:
+    if n_amb_a > ARD_MAX_AMBIGUOUS:
         failures.append(f"path_parity_ard: {n_amb_a} of {B_ARD} chains had a "
                         "decision inside the tolerance")
     if n_bad_a:
@@ -1038,9 +1034,9 @@ def main():
         "chol_r": check_close("path_parity_ard", "chol_r",
                               sa_k.extras["target_cache"]["chol_r"],
                               sa_p.extras["target_cache"]["chol_r"],
-                              ARD_PATH_CHOL_TOL, keep_a),
+                              PATH_CHOL_TOL, keep_a),
         "ll": check_close("path_parity_ard", "ll", sa_k.log_lik_hat,
-                          sa_p.log_lik_hat, PATH_LL_TOL, keep_a),
+                          sa_p.log_lik_hat, ARD_PATH_LL_TOL, keep_a),
         "ll_vs_plain_estimate_of_own_state": check_close(
             "path_parity_ard", "ll of own state", sa_k.log_lik_hat,
             fe._ref_estimate(
@@ -1049,6 +1045,7 @@ def main():
     }
     emit({"phase": "path_parity_ard", "decisions_logged": len(probe_log),
           "chains_with_a_decision_inside_tolerance": n_amb_a,
+          "excused_share": n_amb_a / B_ARD, "decision_tol": ARD_DECISION_TOL,
           "chains_with_a_differing_decision": int((~agree_a).sum()),
           "of_those_outside_tolerance": n_bad_a,
           "max_abs_err": parity_a,
@@ -1056,10 +1053,11 @@ def main():
     end_phase()
 
     # -------------------------------------------------- sharded main path
-    # Two ranks on the one card (gloo: NCCL refuses ranks that share a card),
-    # each holding S / 2 rows of every chain's u.  The ranks are fresh
-    # processes: they load the library built above and count their own
-    # launches, which come back with their results.
+    # Two ranks, each holding S / 2 rows of every chain's u: on the one card
+    # of a one-card host over gloo (NCCL refuses ranks that share a card), on
+    # a card each over NCCL where the host has more; the line reports which.
+    # The ranks are fresh processes: they load the library built above and
+    # count their own launches, which come back with their results.
     log("main path (sharded):", " ".join(SHARDED_CLI_ARGS))
     from auxpm_tpu_torch.parallel import rank_jobs
     from auxpm_tpu_torch.parallel.launch import spawn
@@ -1070,11 +1068,15 @@ def main():
     spawn_s = time.time() - t0
     n_steps_sh = 3 + 6                    # 1 x 3 warm-up + 6 sampled
     r0 = ranks[0]
+    shares = torch.cuda.device_count() < K_SHARDS    # one card for both
     for r in ranks:
         c = r["counts"]
-        if r["u_shape"] != (B, S_LOCAL, N) or not r["device"].startswith("cuda"):
+        if r["u_shape"] != (B, S_LOCAL, N) or \
+                (r["device"], r["backend"]) != (
+                    ("cuda:0", "gloo") if shares
+                    else (f"cuda:{r['rank']}", "nccl")):
             raise AssertionError(f"sharded rank {r['rank']}: u {r['u_shape']} "
-                                 f"on {r['device']}")
+                                 f"on {r['device']} over {r['backend']}")
         if c["fused_weights"] <= 0 or c["fused_rot_weights"] <= 0:
             raise AssertionError(f"sharded rank {r['rank']} never launched a "
                                  f"weights kernel: {c}")
@@ -1101,7 +1103,8 @@ def main():
     for name in only_sharded:
         kernels[name]["launches"] = r0["counts"][name]
     emit({"phase": "main_path_sharded", "card": smi, "args": SHARDED_CLI_ARGS,
-          "ranks": K_SHARDS, "backend": "gloo", "target": r0["target"],
+          "ranks": K_SHARDS, "backend": r0["backend"],
+          "devices": [r["device"] for r in ranks], "target": r0["target"],
           "u_shape_per_rank": list(r0["u_shape"]),
           "summary": r0["summary"],
           "chain_steps_per_sec": r0["summary"]["chain_steps_per_sec"],
