@@ -1,148 +1,292 @@
 // Whole elliptical-slice sweep of u | theta: all repeats and every
-// bracket-shrink probe of a chain inside one kernel.
+// bracket-shrink probe of every chain inside ONE cooperative launch.
 //
 // Replaces the TPU kernel auxpm_tpu/ops/ess_sweep.py::_ess_sweep_kernel
 // (wrapper _pallas_ess_sweep).  The property kept is that each chain runs
-// exactly its OWN probe count: one block per chain, the data-dependent shrink
-// loop inside the kernel.  What does not carry over is the factor held next
-// to the compute for the whole sweep: C (1.6 MB at n=640) does not fit a
-// block's 227 KB, so it is streamed from global memory / L2 on every probe
-// (probe.cuh).  Bytes re-read per probe per chain: n*n*4 of C plus 2*S*n*4 of
-// u and v_r to form the rotated proposal.
+// exactly its OWN probe count.  The layout is not the TPU's (one grid step
+// per chain with C resident): the sweep advances in rounds over the whole
+// card (sweep_body.cuh).  In a round every active chain makes its next
+// probe: phase A spreads the (chain, 64-column tile) items of all of them
+// over every block, a grid barrier, then phase B gives each active chain to
+// one block, whose warp 0 folds the chain's tile sums, runs the fixed 8-block
+// log-sum-exp, compares with log y and moves the bracket: it publishes the
+// next angle, or, on accept, the whole block rewrites
+// u' = u cos a + v_r sin a and the chain moves to its next repeat.  A second
+// grid barrier closes the round.  The semantics are those of the plain
+// version (ops/ess_sweep._ref_ess_sweep): the same scal columns, at most 32
+// shrinks per repeat, cap-hit keeps the state, stats = (ll, n_shrink, moved,
+// 0).  A chain's probes follow each other in consecutive rounds, so the
+// number of rounds is the largest probe count of any chain.
 //
-// Control flow is uniform by construction: thread 0 alone compares the
-// floats and owns the bracket; it publishes the next angle and the
-// continue/accept flags through shared memory, a barrier follows, and every
-// thread branches on the published value.
+// State between rounds lives in a small global workspace (the wrapper's):
+// per chain kState floats (repeat, shrinks so far, angle, bracket, ll, log y,
+// counts, active flag) in two buffers, read in one round and written for the
+// next; the tile sums rowsum[chain][tile][64]; last, the number of rounds the
+// launch took.  In phase B a chain has max(1, grid / B) blocks: each folds
+// and decides (the same floats give the same decision), the first writes the
+// next state, and each rewrites its slice of u' (float4, through L2): a
+// first version left the rewrite (492 KB of traffic per accepted chain) to
+// one block per chain.  u_out is the working buffer, as in the reference.
 //
-// u_out is the working buffer, as in the reference: an accepted repeat
-// rewrites it in global memory and a block barrier orders that write before
-// the next repeat's probes read it.  On cap-hit the state is kept.
-//
-// Bound: operations.  2*S*n*n FLOPs per probe, (R + shrinks) probes per
-// chain, against one read of (C, u, v, scal) and one write of u'.
-#include "probe.cuh"
+// Bound: operations.  S n (n + 64) / 2 FMAs per probe with the triangle
+// skipped (the least work is S n (n + 1) FLOPs), against one read of (C, u,
+// v, scal) and one write of u'.  Grid barriers: 1 + 2 per round.
+#include "sweep_body.cuh"
 
 namespace auxpm {
 
 constexpr int kScalCols = 3 + kMaxShrink;
-// ctrl slots (slot 0 is the probe's estimate)
-constexpr int kAngle = 1, kGo = 2, kAccept = 3;
+constexpr int kState = 16;
+// state slots
+constexpr int kRep = 0, kShrink = 1, kA = 2, kAMin = 3, kAMax = 4, kLL = 5,
+              kLogY = 6, kNShrink = 7, kMoved = 8, kActive = 9;
+constexpr float kTwoPi = 6.2831855f;
 
 template <int LIK, bool BF16>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(sweep::kThreads, 2)
 ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
                  const float* __restrict__ scal, const float* __restrict__ v,
                  const float* __restrict__ y, const float* __restrict__ mask,
-                 float* __restrict__ u_out, float* __restrict__ stats, int S,
-                 int n, int R, int n_blocks, float log_s) {
-  extern __shared__ __align__(16) float smem[];
-  const ProbeSmem sm = carve_smem(smem, n);
+                 float* u_out, float* __restrict__ stats, float* state,
+                 float* rowsum, float* rounds, int B, int S, int n, int R,
+                 int n_blocks, float log_s) {
+  namespace cg = cooperative_groups;
+  using namespace sweep;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
-  const int b = blockIdx.x;
   const int sn = S * n;
-  const float* C = chol + size_t(b) * n * n;
-  const float* ub = u + size_t(b) * sn;
-  const float* vb = v + size_t(b) * R * sn;
-  const float* sc = scal + size_t(b) * R * kScalCols;
-  float* uo = u_out + size_t(b) * sn;
+  const int n_tiles = n / kCols;
 
-  zero_pad_rows(sm, S, n);
-  for (int idx = tid; idx < sn; idx += kThreads) uo[idx] = ub[idx];
-  __syncthreads();
+  init_smem(sm);
 
-  // bracket state lives in thread 0 only
-  float ll = sc[0], n_shrink_tot = 0.0f, moved_tot = 0.0f;
-
-  for (int r = 0; r < R; ++r) {
-    const float* vr = vb + size_t(r) * sn;
-    const float* row = sc + r * kScalCols;
-    const float log_y = ll + row[1];
-    float a = row[2];
-    float a_min = a - 6.2831855f, a_max = a;
-    int i = 0;
-    bool done = false;
-
-    auto probe_at = [&](float ang) {
-      const float ca = cosf(ang), sa = sinf(ang);
-      fill_left<BF16>(sm, S, n,
-                      [&](int idx) { return uo[idx] * ca + vr[idx] * sa; });
-      return probe_estimate<LIK, BF16>(sm, C, 1.0f, y, mask, S, n, n_blocks,
-                                       log_s);
-    };
-
-    float ll_p = probe_at(a);
+  // every chain at the first probe of its first repeat (state buffer 0);
+  // u_out = u
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const float* sc = scal + size_t(b) * R * kScalCols;
     if (tid == 0) {
-      done = ll_p > log_y;
-      sm.ctrl[kGo] = (!done && i < kMaxShrink) ? 1.0f : 0.0f;
+      float* st = state + size_t(b) * kState;
+      const float a = sc[2];
+      st[kRep] = 0.0f;
+      st[kShrink] = 0.0f;
+      st[kA] = a;
+      st[kAMin] = a - kTwoPi;
+      st[kAMax] = a;
+      st[kLL] = sc[0];
+      st[kLogY] = sc[0] + sc[1];
+      st[kNShrink] = 0.0f;
+      st[kMoved] = 0.0f;
+      st[kActive] = 1.0f;
     }
-    __syncthreads();
-    while (sm.ctrl[kGo] != 0.0f) {
-      if (tid == 0) {
-        a_min = a < 0.0f ? a : a_min;
-        a_max = a < 0.0f ? a_max : a;
-        a = a_min + (a_max - a_min) * row[3 + i];
-        sm.ctrl[kAngle] = a;
+    const float* ub = u + size_t(b) * sn;
+    float* uo = u_out + size_t(b) * sn;
+    for (int idx = tid; idx < sn; idx += blockDim.x) uo[idx] = ub[idx];
+  }
+  grid.sync();
+
+  // phase B: `per_chain` blocks per chain (the grid's spare blocks share the
+  // rewrite of u'); all of them fold and decide alike, the first writes the
+  // chain's next state
+  const int per_chain = max(1, int(gridDim.x) / B);
+  const int chains_per_pass = int(gridDim.x) / per_chain;
+  const int slice = int(blockIdx.x) % per_chain;
+  const int sn4 = sn / 4;
+  const int slice_len = (sn4 + per_chain - 1) / per_chain;
+
+  Ring ring;
+  for (int round = 0;; ++round) {
+    // state is double-buffered: read this round's, write the next
+    const float* cur = state + size_t(round & 1) * B * kState;
+    float* nxt = state + size_t((round + 1) & 1) * B * kState;
+    const int n_active = compact_active(sm, cur + kActive, kState, B);
+    if (n_active == 0) {        // the same flags in every block
+      if (blockIdx.x == 0 && tid == 0) *rounds = float(round);
+      break;
+    }
+
+    // ------------------------------------------------ phase A: the probes
+    probe_tiles<LIK, BF16>(
+        sm, ring, n_active, S, n, y, mask, rowsum, [&](int b) {
+          const float* st = cur + size_t(b) * kState;
+          const int r = int(__ldcg(st + kRep));
+          const float a = __ldcg(st + kA);
+          ProbeSpec p;
+          p.u = u_out + size_t(b) * sn;
+          p.v = v + (size_t(b) * R + r) * sn;
+          p.c = chol + size_t(b) * n * n;
+          p.ca = cosf(a);
+          p.sa = sinf(a);
+          p.c_scale = 1.0f;
+          return p;
+        });
+    grid.sync();
+
+    // ---------------------------------------------- phase B: the decisions
+    for (int base = 0; base < B; base += chains_per_pass) {
+      const int b = base + int(blockIdx.x) / per_chain;
+      if (int(blockIdx.x) / per_chain >= chains_per_pass || b >= B) continue;
+      const float* st = cur + size_t(b) * kState;
+      float* st_next = nxt + size_t(b) * kState;
+      if (__ldcg(st + kActive) == 0.0f) {    // uniform in the block
+        if (slice == 0 && tid == 0) st_next[kActive] = 0.0f;
+        continue;
+      }
+      if (tid < 32) {
+        const float ll_p =
+            fold_estimate(sm, rowsum, b, n_tiles, S, n_blocks, log_s);
+        if (tid == 0) {
+          int r = int(__ldcg(st + kRep)), i = int(__ldcg(st + kShrink));
+          float a = __ldcg(st + kA), a_min = __ldcg(st + kAMin);
+          float a_max = __ldcg(st + kAMax), ll = __ldcg(st + kLL);
+          float log_y = __ldcg(st + kLogY);
+          float n_shrink = __ldcg(st + kNShrink), moved = __ldcg(st + kMoved);
+          float active = 1.0f;
+          const float* row = scal + (size_t(b) * R + r) * kScalCols;
+          const bool done = ll_p > log_y;
+          bool next_repeat = false;
+          sm.bcast[0] = 0.0f;
+          if (done) {                       // accept: u' at angle a
+            ll = ll_p;
+            n_shrink += float(i);
+            moved += 1.0f;
+            sm.bcast[0] = 1.0f;
+            sm.bcast[1] = a;
+            sm.bcast[2] = float(r);
+            next_repeat = true;
+          } else if (i < kMaxShrink) {      // shrink toward 0, next angle
+            a_min = a < 0.0f ? a : a_min;
+            a_max = a < 0.0f ? a_max : a;
+            a = a_min + (a_max - a_min) * row[3 + i];
+            ++i;
+          } else {                          // cap-hit: keep the state
+            n_shrink += float(i);
+            next_repeat = true;
+          }
+          if (next_repeat) {
+            ++r;
+            if (r < R) {
+              row += kScalCols;
+              a = row[2];
+              a_min = a - kTwoPi;
+              a_max = a;
+              log_y = ll + row[1];
+              i = 0;
+            } else {
+              active = 0.0f;
+              if (slice == 0) {
+                float* out = stats + size_t(b) * 4;
+                out[0] = ll;
+                out[1] = n_shrink;
+                out[2] = moved;
+                out[3] = 0.0f;
+              }
+            }
+          }
+          if (slice == 0) {
+            st_next[kRep] = float(r);
+            st_next[kShrink] = float(i);
+            st_next[kA] = a;
+            st_next[kAMin] = a_min;
+            st_next[kAMax] = a_max;
+            st_next[kLL] = ll;
+            st_next[kLogY] = log_y;
+            st_next[kNShrink] = n_shrink;
+            st_next[kMoved] = moved;
+            st_next[kActive] = active;
+          }
+        }
       }
       __syncthreads();
-      ll_p = probe_at(sm.ctrl[kAngle]);
-      if (tid == 0) {
-        ++i;
-        done = ll_p > log_y;
-        sm.ctrl[kGo] = (!done && i < kMaxShrink) ? 1.0f : 0.0f;
+      if (sm.bcast[0] != 0.0f) {            // this block's slice of u'
+        const float ang = sm.bcast[1];
+        const float ca = cosf(ang), sa = sinf(ang);
+        float4* uo = reinterpret_cast<float4*>(u_out + size_t(b) * sn);
+        const float4* vr = reinterpret_cast<const float4*>(
+            v + (size_t(b) * R + int(sm.bcast[2])) * sn);
+        const int end = min(sn4, (slice + 1) * slice_len);
+#pragma unroll 4
+        for (int idx = slice * slice_len + tid; idx < end;
+             idx += blockDim.x) {
+          float4 x = __ldcg(uo + idx);
+          const float4 w = __ldg(vr + idx);
+          x.x = x.x * ca + w.x * sa;
+          x.y = x.y * ca + w.y * sa;
+          x.z = x.z * ca + w.z * sa;
+          x.w = x.w * ca + w.w * sa;
+          uo[idx] = x;
+        }
       }
-      __syncthreads();
+      __syncthreads();   // sm.bcast and sm.lw are reused by the next chain
     }
-    if (tid == 0) {
-      sm.ctrl[kAngle] = a;
-      sm.ctrl[kAccept] = done ? 1.0f : 0.0f;
-      if (done) ll = ll_p;
-      n_shrink_tot += float(i);
-      moved_tot += done ? 1.0f : 0.0f;
-    }
-    __syncthreads();
-    if (sm.ctrl[kAccept] != 0.0f) {
-      const float ang = sm.ctrl[kAngle];
-      const float ca = cosf(ang), sa = sinf(ang);
-      for (int idx = tid; idx < sn; idx += kThreads)
-        uo[idx] = uo[idx] * ca + vr[idx] * sa;
-    }
-    // orders the rewrite of u_out before the next repeat reads it, and the
-    // reads of ctrl before thread 0 rewrites it
-    __syncthreads();
+    grid.sync();
   }
-  if (tid == 0) {
-    float* st = stats + size_t(b) * 4;
-    st[0] = ll;
-    st[1] = n_shrink_tot;
-    st[2] = moved_tot;
-    st[3] = 0.0f;
-  }
+}
+
+template <class K>
+cudaError_t sweep_grid(K kernel, int* grid) {
+  const size_t smem = sizeof(sweep::Smem);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, sweep::kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *grid = per_sm * sms;
+  return cudaSuccess;
 }
 
 }  // namespace auxpm
 
+// Blocks of the cooperative grid the sweep launches on the current device
+// (occupancy x SMs), or minus the CUDA error.
+extern "C" int auxpm_ess_sweep_grid(int likelihood, int bf16) {
+  using namespace auxpm;
+  int grid = 0;
+  cudaError_t err = cudaSuccess;
+#define CALL(LIK, BF) err = sweep_grid(ess_sweep_kernel<LIK, BF>, &grid)
+  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
+#undef CALL
+  return err == cudaSuccess ? grid : -static_cast<int>(err);
+}
+
 extern "C" int auxpm_ess_sweep(const void* chol, const void* u,
                                const void* scal, const void* v, const void* y,
                                const void* mask, void* u_out, void* stats,
-                               int B, int S, int n, int R, int n_blocks,
-                               float log_s, int likelihood, int bf16,
-                               void* stream) {
+                               void* workspace, int B, int S, int n, int R,
+                               int n_blocks, float log_s, int likelihood,
+                               int bf16, void* stream) {
   using namespace auxpm;
-  const size_t smem = probe_smem_bytes(n);
+  const float* chol_ = static_cast<const float*>(chol);
+  const float* u_ = static_cast<const float*>(u);
+  const float* scal_ = static_cast<const float*>(scal);
+  const float* v_ = static_cast<const float*>(v);
+  const float* y_ = static_cast<const float*>(y);
+  const float* mask_ = static_cast<const float*>(mask);
+  float* u_out_ = static_cast<float*>(u_out);
+  float* stats_ = static_cast<float*>(stats);
+  float* state_ = static_cast<float*>(workspace);
+  float* rowsum_ = state_ + 2 * size_t(B) * kState;
+  float* rounds_ = rowsum_ + size_t(B) * (n / sweep::kCols) * kRows;
+  void* args[] = {&chol_,  &u_,     &scal_,   &v_,      &y_,      &mask_,
+                  &u_out_, &stats_, &state_,  &rowsum_, &rounds_, &B,
+                  &S,      &n,      &R,       &n_blocks, &log_s};
   cudaError_t err = cudaSuccess;
-#define CALL(LIK, BF)                                                        \
-  err = allow_smem(ess_sweep_kernel<LIK, BF>, smem);                         \
-  if (err == cudaSuccess) {                                                  \
-    ess_sweep_kernel<LIK, BF>                                                \
-        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
-            static_cast<const float*>(chol), static_cast<const float*>(u),   \
-            static_cast<const float*>(scal), static_cast<const float*>(v),   \
-            static_cast<const float*>(y), static_cast<const float*>(mask),   \
-            static_cast<float*>(u_out), static_cast<float*>(stats), S, n, R, \
-            n_blocks, log_s);                                                \
-    err = cudaGetLastError();                                                \
-  }
+#define CALL(LIK, BF)                                                       \
+  do {                                                                      \
+    int grid = 0;                                                           \
+    err = sweep_grid(ess_sweep_kernel<LIK, BF>, &grid);                     \
+    if (err == cudaSuccess)                                                 \
+      err = cudaLaunchCooperativeKernel(                                    \
+          reinterpret_cast<void*>(ess_sweep_kernel<LIK, BF>), grid,         \
+          sweep::kThreads, args, sizeof(sweep::Smem),                       \
+          static_cast<cudaStream_t>(stream));                               \
+    if (err == cudaSuccess) err = cudaGetLastError();                       \
+  } while (0)
   AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
 #undef CALL
   return static_cast<int>(err);

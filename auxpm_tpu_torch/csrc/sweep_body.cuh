@@ -1,0 +1,390 @@
+// Round-synchronous probe body of the sweep kernels (ess_sweep.cu; written so
+// that sigma_sweep.cu can take it over).
+//
+// A sweep advances in ROUNDS inside ONE cooperative launch.  In each round
+// every still-active chain makes its next probe: phase A computes the
+// per-sample log-weights of all those probes with the work spread over every
+// block of the grid, a grid barrier follows, phase B (the caller's) folds
+// them, decides and publishes each chain's next probe, and a second grid
+// barrier closes the round.  What this replaces (probe.cuh, one block per
+// chain for the whole sweep) left the sweep as long as its slowest chain,
+// with every finished chain's SM idle.
+//
+// Phase A.  A work item is (active chain, 64-column tile t of f = left C^T).
+// C is lower-triangular, so tile t contracts only k < 64 (t + 1): the terms
+// dropped are exact zeros (fmaf(a, 0, acc) == acc), and the work is
+// S n (n + 64) / 2 FMAs per probe instead of S n^2.  Items are dealt to blocks
+// in a fixed order, largest k range first (t descending, then chains in
+// ascending index), block g taking items g, g + grid, ...  A block is one
+// producer warp and four consumer warps:
+//   * the producer streams 32-deep chunks of u, v and C (16-byte cp.async
+//     copies through L2, 48 per lane per chunk) into a ring of kStages
+//     shared-memory stages; each stage has a `full` mbarrier (one arrival
+//     per producer lane when its copies have landed) and an `empty` one (the
+//     128 consumer threads).  C is read with an evict-first L2 policy: it
+//     is streamed once per probe, while u and v are re-read by every tile
+//     of the probe.  A first version issued one 128-byte bulk copy
+//     (cp.async.bulk) per row, 192 per chunk, and took 10.4 ms for config
+//     2's sweep against 5.5 with these copies (PERF.md);
+//   * the consumers form the rotated operand u cos a + v sin a in place as
+//     each chunk arrives (rounded to bf16 for whiten_dtype="bfloat16", as
+//     round_operand does), then run a 4 x 8 register tile each: per 4-deep
+//     step 4 + 8 float4 shared loads feed 128 FMAs.  Rows of u and C are
+//     padded to 36 floats so that neither operand's loads conflict.
+//   * the likelihood is applied to the finished 64 x 64 tile and each row's
+//     sum over the tile's columns goes to a global slot rowsum[chain][t][s].
+// Each f element is the sum over k in ascending order in one accumulator,
+// as in probe.cuh; the fold over columns and tiles is in another (fixed)
+// order, so weights agree with the other kernels to rounding, not bitwise.
+//
+// Shared memory does not depend on n (a stage is 26 KB), so two blocks share
+// an SM; the grid is that occupancy times the SM count.  Tried and not kept
+// (PERF.md): 128-column items on 256 consumer threads (one block per SM;
+// the same time) and 8 x 8 register tiles on 128-column items (spills,
+// slower).  What bounds the body now: a round lasts at least as long as its
+// longest item (20 chunks of tile 9 at n = 640), and in full rounds each
+// chunk moves 24.5 KB for 131 k FMAs.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <stdint.h>
+
+#include "probe.cuh"
+
+namespace auxpm {
+namespace sweep {
+
+constexpr int kCols = 64;                   // columns of f per work item
+constexpr int kDepth = 32;                  // k per stage
+constexpr int kLdp = kDepth + 4;            // padded row of a u or C stage
+constexpr int kStages = 4;
+constexpr int kConsumers = 128;             // 16 x 8 threads, 4 x 8 f each
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kMaxChains = 2048;            // the active list is uint16
+
+struct Stage {
+  float u[kRows * kLdp];     // left rows (rotated in place)
+  float v[kRows * kDepth];   // direction rows
+  float c[kCols * kLdp];     // rows of C (columns of f)
+};
+
+struct Smem {
+  Stage stage[kStages];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+  uint16_t list[kMaxChains]; // active chains of the round, ascending
+  float lw[kRows];           // phase B: one chain's folded log-weights
+  float bcast[4];            // phase B: decision broadcast
+  int warp_count[kThreads / 32];
+};
+
+// One probe of one chain: f = left (c_scale C)^T with left = u (v == nullptr)
+// or u cos a + v sin a; rows S..63 of a stage stay zero.
+struct ProbeSpec {
+  const float* u;   // (S, n)
+  const float* v;   // (S, n) or nullptr
+  const float* c;   // (n, n) lower-triangular
+  float ca, sa;     // rotation
+  float c_scale;    // applied to C before the product (1 = untouched)
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n\t.reg .pred P1;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n\t"
+      "selp.b32 %0, 1, 0, P1;\n\t}"
+      : "=r"(ok)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// A transaction that never completes would hang the card; after ~2^26 tries
+// (seconds) the kernel traps instead, and the launch reports an error.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (uint32_t spin = 0; !mbar_try_wait(bar, parity); ++spin)
+    if (spin == (1u << 26)) __trap();
+}
+
+// 16 bytes global -> shared, through L2 only (the data were written by other
+// blocks of this launch).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// The same, with an L2 eviction policy (createpolicy): C, streamed once per
+// probe, is read evict-first so that it does not push the chains' u and v,
+// which every tile item of a probe re-reads, out of L2.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(policy));
+  return policy;
+}
+
+// The barrier receives one arrival once all of this thread's earlier
+// cp.async copies have landed (its count includes that arrival: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void consumer_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// Ring position of one role (producer or consumers).  Both roles walk the
+// same sequence of chunks, so their positions agree.
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1u;
+    }
+  }
+};
+
+// Once per launch, all threads: barriers initialised, the pad rows zeroed.
+__device__ inline void init_smem(Smem& sm) {
+  for (int s = 0; s < kStages; ++s) {
+    for (int i = threadIdx.x; i < kRows * kLdp; i += blockDim.x)
+      sm.stage[s].u[i] = 0.0f;
+    for (int i = threadIdx.x; i < kRows * kDepth; i += blockDim.x)
+      sm.stage[s].v[i] = 0.0f;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 32);   // the producer's lanes
+      mbar_init(&sm.empty[s], kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// Every thread of the block: the chains whose flag active[b * stride] is
+// non-zero, ascending, into sm.list; returns their number.  The flags were
+// written by other blocks before the last grid barrier (read through L2).
+__device__ inline int compact_active(Smem& sm, const float* active, int stride,
+                                     int B) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < B; base += kThreads) {
+    const int b = base + threadIdx.x;
+    const bool on = b < B && __ldcg(active + size_t(b) * stride) != 0.0f;
+    const unsigned ballot = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) sm.warp_count[warp] = __popc(ballot);
+    __syncthreads();
+    int before = total;
+    for (int w = 0; w < warp; ++w) before += sm.warp_count[w];
+    if (on)
+      sm.list[before + __popc(ballot & ((1u << lane) - 1u))] = uint16_t(b);
+    for (int w = 0; w < kThreads / 32; ++w) total += sm.warp_count[w];
+    __syncthreads();
+  }
+  return total;
+}
+
+// Phase A of a round: every item (chain list[w % nA], tile nT-1 - w / nA) of
+// this block, into rowsum[(chain * nT + t) * kRows + s].  `spec(b)` gives the
+// chain's ProbeSpec.  All threads of the block call it; the rings persist
+// across rounds.  Ends with a block barrier.
+template <int LIK, bool BF16, class Spec>
+__device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
+                                   int n, const float* __restrict__ y,
+                                   const float* __restrict__ mask,
+                                   float* rowsum, Spec spec) {
+  const int n_tiles = n / kCols;
+  const int n_items = n_tiles * n_active;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    const int lane = tid - kConsumers;
+    const uint64_t stream_once = evict_first_policy();
+    const int r4 = lane >> 3, q4 = (lane & 7) * 4;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const int t = n_tiles - 1 - w / n_active;
+      const ProbeSpec p = spec(sm.list[w % n_active]);
+      const int n_chunks = (t + 1) * (kCols / kDepth);
+      const float* c_rows = p.c + size_t(t) * kCols * n;
+      for (int kc = 0; kc < n_chunks; ++kc) {
+        Stage& st = sm.stage[ring.stage];
+        if (lane == 0) mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1u);
+        __syncwarp();
+        // 8 float4 per row of a chunk: lane (row lane / 8 + 4 j, float4
+        // lane % 8) for j = 0..15, the addresses stepping by a fixed stride
+        const int k0 = kc * kDepth + q4;
+        const float* u_src = p.u + size_t(r4) * n + k0;
+        const float* v_src = p.v ? p.v + size_t(r4) * n + k0 : nullptr;
+        const float* c_src = c_rows + size_t(r4) * n + k0;
+        float* u_dst = st.u + r4 * kLdp + q4;
+        float* v_dst = st.v + r4 * kDepth + q4;
+        float* c_dst = st.c + r4 * kLdp + q4;
+#pragma unroll
+        for (int j = 0; j < kRows / 4; ++j) {
+          if (r4 + 4 * j < S) {
+            cp_async16(u_dst + j * 4 * kLdp, u_src + size_t(j) * 4 * n);
+            if (p.v)
+              cp_async16(v_dst + j * 4 * kDepth, v_src + size_t(j) * 4 * n);
+          }
+          cp_async16(c_dst + j * 4 * kLdp, c_src + size_t(j) * 4 * n,
+                     stream_once);
+        }
+        cp_async_arrive(&sm.full[ring.stage]);
+        ring.advance();
+      }
+    }
+  } else {
+    // --------------------------------------------------------- consumers
+    const int tx = tid & 7, ty = tid >> 3;   // rows 4 ty.., columns tx + 8 c
+    const int rot_row = tid >> 1, rot_col = (tid & 1) * 16;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      const int t = n_tiles - 1 - w / n_active;
+      const int b = sm.list[w % n_active];
+      const ProbeSpec p = spec(b);
+      const int n_chunks = (t + 1) * (kCols / kDepth);
+      const bool scale_c = BF16 || p.c_scale != 1.0f;
+      float acc[4][8];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
+
+      for (int kc = 0; kc < n_chunks; ++kc) {
+        Stage& st = sm.stage[ring.stage];
+        mbar_wait(&sm.full[ring.stage], ring.phase);
+        // the operands as the product takes them, in place
+        // thread: row tid / 2, columns 16 (tid % 2) .. + 15, as float4
+        if ((p.v || BF16) && rot_row < S) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float4* x = reinterpret_cast<float4*>(st.u + rot_row * kLdp +
+                                                  rot_col + 4 * q);
+            float4 a = *x;
+            if (p.v) {
+              const float4 d = *reinterpret_cast<const float4*>(
+                  st.v + rot_row * kDepth + rot_col + 4 * q);
+              a.x = a.x * p.ca + d.x * p.sa;
+              a.y = a.y * p.ca + d.y * p.sa;
+              a.z = a.z * p.ca + d.z * p.sa;
+              a.w = a.w * p.ca + d.w * p.sa;
+            }
+            *x = make_float4(
+                round_operand<BF16>(a.x), round_operand<BF16>(a.y),
+                round_operand<BF16>(a.z), round_operand<BF16>(a.w));
+          }
+        }
+        if (scale_c) {   // rows tid / 2 of C, the same columns
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            float4* x = reinterpret_cast<float4*>(st.c + rot_row * kLdp +
+                                                  rot_col + 4 * q);
+            const float4 c = *x;
+            *x = make_float4(round_operand<BF16>(p.c_scale * c.x),
+                             round_operand<BF16>(p.c_scale * c.y),
+                             round_operand<BF16>(p.c_scale * c.z),
+                             round_operand<BF16>(p.c_scale * c.w));
+          }
+        }
+        if (p.v || scale_c) consumer_barrier();
+        const float* a_base = st.u + (ty * 4) * kLdp;
+        const float* b_base = st.c + tx * kLdp;
+#pragma unroll
+        for (int k = 0; k < kDepth; k += 4) {
+          float4 a[4], bv[8];
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            a[r] = *reinterpret_cast<const float4*>(a_base + r * kLdp + k);
+#pragma unroll
+          for (int c = 0; c < 8; ++c)
+            bv[c] = *reinterpret_cast<const float4*>(b_base + 8 * c * kLdp + k);
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              acc[r][c] = fmaf(a[r].x, bv[c].x, acc[r][c]);
+              acc[r][c] = fmaf(a[r].y, bv[c].y, acc[r][c]);
+              acc[r][c] = fmaf(a[r].z, bv[c].z, acc[r][c]);
+              acc[r][c] = fmaf(a[r].w, bv[c].w, acc[r][c]);
+            }
+        }
+        mbar_arrive(&sm.empty[ring.stage]);
+        ring.advance();
+      }
+
+      // likelihood on the finished tile, summed over its 64 columns
+      float rowacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int j = t * kCols + tx + 8 * c;
+        const float yj = y[j], mj = mask[j];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          rowacc[r] += log_lik<LIK>(yj * acc[r][c]) * mj;
+      }
+      float* out = rowsum + (size_t(b) * n_tiles + t) * kRows + ty * 4;
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float v = rowacc[r];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        if (tx == 0) out[r] = v;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Phase B helper, warp 0: the chain's per-sample log-weights folded over its
+// tiles in tile order, into sm.lw; then the blocked log-sum-exp minus log S
+// (same value on every lane).
+__device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
+                                      int n_tiles, int S, int n_blocks,
+                                      float log_s) {
+  const int lane = threadIdx.x & 31;
+  const float* base = rowsum + size_t(b) * n_tiles * kRows;
+  for (int s = lane; s < S; s += 32) {
+    float acc = 0.0f;
+#pragma unroll 10
+    for (int t = 0; t < n_tiles; ++t) acc += __ldcg(base + t * kRows + s);
+    sm.lw[s] = acc;
+  }
+  __syncwarp();
+  return blocked_lse(sm.lw, S, n_blocks) - log_s;
+}
+
+}  // namespace sweep
+}  // namespace auxpm

@@ -38,8 +38,9 @@ _SIGNATURES = {
     "auxpm_fused_rot_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _P],
     "auxpm_se_gram_ard": [_P, _P, _P, _I, _I, _I, _F, _P],
-    "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                        _I, _I, _P],
+    "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _F, _I, _I, _P],
+    "auxpm_ess_sweep_grid": [_I, _I],
     "auxpm_sigma_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                           _I, _I, _P],
     "auxpm_chol_panel": [_P, _P, _P, _I, _P],

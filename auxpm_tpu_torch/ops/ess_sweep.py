@@ -12,10 +12,12 @@ Randomness is precomputed by the caller (``samplers/ess_u.py``):
                          height), a0, 32 shrink uniforms]
     v    (B, R, S, n):   per-repeat direction draws
 
-On CUDA tensors the sweep is ONE launch of ``csrc/ess_sweep.cu`` (one block
-per chain, each chain runs exactly its own probe count); on CPU tensors it is
-the plain batched, done-masked version ``_ref_ess_sweep``.  Cap-hit (32
-shrinks) keeps the current state, an exact no-op move.
+On CUDA tensors the sweep is ONE cooperative launch of ``csrc/ess_sweep.cu``
+over the whole card: it advances in rounds, each active chain making its next
+probe in every round, so each chain runs exactly its own probe count and the
+number of rounds is the largest of them; on CPU tensors it is the plain
+batched, done-masked version ``_ref_ess_sweep``.  Cap-hit (32 shrinks) keeps
+the current state, an exact no-op move.
 """
 
 from __future__ import annotations
@@ -35,9 +37,15 @@ from auxpm_tpu_torch.ops.fused_estimator import (
 
 MAX_SHRINK = 32
 SCAL_COLS = 3 + MAX_SHRINK
+MAX_CHAINS = 2048   # csrc/sweep_body.cuh kMaxChains
+_STATE = 16         # floats of per-chain state in the kernel's workspace
+_TILE = 64          # columns of f per work item
 _TWO_PI = 2.0 * math.pi
 
 launches = 0  # kernel launches made by this module's wrapper
+# rounds of the last launch: a 1-element CUDA tensor, read after a
+# synchronize (the kernel writes it at its end)
+last_rounds = None
 
 
 def _ref_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
@@ -92,7 +100,7 @@ def _ref_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
 
 def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
                     n_repeats, whiten_dtype):
-    global launches
+    global launches, last_rounds
     if u.dim() != 3:
         raise ValueError("expected u (B, S, n)")
     b, s, n = u.shape
@@ -104,22 +112,42 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
             f"scal {tuple(scal.shape)}, v {tuple(v.shape)}"
         )
     check_probe_shapes(s, n, n_blocks)
+    if not 1 <= b <= MAX_CHAINS or n_repeats < 1:
+        raise ValueError(f"B={b}, n_repeats={n_repeats}: the sweep takes 1 to "
+                         f"{MAX_CHAINS} chains and at least one repeat")
     device = _build.require_f32_contiguous(chol=chol, u=u, scal=scal, v=v,
                                            y=y, mask=mask)
     lib = _build.load_library()
     u_out = torch.empty_like(u)
     stats = torch.empty((b, 4), dtype=torch.float32, device=device)
+    # per-chain state (two buffers), the tile sums rowsum[chain][tile][64],
+    # the rounds
+    workspace = torch.empty(b * (2 * _STATE + (n // _TILE) * 64) + 1,
+                            dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.auxpm_ess_sweep(
             chol.data_ptr(), u.data_ptr(), scal.data_ptr(), v.data_ptr(),
             y.data_ptr(), mask.data_ptr(), u_out.data_ptr(), stats.data_ptr(),
-            b, s, n, n_repeats, n_blocks, _log_s(u, log_s),
+            workspace.data_ptr(), b, s, n, n_repeats, n_blocks,
+            _log_s(u, log_s),
             LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "ess_sweep_kernel")
     launches += 1
+    last_rounds = workspace[-1:]
     return u_out, stats[:, 0], stats[:, 1], stats[:, 2]
+
+
+def sweep_grid(device=None, likelihood="logistic", whiten_dtype="float32"):
+    """Blocks of the cooperative grid the sweep kernel launches on ``device``
+    (occupancy x SM count); raises if the card cannot hold one block."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        grid = lib.auxpm_ess_sweep_grid(LIKELIHOOD_IDS[likelihood],
+                                        int(whiten_dtype == "bfloat16"))
+    _build.check_launch(-grid if grid < 0 else 0, "ess_sweep_kernel (grid)")
+    return grid
 
 
 def ess_sweep(chol, u, scal, v, y, mask, likelihood="logistic", n_blocks=1,

@@ -362,6 +362,8 @@ def make_fused_rot_weights(y, mask, likelihood="logistic",
 
 
 def probe_flops(s, n):
-    """FLOPs of one probe of one chain (the f = u C^T product)."""
-    return 2.0 * s * n * n
+    """Least FLOPs of one probe of one chain, the f = u C^T product: C is
+    lower-triangular, so column i of f needs i + 1 terms, S n (n + 1) in
+    all."""
+    return float(s) * n * (n + 1)
 

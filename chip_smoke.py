@@ -19,6 +19,12 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   timed with CUDA events between L2 flushes, beside the least
                   time the card could take; the weights kernels' rows must
                   not depend on the rows that share their call (bitwise);
+                  the ESS sweep (one cooperative launch that advances in
+                  rounds) and the v3 panel also at B=1, B=3 and more than the
+                  sweep's grid of blocks, bitwise equal to B=128, the sweep
+                  with its rounds against its chains' largest probe count
+                  and at the 32-shrink cap at full width, the panel with NaN
+                  on the diagonal from a failing column on;
 3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
                   the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
@@ -300,6 +306,27 @@ def main():
     if not bool(torch.isnan(d_s[5]).any()) or \
             not bool(torch.isfinite(torch.cat([d_s[:5], d_s[6:]])).all()):
         raise AssertionError("chol_panel: NaN contract broken")
+    # ... and from the failing column on: a tile whose pivot at column c is
+    # made -0.5 has a finite diagonal before c and NaN from c on
+    for c_ in (40, 100):
+        t64 = tiles[7].double()
+        l64 = torch.linalg.cholesky(t64)
+        bad = tiles[7:8].clone()
+        bad[0, c_, c_] = float((l64[c_, :c_] ** 2).sum() - 0.5)
+        d_b = torch.diagonal(chol_hopper.chol_panel_batched3(bad)[0][0])
+        if not (bool(torch.isfinite(d_b[:c_]).all())
+                and bool(torch.isnan(d_b[c_:]).all())):
+            raise AssertionError(f"chol_panel: NaN contract at column {c_}")
+    # the same tiles at B=1, B=3 and more tiles than the sweep's cooperative
+    # grid has blocks (the 128 repeated): bitwise the B=128 result
+    panel_batches = {}
+    for nb_ in (1, 3, 2 * B + 17):
+        idx = torch.arange(nb_, device=dev) % B
+        l_b, xt_b = chol_hopper.chol_panel_batched3(tiles[idx].contiguous())
+        panel_batches[f"B={nb_}"] = bool(torch.equal(l_b, l_k[idx])
+                                         and torch.equal(xt_b, xt_k[idx]))
+    if not all(panel_batches.values()):
+        failures.append(f"chol_panel: batches differ {panel_batches}")
     # the blocked factorisation at the main path's shape.  Two f32 factorisations of
     # a Gram with condition number up to ~1e7 differ elementwise by far more
     # than any fixed bar, so it is held to the backward error
@@ -340,6 +367,7 @@ def main():
         "blocked_backward_err": back_drv, "library_backward_err": back_lib,
         "blocked_vs_library_max_abs_diff": diff_drv,
         "blocked_failed_before_escalation": n_failed,
+        "batches_bitwise_equal": panel_batches,
         "ms": time_ms(lambda: chol_hopper.chol_panel_batched3(tiles)),
         "plain_ms": time_ms(lambda: chol_hopper._ref_chol_panel(tiles)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -370,6 +398,8 @@ def main():
         amb = ambiguous_chains(probe_log, LL_TOL)
         n_amb = check_counts("ess_sweep", [("n_shrink", ns_k, ns_p),
                                            ("moved", mv_k, mv_p)], amb)
+        if lik == "logistic":
+            ambig_full = amb
         ess_err[lik] = {
             "u": check_close("ess_sweep", "u'", u_k, u_p, U_TOL, ~amb),
             "ll": check_close("ess_sweep", f"ll ({lik})", ll_k, ll_p, LL_TOL,
@@ -380,10 +410,62 @@ def main():
         }
         if lik == "logistic":
             scal_logistic = scal
+            sweep_full = (u_k, ll_k, ns_k, mv_k)
+            rounds = int(ess.last_rounds.item())
+            chain_probes = ns_k + N_ESS
+            if rounds != int(chain_probes.max()):
+                failures.append(f"ess_sweep: {rounds} rounds, but the most "
+                                f"probes of a chain is {chain_probes.max()}")
     probes = ess_err["logistic"]["probes"]
+    grid = ess.sweep_grid()
+    # the same chains at other batch sizes: B=1, B=3 and more chains than the
+    # cooperative grid has blocks (the 128 chains repeated).  A chain's result
+    # does not depend on the others in its launch (each work item has one
+    # fixed order), so it must equal the B=128 result bitwise.
+    odd = {}
+    for nb_ in (1, 3, grid + 8):
+        idx = torch.arange(nb_, device=dev) % B
+        args_ = [a[idx].contiguous() for a in (chol, u, scal_logistic, v)]
+        out_k = ess.ess_sweep(*args_[:2], args_[2], args_[3], y, mask,
+                              "logistic", 8, None, N_ESS)
+        out_p = ess._ref_ess_sweep(*args_, y, mask, "logistic", 8, None,
+                                   N_ESS, "float32")
+        torch.cuda.synchronize()
+        same = all(torch.equal(k_, f_[idx]) for k_, f_ in zip(out_k,
+                                                               sweep_full))
+        # the chains excused at B=128 are the ones excused here
+        amb = ambig_full[idx]
+        check_counts(f"ess_sweep B={nb_}", [
+            ("n_shrink", out_k[2], out_p[2]), ("moved", out_k[3], out_p[3])],
+            amb)
+        odd[f"B={nb_}"] = {
+            "bitwise_equal_to_B128": same,
+            "u": check_close("ess_sweep", f"u' B={nb_}", out_k[0], out_p[0],
+                             U_TOL, ~amb),
+            "ll": check_close("ess_sweep", f"ll B={nb_}", out_k[1], out_p[1],
+                              LL_TOL, ~amb, LL_RTOL),
+            "rounds": int(ess.last_rounds.item())}
+        if not same:
+            failures.append(f"ess_sweep: B={nb_} differs from the same "
+                            "chains at B=128")
+    # every chain to the 32-shrink cap at full width: the state is kept
+    # bitwise, 33 probes per chain, 33 rounds
+    scal_cap = scal_logistic.clone()
+    scal_cap[:, :, 1] = 1e4
+    u_c, ll_c, ns_c, mv_c = ess.ess_sweep(chol, u, scal_cap[:, :1].contiguous(),
+                                          v[:, :1].contiguous(), y, mask,
+                                          "logistic", 8, None, 1)
+    torch.cuda.synchronize()
+    cap_rounds = int(ess.last_rounds.item())
+    if not (torch.equal(u_c, u) and torch.equal(ll_c, scal_cap[:, 0, 0])
+            and bool((ns_c == 32).all()) and bool((mv_c == 0).all())
+            and cap_rounds == 33):
+        failures.append("ess_sweep: cap-hit at B=128 did not keep the state")
     b_ms, b_by = bound(
         4 * B * (N * N + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
         probes * fe.probe_flops(S, N))
+    half = slice(0, B_ARD)
+    sweep64 = [a[half].contiguous() for a in (chol, u, scal_logistic, v)]
     kernels["ess_sweep"] = {
         "name": "ess_sweep", "route": "cuda",
         "source": "auxpm_tpu_torch/csrc/ess_sweep.cu",
@@ -391,12 +473,27 @@ def main():
         "max_abs_err": ess_err["logistic"]["ll"], "tol": LL_TOL,
         "u_max_abs_err": ess_err["logistic"]["u"], "u_tol": U_TOL,
         "variants": ess_err, "probes": probes,
+        "probes_max_chain": int(chain_probes.max()),
+        "probes_mean_chain": float(chain_probes.mean()),
+        "rounds": rounds, "grid_blocks": grid, "batches": odd,
+        "cap_hit_rounds_B128": cap_rounds,
         "ms": time_ms(lambda: ess.ess_sweep(chol, u, scal_logistic, v, y, mask,
                                             "logistic", 8, None, N_ESS), 3),
         "plain_ms": time_ms(lambda: ess._ref_ess_sweep(
             chol, u, scal_logistic, v, y, mask, "logistic", 8, None, N_ESS,
             "float32"), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_B64": time_ms(lambda: ess.ess_sweep(*sweep64, y, mask, "logistic",
+                                                8, None, N_ESS), 3),
+        # all 128 chains active in every round (the cap-hit rows: 33 rounds,
+        # no u' rewrite)
+        "ms_cap_hit_B128_R1": time_ms(lambda: ess.ess_sweep(
+            chol, u, scal_cap[:, :1].contiguous(), v[:, :1].contiguous(), y,
+            mask, "logistic", 8, None, 1), 3),
+        "bound_ms_B64": bound(
+            4 * B_ARD * (N * N + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
+            (float(chain_probes[half].sum())) * fe.probe_flops(S, N))[0],
+        "probes_B64": float(chain_probes[half].sum()),
     }
 
     # ---------------------------------------------------------- sigma sweep

@@ -1,0 +1,350 @@
+"""CPU models of the schedules of two CUDA kernels of the port.
+
+No CUDA kernel runs on the CPU, so the order in which each kernel does its
+work is written out here in NumPy, step for step, and held to the JAX
+package (and to the port's plain versions) on the same NumPy-seeded inputs:
+
+(a) ``csrc/ess_sweep.cu``: the ESS sweep in ROUNDS.  In each round every
+    active chain makes its next probe, whatever repeat it is at; f = left C^T
+    is computed tile by tile over column tiles of the kernel's width w, tile t
+    contracting only k < w (t + 1) (C is lower-triangular), the tiles' row
+    sums folded in tile order, then the fixed 8-block log-sum-exp and the
+    bracket decision.  The model must give exactly the shrink and moved
+    counts of the plain sweep ``ops/ess_sweep._ref_ess_sweep``, and u', ll' within the bars the kernels
+    phase of ``chip_smoke.py`` uses (u' 1e-5, ll' 2e-4 + 2e-6 |ll|) against
+    the reference's per-probe loop path, built under ``AUXPM_ESS_SWEEP=0``
+    as ``tests/test_torch_stepout.py`` builds it, with the random rows of
+    ``samplers/ess_u.py``.
+(b) ``csrc/chol_panel.cu``: the 128-tile factor in 32-wide column blocks
+    (diagonal block unblocked, rows below by forward substitution, trailing
+    update over the lower blocks only, inv(L) by block forward
+    substitution), against ``chol_panel_batched3(..., interpret=True)`` of
+    the JAX package within 5e-4, with the NaN contract: a tile made
+    indefinite at column c has NaN on L's diagonal from c on and finite
+    values before.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from auxpm_tpu.core.state import init_chain_states as j_init
+from auxpm_tpu.models.gp_classification import make_gp_classification as jmake
+from auxpm_tpu.ops import chol_pallas as jchol
+from auxpm_tpu.samplers.ess_u import make_ess_u as j_make_ess_u
+from auxpm_tpu_torch.models.likelihoods import log_ndtr, log_sigmoid
+from auxpm_tpu_torch.ops import ess_sweep as tess
+from tests.test_torch_stepout import _ess_rows
+
+B, S, N_RAW, N, N_BLOCKS = 6, 64, 200, 256, 8
+TILE = tess._TILE   # columns of f per work item of the kernel
+LL_TOL, LL_RTOL, U_TOL, CHOL_TOL = 2e-4, 2e-6, 1e-5, 5e-4
+F32 = np.float32
+TWO_PI = F32(2.0 * np.pi)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+# ------------------------------------------------- (a) the sweep's rounds
+
+
+def _log_lik(z, likelihood):
+    fn = log_sigmoid if likelihood == "logistic" else log_ndtr
+    return fn(torch.from_numpy(z)).numpy()
+
+
+def _blocked_lse(lw, n_blocks):
+    """The kernel's fixed combine (probe.cuh blocked_lse), float32."""
+    parts = lw.reshape(n_blocks, -1)
+    bm = parts.max(1)
+    safe = np.where(np.isfinite(bm), bm, F32(0))
+    bsum = np.exp(parts - safe[:, None]).sum(1, dtype=F32)
+    cm, cs = bm[0], bsum[0]
+    for m_b, s_b in zip(bm[1:], bsum[1:]):
+        nm = max(cm, m_b)
+        safe = nm if np.isfinite(nm) else F32(0)
+        cs = cs * np.exp(cm - safe) + s_b * np.exp(m_b - safe)
+        cm = nm
+    return np.log(cs) + (cm if np.isfinite(cm) else F32(0))
+
+
+def sweep_rounds_model(chol, u, scal, v, y, mask, likelihood):
+    """The round schedule of csrc/ess_sweep.cu.  Returns u', ll', n_shrink,
+    moved and, per round, the repeat index of every chain probed in it."""
+    n_chains, s, n = u.shape
+    n_rep, n_tiles = scal.shape[1], n // TILE
+    log_s = np.log(F32(s))
+    uo = u.copy()
+    r = np.zeros(n_chains, int)
+    i = np.zeros(n_chains, int)
+    a = scal[:, 0, 2].copy()
+    a_min, a_max = a - TWO_PI, a.copy()
+    ll = scal[:, 0, 0].copy()
+    log_y = ll + scal[:, 0, 1]
+    n_shrink = np.zeros(n_chains, F32)
+    moved = np.zeros(n_chains, F32)
+    active = np.ones(n_chains, bool)
+    rounds = []
+    while active.any():
+        act = np.flatnonzero(active)
+        rounds.append(r[act].copy())
+        # phase A: items (chain, tile), largest k range first
+        rowsum = np.zeros((n_chains, n_tiles, s), F32)
+        left = (uo[act] * np.cos(a[act])[:, None, None]
+                + v[act, r[act]] * np.sin(a[act])[:, None, None])
+        for t in reversed(range(n_tiles)):
+            cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
+            f = left[:, :, :k_end] @ chol[act, cols, :k_end].transpose(0, 2, 1)
+            rowsum[act, t] = (_log_lik(y[cols] * f, likelihood)
+                              * mask[cols]).sum(-1, dtype=F32)
+        # phase B: fold in tile order, decide
+        for b in act:
+            lw = np.zeros(s, F32)
+            for t in range(n_tiles):
+                lw = lw + rowsum[b, t]
+            ll_p = _blocked_lse(lw, N_BLOCKS) - log_s
+            row = scal[b, r[b]]
+            next_repeat = False
+            if ll_p > log_y[b]:
+                uo[b] = uo[b] * np.cos(a[b]) + v[b, r[b]] * np.sin(a[b])
+                ll[b] = ll_p
+                n_shrink[b] += i[b]
+                moved[b] += 1
+                next_repeat = True
+            elif i[b] < tess.MAX_SHRINK:
+                if a[b] < 0:
+                    a_min[b] = a[b]
+                else:
+                    a_max[b] = a[b]
+                a[b] = a_min[b] + (a_max[b] - a_min[b]) * row[3 + i[b]]
+                i[b] += 1
+            else:
+                n_shrink[b] += i[b]
+                next_repeat = True
+            if next_repeat:
+                r[b] += 1
+                if r[b] < n_rep:
+                    row = scal[b, r[b]]
+                    a[b] = row[2]
+                    a_min[b], a_max[b] = a[b] - TWO_PI, a[b]
+                    log_y[b] = ll[b] + row[1]
+                    i[b] = 0
+                else:
+                    active[b] = False
+    return uo, ll, n_shrink, moved, rounds
+
+
+def _data(seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((N_RAW, 3)).astype(F32)
+    w = rng.standard_normal(3)
+    y = np.where(x @ w + 0.5 * rng.standard_normal(N_RAW) > 0, 1.0, -1.0)
+    return x, y.astype(F32)
+
+
+def _reference_step(likelihood, n_rep, seed):
+    """One ESS step of the JAX package's per-probe loop path on B chains, the
+    random rows it drew, its prepared factor and its padded y and mask."""
+    x, y = _data(seed)
+    tj = jmake(x, y, n_importance=S, likelihood=likelihood)
+    assert tj.u_shape == (S, N) and tj.n_weight_blocks == N_BLOCKS
+    saved = os.environ.get("AUXPM_ESS_SWEEP")
+    os.environ["AUXPM_ESS_SWEEP"] = "0"   # read when the transition is built
+    try:
+        step = j_make_ess_u(tj, n_repeats=n_rep)
+    finally:
+        if saved is None:
+            del os.environ["AUXPM_ESS_SWEEP"]
+        else:
+            os.environ["AUXPM_ESS_SWEEP"] = saved
+    assert not step.uses_sweep
+    states = j_init(jax.random.key(seed), tj, B, jitter_scale=0.3)
+    out, info = jax.jit(jax.vmap(lambda st: step(st, {})))(states)
+    _, scal, v = jax.jit(jax.vmap(
+        lambda k, ll: _ess_rows(k, ll, tj.u_shape, n_rep, N_BLOCKS)))(
+            states.key, states.log_lik_hat)
+    chol = jax.jit(jax.vmap(tj.prepare))(states.theta)
+    y_pad = np.ones(N, F32)
+    y_pad[:N_RAW] = y
+    mask = (np.arange(N) < N_RAW).astype(F32)
+    arrays = [np.array(a, F32) for a in (chol, states.u, scal, v)]
+    return arrays + [y_pad, mask], out, info
+
+
+def _numpy_inputs(seed, n_rep, likelihood, level=None):
+    """NumPy-made sweep inputs at the same shapes: an SE factor, u, rows."""
+    rng = np.random.default_rng(seed)
+    x, y = _data(seed)
+    x_pad = np.concatenate([x, rng.standard_normal((N - N_RAW, 3))])
+    sq = ((x_pad[:, None] - x_pad[None]) ** 2).sum(-1)
+    ells = rng.uniform(1.0, 2.0, B)
+    k = np.exp(-0.5 * sq[None] / ells[:, None, None] ** 2) + 1e-3 * np.eye(N)
+    chol = (1.5 * np.linalg.cholesky(k)).astype(F32)
+    u = rng.standard_normal((B, S, N)).astype(F32)
+    v = rng.standard_normal((B, n_rep, S, N)).astype(F32)
+    y_pad = np.ones(N, F32)
+    y_pad[:N_RAW] = y
+    mask = (np.arange(N) < N_RAW).astype(F32)
+    scal = np.zeros((B, n_rep, 3 + tess.MAX_SHRINK), F32)
+    scal[:, 0, 0] = tess._ref_estimate(*map(_t, (chol, u, y_pad, mask)),
+                                       likelihood, N_BLOCKS).numpy()
+    scal[:, :, 1] = (np.log(rng.uniform(size=(B, n_rep))) if level is None
+                     else level)
+    scal[:, :, 2] = rng.uniform(size=(B, n_rep)) * 2.0 * np.pi
+    scal[:, :, 3:] = rng.uniform(size=(B, n_rep, tess.MAX_SHRINK))
+    return chol, u, scal, v, y_pad, mask
+
+
+def _check_against_plain(inputs, likelihood, n_rep):
+    """The model on ``inputs``: counts equal to the plain sweep's, values
+    within the kernel bars, and the schedule the kernel relies on (one probe
+    per active chain per round, so the rounds are the largest probe count;
+    with several repeats, chains at different repeats share a round).
+    Returns the model's output."""
+    u_m, ll_m, ns_m, mv_m, rounds = out = sweep_rounds_model(
+        *inputs, likelihood)
+    probe_log = []
+    u_p, ll_p, ns_p, mv_p = tess._ref_ess_sweep(
+        *map(_t, inputs), likelihood, N_BLOCKS, None, n_rep, "float32",
+        probe_log=probe_log)
+    margins = torch.cat([m[act].abs() for act, m in probe_log])
+    assert float(margins.min()) > LL_TOL, "a decision sat on its boundary"
+    np.testing.assert_array_equal(ns_m, ns_p.numpy())
+    np.testing.assert_array_equal(mv_m, mv_p.numpy())
+    ll_p = ll_p.numpy()
+    assert np.all(np.abs(ll_m - ll_p) <= LL_TOL + LL_RTOL * np.abs(ll_p))
+    np.testing.assert_allclose(u_m, u_p.numpy(), rtol=0, atol=U_TOL)
+    probes = n_rep + ns_m
+    assert len(rounds) == int(probes.max())
+    assert sum(len(r) for r in rounds) == int(probes.sum())
+    assert n_rep == 1 or any(len(set(r.tolist())) > 1 for r in rounds)
+    assert ns_m.sum() > 0 and mv_m.sum() > 0
+    return out
+
+
+def test_round_model_matches_plain_sweep_and_jax_loop():
+    n_rep = 1   # one repeat keeps the reference's compile short
+    inputs, out_j, info_j = _reference_step("logistic", n_rep, seed=3)
+    u_m, ll_m, ns_m, mv_m, _ = _check_against_plain(inputs, "logistic", n_rep)
+    # the reference's loop path: counts, then values within the kernel bars
+    np.testing.assert_array_equal(ns_m, np.asarray(info_j["n_shrink"]) * n_rep)
+    np.testing.assert_array_equal(mv_m, np.asarray(info_j["moved"]) * n_rep)
+    ll_j = np.asarray(out_j.log_lik_hat)
+    assert np.all(np.abs(ll_m - ll_j) <= LL_TOL + LL_RTOL * np.abs(ll_j))
+    np.testing.assert_allclose(u_m, np.asarray(out_j.u), rtol=0, atol=U_TOL)
+
+
+@pytest.mark.parametrize("likelihood", ["logistic", "probit"])
+def test_round_model_matches_plain_sweep(likelihood):
+    n_rep = 3
+    _check_against_plain(_numpy_inputs(21, n_rep, likelihood), likelihood,
+                         n_rep)
+
+
+def test_round_model_keeps_the_state_at_the_shrink_cap():
+    chol, u, scal, v, y, mask = inputs = _numpy_inputs(
+        22, 1, "logistic", level=50.0)   # a slice level no probe reaches
+    u_m, ll_m, ns_m, mv_m, rounds = sweep_rounds_model(*inputs, "logistic")
+    assert np.array_equal(u_m, u) and np.array_equal(ll_m, scal[:, 0, 0])
+    assert np.all(ns_m == tess.MAX_SHRINK) and np.all(mv_m == 0)
+    assert len(rounds) == tess.MAX_SHRINK + 1
+    u_p, ll_p, ns_p, mv_p = tess._ref_ess_sweep(
+        *map(_t, inputs), "logistic", N_BLOCKS, None, 1, "float32")
+    np.testing.assert_array_equal(ns_m, ns_p.numpy())
+    assert torch.equal(u_p, _t(u))
+
+
+# ------------------------------------------------ (b) the 32-block panel
+
+NB = 32
+
+
+def panel_model(a):
+    """The schedule of csrc/chol_panel.cu on one (128,128) tile, float32:
+    -> (L lower, inv(L)^T upper)."""
+    a = a.astype(F32).copy()
+    x = np.zeros_like(a)
+    inv_d = np.zeros(128, F32)
+    blk = [slice(j * NB, (j + 1) * NB) for j in range(128 // NB)]
+    with np.errstate(invalid="ignore"):
+        for j, s in enumerate(blk):
+            d_blk = a[s, s].copy()     # diagonal block, column by column
+            for k in range(NB):
+                pivot = d_blk[k, k]
+                d = np.sqrt(pivot) if pivot > 0 else F32(np.nan)
+                inv_d[j * NB + k] = F32(1) / d
+                col = d_blk[k + 1:, k] * inv_d[j * NB + k]
+                d_blk[k + 1:, k + 1:] -= np.outer(col, col)
+                d_blk[k + 1:, k], d_blk[k, k] = col, d
+            l_jj = np.tril(d_blk)
+            a[s, s] = l_jj
+            x_jj = np.zeros((NB, NB), F32)     # forward substitution
+            for r in range(NB):
+                x_jj[r] = (np.eye(NB, dtype=F32)[r]
+                           - l_jj[r, :r] @ x_jj[:r]) * inv_d[j * NB + r]
+            x[s, s] = x_jj
+            below = slice((j + 1) * NB, 128)   # rows below, one per thread
+            p = a[below, s].copy()
+            for k in range(NB):
+                p[:, k] *= inv_d[j * NB + k]
+                p[:, k + 1:] -= np.outer(p[:, k], l_jj[k + 1:, k])
+            a[below, s] = p
+            for pp in range(j + 1, len(blk)):  # trailing, lower blocks only
+                for q in range(j + 1, pp + 1):
+                    a[blk[pp], blk[q]] -= a[blk[pp], s] @ a[blk[q], s].T
+        for i in range(1, len(blk)):           # inv(L), block rows in turn
+            t = {j: sum(a[blk[i], blk[k]] @ x[blk[k], blk[j]]
+                        for k in range(j, i)) for j in range(i)}
+            for j in range(i):
+                x[blk[i], blk[j]] = -(x[blk[i], blk[i]] @ t[j])
+    return np.tril(a), np.triu(x.T)
+
+
+def _spd_tiles(b, seed, jitter=1e-2):
+    rng = np.random.default_rng(seed)
+    pts = rng.standard_normal((128, 3))
+    sq = ((pts[:, None] - pts[None]) ** 2).sum(-1)
+    ells = rng.uniform(0.5, 3.0, b)
+    k = (np.exp(-0.5 * sq[None] / ells[:, None, None] ** 2)
+         + jitter * np.eye(128))
+    return k.astype(F32)
+
+
+def _indefinite_at(tile, col):
+    """The tile with its pivot at ``col`` made -0.5 (earlier pivots kept)."""
+    tile = tile.copy()
+    l64 = np.linalg.cholesky(tile.astype(np.float64))
+    tile[col, col] = F32((l64[col, :col] ** 2).sum() - 0.5)
+    return tile
+
+
+def test_panel_model_matches_jax_interpret():
+    tiles = _spd_tiles(3, seed=11)
+    l_j, xt_j = (np.asarray(o) for o in jchol.chol_panel_batched3(
+        jnp.asarray(tiles), bt=1, interpret=True))
+    for b in range(len(tiles)):
+        l_m, xt_m = panel_model(tiles[b])
+        np.testing.assert_allclose(l_m, l_j[b], rtol=0, atol=CHOL_TOL)
+        np.testing.assert_allclose(xt_m, xt_j[b], rtol=2e-3, atol=2e-3)
+        resid = xt_m.T @ l_m - np.eye(128)
+        assert np.abs(resid).max() <= 2e-4
+        assert np.all(np.triu(l_m, 1) == 0) and np.all(np.tril(xt_m, -1) == 0)
+
+
+@pytest.mark.parametrize("col", [40, 100])
+def test_panel_model_nan_from_the_failing_column(col):
+    tile = _indefinite_at(_spd_tiles(1, seed=12 + col)[0], col)
+    l_m, _ = panel_model(tile)
+    l_j, _ = (np.asarray(o)[0] for o in jchol.chol_panel_batched3(
+        jnp.asarray(tile[None]), bt=1, interpret=True))
+    for l in (l_m, l_j):
+        diag = np.diagonal(l)
+        assert np.all(np.isfinite(diag[:col])) and np.all(np.isnan(diag[col:]))
+    np.testing.assert_allclose(l_m[:, :col], l_j[:, :col], rtol=0,
+                               atol=CHOL_TOL)
