@@ -30,7 +30,9 @@
 //
 // Bound: operations.  S n (n + 64) / 2 FMAs per probe with the triangle
 // skipped (the least work is S n (n + 1) FLOPs), against one read of (C, u,
-// v, scal) and one write of u'.  Grid barriers: 1 + 2 per round.
+// v, scal) and one write of u'.  Grid barriers: 1 + 2 per round.  The
+// cooperative launch helpers are sweep_body.cuh's, shared with the sigma
+// sweep.
 #include "sweep_body.cuh"
 
 namespace auxpm {
@@ -107,7 +109,9 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
 
     // ------------------------------------------------ phase A: the probes
     probe_tiles<LIK, BF16>(
-        sm, ring, n_active, S, n, y, mask, rowsum, [&](int b) {
+        sm, ring, n_active, S, n, y, mask, rowsum,
+        [&](int j) { return int(sm.list[j]); },
+        [&](int b) {
           const float* st = cur + size_t(b) * kState;
           const int r = int(__ldcg(st + kRep));
           const float a = __ldcg(st + kA);
@@ -119,7 +123,8 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
           p.sa = sinf(a);
           p.c_scale = 1.0f;
           return p;
-        });
+        },
+        [](int, int) {});
     grid.sync();
 
     // ---------------------------------------------- phase B: the decisions
@@ -223,35 +228,40 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
   }
 }
 
-template <class K>
-cudaError_t sweep_grid(K kernel, int* grid) {
-  const size_t smem = sizeof(sweep::Smem);
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, sweep::kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *grid = per_sm * sms;
-  return cudaSuccess;
+// A cooperative kernel of the sweep body's shape (block size, shared
+// memory, two blocks per SM) that only passes one grid barrier.
+__global__ void __launch_bounds__(sweep::kThreads, 2) grid_check_kernel() {
+  cooperative_groups::this_grid().sync();
 }
 
 }  // namespace auxpm
 
-// Blocks of the cooperative grid the sweep launches on the current device
-// (occupancy x SMs), or minus the CUDA error.
-extern "C" int auxpm_ess_sweep_grid(int likelihood, int bf16) {
+// Blocks of the grid every kernel of the sweep body launches on the current
+// device (occupancy x SMs: the launch bounds and the shared memory make it
+// two blocks per SM for each of them), or minus the CUDA error.
+extern "C" int auxpm_sweep_grid() {
+  int grid = 0;
+  const cudaError_t err = auxpm::sweep::sweep_grid(auxpm::grid_check_kernel,
+                                                   &grid);
+  return err == cudaSuccess ? grid : -static_cast<int>(err);
+}
+
+// The CUDA error of a cooperative launch of the sweep body's shape on that
+// grid plus `extra` blocks: 0 for extra = 0, and the card must refuse any
+// extra > 0, since the blocks of a grid barrier have to be resident
+// together.
+extern "C" int auxpm_cooperative_launch_check(int extra) {
   using namespace auxpm;
   int grid = 0;
-  cudaError_t err = cudaSuccess;
-#define CALL(LIK, BF) err = sweep_grid(ess_sweep_kernel<LIK, BF>, &grid)
-  AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
-#undef CALL
-  return err == cudaSuccess ? grid : -static_cast<int>(err);
+  cudaError_t err = sweep::sweep_grid(grid_check_kernel, &grid);
+  void* no_args[1] = {nullptr};
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(grid_check_kernel), grid + extra,
+        sweep::kThreads, no_args, sizeof(sweep::Smem), nullptr);
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  cudaGetLastError();   // clears a refused launch's error (it is not sticky)
+  return static_cast<int>(err);
 }
 
 extern "C" int auxpm_ess_sweep(const void* chol, const void* u,
@@ -276,17 +286,9 @@ extern "C" int auxpm_ess_sweep(const void* chol, const void* u,
                   &u_out_, &stats_, &state_,  &rowsum_, &rounds_, &B,
                   &S,      &n,      &R,       &n_blocks, &log_s};
   cudaError_t err = cudaSuccess;
-#define CALL(LIK, BF)                                                       \
-  do {                                                                      \
-    int grid = 0;                                                           \
-    err = sweep_grid(ess_sweep_kernel<LIK, BF>, &grid);                     \
-    if (err == cudaSuccess)                                                 \
-      err = cudaLaunchCooperativeKernel(                                    \
-          reinterpret_cast<void*>(ess_sweep_kernel<LIK, BF>), grid,         \
-          sweep::kThreads, args, sizeof(sweep::Smem),                       \
-          static_cast<cudaStream_t>(stream));                               \
-    if (err == cudaSuccess) err = cudaGetLastError();                       \
-  } while (0)
+#define CALL(LIK, BF)                                              \
+  err = sweep::launch_cooperative(ess_sweep_kernel<LIK, BF>, args,  \
+                                  static_cast<cudaStream_t>(stream))
   AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
 #undef CALL
   return static_cast<int>(err);

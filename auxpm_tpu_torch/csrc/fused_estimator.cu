@@ -4,14 +4,26 @@
 // Replaces the TPU kernel auxpm_tpu/ops/fused_estimator.py::_fused_kernel
 // (wrapper _pallas_estimate).  The TPU kernel walks column blocks of C on a
 // sequential grid and carries the per-sample accumulator in scratch from one
-// grid step to the next; blocks on this card run in no order, so here ONE
-// block owns ONE chain and loops over the column tiles itself (no second
-// pass, no atomics).  The batch of chains is the grid.
+// grid step to the next; blocks on this card run in no order.  Here the
+// estimate is ONE round of the sweep body (sweep_body.cuh): the (chain,
+// 64-column tile) items of all B chains, the triangle of C skipped, are
+// spread over a grid of resident blocks (two per SM), each item's row sums
+// go to a global slot, and the block that completes a chain's LAST item
+// folds the chain's tiles in tile order and runs the fixed 8-block
+// log-sum-exp (fold_estimate).  It finds out by a per-chain arrival counter
+// (its stores fenced, then atomicAdd): one launch that need not be
+// cooperative, with no grid barrier to wait at and each chain's fold
+// overlapping the other chains' items; the fold's order does not depend on
+// which block folds, so a chain's estimate does not depend on the batch.
+// What this replaces (probe.cuh, one block per chain) contracted the whole
+// square of C and filled a 164 KB left operand first, which allowed one
+// block per SM: at B=64, 64 of 132 SMs worked.  The estimate now shares its
+// f32 expression with the two sweeps, not with the three entries below.
 //
-// Bound: operations, narrowly.  Per chain it must read C (n*n*4 bytes) and u
-// (S*n*4) once and write one float, and it does 2*S*n*n FLOPs: 2*S/4 = 32
-// FLOPs per byte of C at S=64, above the card's FP32 balance of about 20.
-// The probe body and its design note are in probe.cuh.
+// Bound: operations.  Per chain it must read the lower triangle of C
+// (n(n+1)/2 floats) and u (S n) once and write one float, and it does
+// S n (n + 1) FLOPs: about S/2 = 32 FLOPs per byte of C at S=64, above the
+// card's FP32 balance of about 20.
 //
 // Second entry, the rotated estimator: the same estimate at the proposal
 // u' = u cos a + v sin a of the elliptical-slice loop, u' never stored.
@@ -20,9 +32,10 @@
 // unit.  Here u and v together (2 x 164 KB at S=64, n=640) do not fit a
 // block's 227 KB, so the block reads both from global memory once per call
 // and forms u' straight into the shared-memory left operand (fill_left);
-// from there it is the plain estimator's body.  Per call and chain that is
-// 2*S*n*4 bytes of u and v on top of the n*n*4 of C: 20 % more traffic than
-// the plain estimator, the same FLOPs, still bound by operations.  The
+// from there it is probe.cuh's body, which contracts the whole square of C
+// (its design note is there).  Per call and chain the least traffic is
+// 2*S*n*4 bytes of u and v on top of the lower triangle of C, and the least
+// work S n (n + 1) FLOPs: bound by operations at S=64.  The
 // caller's bracket loop is batched with a per-chain `done` flag; `active`
 // (B,) lets the block of a finished chain return at once (its output is 0),
 // so a round costs what its unfinished chains cost.  cosf / sinf in full
@@ -37,13 +50,13 @@
 // S_local = S / K rows against the replicated factor and a collective folds
 // the blocked partials of all ranks.  They are probe_weights of probe.cuh and
 // a store of sm.lw, so a row gives the same bits here, in the estimators and
-// in a call that holds other rows beside it.  Bound: bytes (C is read whole
-// for S_local rows: 2*S_local/4 = 16 FLOPs per byte at S_local = 32, below
-// the card's FP32 balance of 20).  A block still computes kRows = 64 rows, so
-// at S_local = 32 half of its products are on zero pad rows (at 16, three
-// quarters); packing two chains into a block is the way out and is left to
-// later work.
-#include "probe.cuh"
+// in a call that holds other rows beside it.  Bound: bytes (the lower
+// triangle of C is read for S_local rows: about S_local/2 = 16 FLOPs per
+// byte at S_local = 32, below the card's FP32 balance of 20).  A block still
+// computes kRows = 64 rows, so at S_local = 32 half of its products are on
+// zero pad rows (at 16, three quarters); packing two chains into a block is
+// the way out and is left to later work.
+#include "sweep_body.cuh"
 
 namespace auxpm {
 
@@ -92,22 +105,48 @@ fused_rot_weights_kernel(const float* __restrict__ chol,
 }
 
 template <int LIK, bool BF16>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(sweep::kThreads, 2)
 fused_estimate_kernel(const float* __restrict__ chol,
                       const float* __restrict__ u,
                       const float* __restrict__ y,
                       const float* __restrict__ mask,
-                      float* __restrict__ out, int S, int n, int n_blocks,
-                      float log_s) {
-  extern __shared__ __align__(16) float smem[];
-  const ProbeSmem sm = carve_smem(smem, n);
-  const int b = blockIdx.x;
-  const float* ub = u + size_t(b) * S * n;
-  zero_pad_rows(sm, S, n);
-  fill_left<BF16>(sm, S, n, [&](int idx) { return ub[idx]; });
-  const float est = probe_estimate<LIK, BF16>(
-      sm, chol + size_t(b) * n * n, 1.0f, y, mask, S, n, n_blocks, log_s);
-  if (threadIdx.x == 0) out[b] = est;
+                      float* __restrict__ out, float* rowsum, int* arrivals,
+                      int B, int S, int n, int n_blocks, float log_s) {
+  using namespace sweep;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int sn = S * n;
+  const int n_tiles = n / kCols;
+
+  init_smem(sm);
+  Ring ring;
+  probe_tiles<LIK, BF16>(
+      sm, ring, B, S, n, y, mask, rowsum, [](int j) { return j; },
+      [&](int b) {
+        ProbeSpec p;
+        p.u = u + size_t(b) * sn;
+        p.v = nullptr;
+        p.c = chol + size_t(b) * n * n;
+        p.ca = 1.0f;
+        p.sa = 0.0f;
+        p.c_scale = 1.0f;
+        return p;
+      },
+      [&](int b, int) {
+        __threadfence();        // this item's row sums, visible card-wide
+        consumer_barrier();     // ... from every consumer that wrote one
+        if (tid < 32) {
+          int last = 0;
+          if (tid == 0) last = atomicAdd(arrivals + b, 1) == n_tiles - 1;
+          if (__shfl_sync(0xffffffffu, last, 0)) {
+            __threadfence();    // the other blocks' row sums of chain b
+            const float est =
+                fold_estimate(sm, rowsum, b, n_tiles, S, n_blocks, log_s);
+            if (tid == 0) out[b] = est;
+          }
+        }
+      });
 }
 
 template <int LIK, bool BF16>
@@ -168,24 +207,35 @@ extern "C" int auxpm_fused_estimate_rot(const void* chol, const void* u,
   return static_cast<int>(err);
 }
 
+// workspace: rowsum (B * n / 64 * 64 floats), then B int arrival counters
+// that must be 0 at the launch.
 extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
                                     const void* y, const void* mask, void* out,
-                                    int B, int S, int n, int n_blocks,
-                                    float log_s, int likelihood, int bf16,
-                                    void* stream) {
+                                    void* workspace, int B, int S, int n,
+                                    int n_blocks, float log_s, int likelihood,
+                                    int bf16, void* stream) {
   using namespace auxpm;
-  const size_t smem = probe_smem_bytes(n);
+  float* rowsum = static_cast<float*>(workspace);
+  int* arrivals =
+      reinterpret_cast<int*>(rowsum + size_t(B) * (n / sweep::kCols) * kRows);
+  const int items = B * (n / sweep::kCols);
   cudaError_t err = cudaSuccess;
 #define CALL(LIK, BF)                                                        \
-  err = allow_smem(fused_estimate_kernel<LIK, BF>, smem);                    \
-  if (err == cudaSuccess) {                                                  \
-    fused_estimate_kernel<LIK, BF>                                           \
-        <<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(          \
-            static_cast<const float*>(chol), static_cast<const float*>(u),   \
-            static_cast<const float*>(y), static_cast<const float*>(mask),   \
-            static_cast<float*>(out), S, n, n_blocks, log_s);                \
-    err = cudaGetLastError();                                                \
-  }
+  do {                                                                       \
+    int grid = 0;                                                            \
+    err = sweep::sweep_grid(fused_estimate_kernel<LIK, BF>, &grid);          \
+    if (err == cudaSuccess) {                                                \
+      if (items < grid) grid = items;                                        \
+      fused_estimate_kernel<LIK, BF>                                         \
+          <<<grid, sweep::kThreads, sizeof(sweep::Smem),                     \
+             static_cast<cudaStream_t>(stream)>>>(                           \
+              static_cast<const float*>(chol), static_cast<const float*>(u), \
+              static_cast<const float*>(y), static_cast<const float*>(mask), \
+              static_cast<float*>(out), rowsum, arrivals, B, S, n, n_blocks, \
+              log_s);                                                        \
+      err = cudaGetLastError();                                              \
+    }                                                                        \
+  } while (0)
   AUXPM_DISPATCH(likelihood, bf16 != 0, CALL);
 #undef CALL
   return static_cast<int>(err);

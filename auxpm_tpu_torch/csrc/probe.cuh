@@ -1,6 +1,7 @@
-// Shared probe body of the estimator kernels (fused_estimator.cu: plain and
-// rotated estimate, plain and rotated per-sample weights; ess_sweep.cu;
-// sigma_sweep.cu).
+// Probe body of three entries of fused_estimator.cu (rotated estimate, plain
+// and rotated per-sample weights), and the pieces every estimator kernel
+// shares (round_operand, log_lik, blocked_lse, the dispatch); the plain
+// estimate and both sweeps run on sweep_body.cuh instead.
 //
 // Replaces the probe body that the three TPU kernels share in
 // auxpm_tpu/ops/fused_estimator.py (_dot_whiten, _log_lik_tile,
@@ -23,7 +24,8 @@
 //     ways out and are left to later work.
 //   * C is lower-triangular but the contraction runs over the full n, as the
 //     reference does: the zero terms change nothing but cost half the FMAs
-//     and half the bytes.  Skipping them is a later saving.
+//     and half the bytes.  sweep_body.cuh skips them; these three entries
+//     are queued to move onto it.
 //   * each thread owns a 4x4 micro-tile of f (rows ty*4.., columns tx+16c),
 //     FP32 FMAs on the CUDA cores; the likelihood is applied to the finished
 //     micro-tile and summed over columns in registers, so f never leaves the
@@ -32,9 +34,12 @@
 //     reference (block partials in index order, -inf guard), result broadcast
 //     through shared memory so every thread sees the same float.
 //
-// Bound on this card: 2*S*n*n FLOPs per probe per chain (52 MFLOP) against
-// n*n*4 bytes of C; with 128 chains in flight both the FP32 rate and the
-// stream of 128 distinct factors (210 MB, larger than L2) matter.
+// Bound on this card: the least work of a probe is S n (n + 1) FLOPs per
+// chain (26 MFLOP at S=64, n=640), against the n(n+1)/2 floats of C's lower
+// triangle (0.8 MB): about S/2 FLOPs per byte, so bound by operations at
+// S=64 and by bytes at S_local=32 (the card's FP32 balance is about 20).
+// With 128 chains in flight the stream of 128 distinct factors (105 MB of
+// triangles, larger than L2) matters too.
 #pragma once
 
 #include <cuda_bf16.h>

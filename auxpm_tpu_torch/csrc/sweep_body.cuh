@@ -1,5 +1,8 @@
-// Round-synchronous probe body of the sweep kernels (ess_sweep.cu; written so
-// that sigma_sweep.cu can take it over).
+// Round-synchronous probe body of the sweep-body kernels: the ESS sweep
+// (ess_sweep.cu), the sigma sweep (sigma_sweep.cu) and the plain estimator
+// (fused_estimate_kernel of fused_estimator.cu, one round).  The three share
+// one definition of the estimator's f32 expression: the same items, the same
+// k order inside an item, the same fold over columns and tiles.
 //
 // A sweep advances in ROUNDS inside ONE cooperative launch.  In each round
 // every still-active chain makes its next probe: phase A computes the
@@ -17,22 +20,26 @@
 // in a fixed order, largest k range first (t descending, then chains in
 // ascending index), block g taking items g, g + grid, ...  A block is one
 // producer warp and four consumer warps:
-//   * the producer streams 32-deep chunks of u, v and C (16-byte cp.async
-//     copies through L2, 48 per lane per chunk) into a ring of kStages
-//     shared-memory stages; each stage has a `full` mbarrier (one arrival
-//     per producer lane when its copies have landed) and an `empty` one (the
-//     128 consumer threads).  C is read with an evict-first L2 policy: it
-//     is streamed once per probe, while u and v are re-read by every tile
-//     of the probe.  A first version issued one 128-byte bulk copy
-//     (cp.async.bulk) per row, 192 per chunk, and took 10.4 ms for config
-//     2's sweep against 5.5 with these copies (PERF.md);
+//   * the producer streams 32-deep chunks of u, v (if the probe rotates) and
+//     C (16-byte cp.async copies through L2, up to 48 per lane per chunk)
+//     into a ring of kStages shared-memory stages; each stage has a `full`
+//     mbarrier (one arrival per producer lane when its copies have landed)
+//     and an `empty` one (the 128 consumer threads).  C is read with an
+//     evict-first L2 policy: it is streamed once per probe, while u and v
+//     are re-read by every tile of the probe.  A first version issued one
+//     128-byte bulk copy (cp.async.bulk) per row, 192 per chunk, and took
+//     10.4 ms for config 2's sweep against 5.5 with these copies (PERF.md);
 //   * the consumers form the rotated operand u cos a + v sin a in place as
-//     each chunk arrives (rounded to bf16 for whiten_dtype="bfloat16", as
-//     round_operand does), then run a 4 x 8 register tile each: per 4-deep
-//     step 4 + 8 float4 shared loads feed 128 FMAs.  Rows of u and C are
-//     padded to 36 floats so that neither operand's loads conflict.
+//     each chunk arrives, and scale C by the probe's c_scale in place (one
+//     consumer barrier per chunk when either happens; operands rounded to
+//     bf16 for whiten_dtype="bfloat16", as round_operand does), then run a
+//     4 x 8 register tile each: per 4-deep step 4 + 8 float4 shared loads
+//     feed 128 FMAs.  Rows of u and C are padded to 36 floats so that
+//     neither operand's loads conflict.
 //   * the likelihood is applied to the finished 64 x 64 tile and each row's
-//     sum over the tile's columns goes to a global slot rowsum[chain][t][s].
+//     sum over the tile's columns goes to a global slot rowsum[chain][t][s];
+//     the caller's `done(chain, t)` then runs on the consumers (the
+//     estimator counts arrivals there, the sweeps do nothing).
 // Each f element is the sum over k in ascending order in one accumulator,
 // as in probe.cuh; the fold over columns and tiles is in another (fixed)
 // order, so weights agree with the other kernels to rounding, not bitwise.
@@ -40,10 +47,13 @@
 // Shared memory does not depend on n (a stage is 26 KB), so two blocks share
 // an SM; the grid is that occupancy times the SM count.  Tried and not kept
 // (PERF.md): 128-column items on 256 consumer threads (one block per SM;
-// the same time) and 8 x 8 register tiles on 128-column items (spills,
-// slower).  What bounds the body now: a round lasts at least as long as its
+// the same time), 8 x 8 register tiles on 128-column items (spills,
+// slower), and a bulk L2 prefetch (cp.async.bulk.prefetch.L2) of each
+// streamed row's next 4, 8 or 20 chunks, so that DRAM reads whole row
+// segments and not 128-byte pieces (every kernel of the body slower or no
+// faster).  What bounds the body now: a round lasts at least as long as its
 // longest item (20 chunks of tile 9 at n = 640), and in full rounds each
-// chunk moves 24.5 KB for 131 k FMAs.
+// chunk moves 24.5 KB (16 KB without v) for 131 k FMAs.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -216,15 +226,18 @@ __device__ inline int compact_active(Smem& sm, const float* active, int stride,
   return total;
 }
 
-// Phase A of a round: every item (chain list[w % nA], tile nT-1 - w / nA) of
-// this block, into rowsum[(chain * nT + t) * kRows + s].  `spec(b)` gives the
-// chain's ProbeSpec.  All threads of the block call it; the rings persist
-// across rounds.  Ends with a block barrier.
-template <int LIK, bool BF16, class Spec>
+// Phase A of a round: every item (chain chain_of(w % nA), tile
+// nT-1 - w / nA) of this block, into rowsum[(chain * nT + t) * kRows + s].
+// `chain_of(j)` is the j-th chain of the round, `spec(b)` chain b's
+// ProbeSpec, and `done(b, t)` runs on every consumer thread once item (b, t)
+// is in rowsum.  All threads of the block call it; the rings persist across
+// rounds.  Ends with a block barrier.
+template <int LIK, bool BF16, class Chain, class Spec, class Done>
 __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
                                    int n, const float* __restrict__ y,
                                    const float* __restrict__ mask,
-                                   float* rowsum, Spec spec) {
+                                   float* rowsum, Chain chain_of, Spec spec,
+                                   Done done) {
   const int n_tiles = n / kCols;
   const int n_items = n_tiles * n_active;
   const int tid = threadIdx.x;
@@ -236,7 +249,7 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
     const int r4 = lane >> 3, q4 = (lane & 7) * 4;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
       const int t = n_tiles - 1 - w / n_active;
-      const ProbeSpec p = spec(sm.list[w % n_active]);
+      const ProbeSpec p = spec(chain_of(w % n_active));
       const int n_chunks = (t + 1) * (kCols / kDepth);
       const float* c_rows = p.c + size_t(t) * kCols * n;
       for (int kc = 0; kc < n_chunks; ++kc) {
@@ -272,7 +285,7 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
     const int rot_row = tid >> 1, rot_col = (tid & 1) * 16;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
       const int t = n_tiles - 1 - w / n_active;
-      const int b = sm.list[w % n_active];
+      const int b = chain_of(w % n_active);
       const ProbeSpec p = spec(b);
       const int n_chunks = (t + 1) * (kCols / kDepth);
       const bool scale_c = BF16 || p.c_scale != 1.0f;
@@ -363,6 +376,7 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
         v += __shfl_xor_sync(0xffffffffu, v, 4);
         if (tx == 0) out[r] = v;
       }
+      done(b, t);
     }
   }
   __syncthreads();
@@ -384,6 +398,38 @@ __device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
   }
   __syncwarp();
   return blocked_lse(sm.lw, S, n_blocks) - log_s;
+}
+
+// Blocks of a grid that is resident on the current device all at once
+// (occupancy x SMs) for a kernel of this body, into *grid.
+template <class K>
+cudaError_t sweep_grid(K kernel, int* grid) {
+  cudaError_t err = allow_smem(kernel, sizeof(Smem));
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, sizeof(Smem));
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *grid = per_sm * sms;
+  return cudaSuccess;
+}
+
+// ONE cooperative launch of a sweep kernel on its resident grid.  Returns
+// the CUDA error, that of a launch the card refuses included: the wrappers
+// raise on it, nothing falls back.
+template <class K>
+cudaError_t launch_cooperative(K kernel, void** args, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = sweep_grid(kernel, &grid);
+  if (err == cudaSuccess)
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), grid,
+                                      kThreads, args, sizeof(Smem), stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return err;
 }
 
 }  // namespace sweep

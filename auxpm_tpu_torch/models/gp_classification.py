@@ -44,7 +44,8 @@ against the factor, which every rank of the group computes for itself
 global block order (``parallel/collectives.allgather_blocked_logsumexp``), so
 every rank holds bitwise the same estimate.  Every estimator call of such a
 target (the coordinate factories included) goes through that one function.
-It has no whole-sweep factories: a sweep kernel reduces inside its block.
+It has no whole-sweep factories: a sweep kernel folds each estimate inside
+its launch, where no collective can reach.
 
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  On the card both whole-sweep kernels are always available; the

@@ -31,7 +31,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
-    "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
+    "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                             _P],
     "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _F, _I, _I, _P],
     "auxpm_fused_weights": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -40,9 +41,10 @@ _SIGNATURES = {
     "auxpm_se_gram_ard": [_P, _P, _P, _I, _I, _I, _F, _P],
     "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _F, _I, _I, _P],
-    "auxpm_ess_sweep_grid": [_I, _I],
-    "auxpm_sigma_sweep": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                          _I, _I, _P],
+    "auxpm_sweep_grid": [],
+    "auxpm_cooperative_launch_check": [_I],
+    "auxpm_sigma_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _F, _I, _I, _P],
     "auxpm_chol_panel": [_P, _P, _P, _I, _P],
     "auxpm_chol_panel_v1": [_P, _P, _P, _I, _P],
     "auxpm_chol_panel_v2": [_P, _P, _I, _P],

@@ -120,10 +120,7 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
     lib = _build.load_library()
     u_out = torch.empty_like(u)
     stats = torch.empty((b, 4), dtype=torch.float32, device=device)
-    # per-chain state (two buffers), the tile sums rowsum[chain][tile][64],
-    # the rounds
-    workspace = torch.empty(b * (2 * _STATE + (n // _TILE) * 64) + 1,
-                            dtype=torch.float32, device=device)
+    workspace = sweep_workspace(b, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_ess_sweep(
             chol.data_ptr(), u.data_ptr(), scal.data_ptr(), v.data_ptr(),
@@ -139,15 +136,33 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
     return u_out, stats[:, 0], stats[:, 1], stats[:, 2]
 
 
-def sweep_grid(device=None, likelihood="logistic", whiten_dtype="float32"):
-    """Blocks of the cooperative grid the sweep kernel launches on ``device``
-    (occupancy x SM count); raises if the card cannot hold one block."""
+def sweep_workspace(b, n, device):
+    """Global workspace of a round-synchronous sweep kernel
+    (``csrc/sweep_body.cuh``) on ``b`` chains: per-chain state (two buffers),
+    the tile sums rowsum[chain][tile][64], and last the number of rounds."""
+    return torch.empty(b * (2 * _STATE + (n // _TILE) * 64) + 1,
+                       dtype=torch.float32, device=device)
+
+
+def sweep_grid(device=None):
+    """Blocks of the grid every kernel of the sweep body launches on
+    ``device`` (occupancy x SM count: two per SM); raises if the card cannot
+    hold one block."""
     lib = _build.load_library()
     with torch.cuda.device(device):
-        grid = lib.auxpm_ess_sweep_grid(LIKELIHOOD_IDS[likelihood],
-                                        int(whiten_dtype == "bfloat16"))
-    _build.check_launch(-grid if grid < 0 else 0, "ess_sweep_kernel (grid)")
+        grid = lib.auxpm_sweep_grid()
+    _build.check_launch(-grid if grid < 0 else 0, "sweep grid")
     return grid
+
+
+def cooperative_launch_error(extra_blocks, device=None):
+    """The CUDA error (0 = taken) of a cooperative launch of the sweep body's
+    block shape on that grid plus ``extra_blocks``: the card has to refuse a
+    grid whose blocks cannot all be resident, and the sweeps' wrappers raise
+    on that error."""
+    lib = _build.load_library()
+    with torch.cuda.device(device):
+        return lib.auxpm_cooperative_launch_check(int(extra_blocks))
 
 
 def ess_sweep(chol, u, scal, v, y, mask, likelihood="logistic", n_blocks=1,

@@ -9,13 +9,15 @@ Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
     out = blocked-lse_s(lw) - log S            scalar
 
 On a CUDA tensor ``fused_estimate`` launches the hand-written kernel
-``csrc/fused_estimator.cu`` (one block per chain, f never stored); on a CPU
-tensor it takes the plain version ``_ref_estimate``.
+``csrc/fused_estimator.cu`` (one round of the sweep body
+``csrc/sweep_body.cuh``: the (chain, 64-column tile) items of all chains over
+the whole card, f never stored); on a CPU tensor it takes the plain version
+``_ref_estimate``.
 
 ``fused_estimate_rot`` is the same estimate at the elliptical-slice proposal
-``u cos a + v sin a`` (second entry of the same source; the proposal is
-formed inside the kernel and never stored), with ``_ref_estimate_rot`` as its
-plain version.
+``u cos a + v sin a`` (second entry of the same source, on the probe body
+``csrc/probe.cuh``; the proposal is formed inside the kernel and never
+stored), with ``_ref_estimate_rot`` as its plain version.
 
 ``fused_weights`` / ``fused_rot_weights`` (``_pallas_weights`` /
 ``_pallas_rot_weights`` / ``make_fused_weights`` / ``make_fused_rot_weights``
@@ -23,9 +25,10 @@ in the reference) return the per-sample log-weights ``lw`` with no
 log-sum-exp: the local half of the particle-sharded estimator, where a rank
 holds ``S_local = S / K`` rows of u and a collective folds the blocked
 partials (``parallel/collectives.allgather_blocked_logsumexp``).  Third and
-fourth entry of the same source, the same probe body, so a row's weight has
-the same bits whichever rows share its call.  No backward kernel: nothing on
-the ported paths differentiates through them.
+fourth entry of the same source, on ``csrc/probe.cuh``, so a row's weight
+has the same bits whichever rows share its call (its fold order is not the
+plain estimate's: the two agree to rounding, not bitwise).  No backward
+kernel: nothing on the ported paths differentiates through them.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 WHITEN_DTYPES = ("float32", "bfloat16")
 LIKELIHOOD_IDS = {"logistic": 0, "probit": 1}
 
-# shapes the probe body (csrc/probe.cuh) takes
+# shapes the probe bodies (csrc/probe.cuh, csrc/sweep_body.cuh) take
 MAX_ROWS = 64       # importance samples a block can hold
 TILE_N = 64         # n must be a multiple of the column tile
 MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
@@ -88,9 +91,11 @@ def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
     return blocked_logsumexp(lw, n_blocks) - _log_s(u, log_s)
 
 
-def check_probe_shapes(s, n, n_blocks=None):
+def check_probe_shapes(s, n, n_blocks=None, left_in_smem=True):
     """Raise on shapes the probe body does not take (``n_blocks=None``: an
-    entry without a log-sum-exp)."""
+    entry without a log-sum-exp).  ``left_in_smem``: the entry keeps the
+    whole (64, n) left operand in shared memory (``probe.cuh``), which
+    bounds n; the sweep body's shared memory does not depend on n."""
     if n % TILE_N:
         raise ValueError(f"n={n} must be a multiple of {TILE_N} (pad the target)")
     if s < 1 or s > MAX_ROWS:
@@ -99,7 +104,7 @@ def check_probe_shapes(s, n, n_blocks=None):
                                  or s % n_blocks):
         raise ValueError(f"n_blocks={n_blocks} must divide S={s} and be <= 32")
     smem = 4 * (MAX_ROWS * (n + 4) + TILE_N * 36 + MAX_ROWS + 8)
-    if smem > MAX_SMEM:
+    if left_in_smem and smem > MAX_SMEM:
         raise ValueError(
             f"n={n}: the left operand needs {smem} bytes of shared memory, "
             f"a block has {MAX_SMEM}"
@@ -117,14 +122,20 @@ def _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"y {tuple(y.shape)}, mask {tuple(mask.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks)
+    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
     device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
     lib = _build.load_library()
     out = torch.empty((b,), dtype=torch.float32, device=device)
+    # the tile sums rowsum[chain][tile][64], then one arrival counter per
+    # chain (int32, zero at the launch)
+    rowsum = b * (n // TILE_N) * 64
+    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
+    workspace[rowsum:].zero_()
     with torch.cuda.device(device):
         err = lib.auxpm_fused_estimate(
             chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, s, n, n_blocks, _log_s(u, log_s),
+            out.data_ptr(), workspace.data_ptr(), b, s, n, n_blocks,
+            _log_s(u, log_s),
             LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -20,10 +20,12 @@ and ``samplers/slice_theta.py``):
     rep (B, R, 2+32):  per slice repeat [log U (height), u1 (interval
                        placement), 32 shrink uniforms]
 
-On CUDA tensors the sweep is ONE launch of ``csrc/sigma_sweep.cu`` (one block
-per chain, its own probe count); on CPU tensors the plain batched version
-``_ref_sigma_sweep``.  The shrink cap is the fixed 32 of the reference's
-kernel; cap-hit keeps the current point.
+On CUDA tensors the sweep is ONE cooperative launch of
+``csrc/sigma_sweep.cu`` over the whole card: it advances in rounds, each
+active chain making its next probe in every round, so each chain runs exactly
+its own probe count and the number of rounds is the largest of them; on CPU
+tensors it is the plain batched version ``_ref_sigma_sweep``.  The shrink cap
+is the fixed 32 of the reference's kernel; cap-hit keeps the current point.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from auxpm_tpu_torch.ops import _build
+from auxpm_tpu_torch.ops.ess_sweep import MAX_CHAINS, sweep_workspace
 from auxpm_tpu_torch.ops.fused_estimator import (
     LIKELIHOOD_IDS,
     WHITEN_DTYPES,
@@ -43,6 +46,9 @@ MAX_SHRINK = 32
 REP_COLS = 2 + MAX_SHRINK
 
 launches = 0  # kernel launches made by this module's wrapper
+# rounds of the last launch: a 1-element CUDA tensor, read after a
+# synchronize (the kernel writes it at its end)
+last_rounds = None
 
 
 def _ref_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
@@ -97,7 +103,7 @@ def _ref_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
 
 def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
                       log_s, n_reps, whiten_dtype):
-    global launches
+    global launches, last_rounds
     if u.dim() != 3:
         raise ValueError("expected u (B, S, n)")
     b, s, n = u.shape
@@ -108,21 +114,26 @@ def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
             f"shape mismatch: chol0 {tuple(chol0.shape)}, u {tuple(u.shape)}, "
             f"chain {tuple(chain.shape)}, rep {tuple(rep.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks)
+    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
+    if not 1 <= b <= MAX_CHAINS or n_reps < 1:
+        raise ValueError(f"B={b}, n_reps={n_reps}: the sweep takes 1 to "
+                         f"{MAX_CHAINS} chains and at least one repeat")
     device = _build.require_f32_contiguous(chol0=chol0, u=u, chain=chain,
                                            rep=rep, y=y, mask=mask)
     lib = _build.load_library()
     stats = torch.empty((b, 8), dtype=torch.float32, device=device)
+    workspace = sweep_workspace(b, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_sigma_sweep(
             chol0.data_ptr(), u.data_ptr(), chain.data_ptr(), rep.data_ptr(),
-            y.data_ptr(), mask.data_ptr(), stats.data_ptr(), b, s, n, n_reps,
-            n_blocks, _log_s(u, log_s), LIKELIHOOD_IDS[likelihood],
-            int(whiten_dtype == "bfloat16"),
+            y.data_ptr(), mask.data_ptr(), stats.data_ptr(),
+            workspace.data_ptr(), b, s, n, n_reps, n_blocks, _log_s(u, log_s),
+            LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "sigma_sweep_kernel")
     launches += 1
+    last_rounds = workspace[-1:]
     return stats[:, 0], stats[:, 1], stats[:, 2], stats[:, 3], stats[:, 4]
 
 

@@ -19,12 +19,15 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   timed with CUDA events between L2 flushes, beside the least
                   time the card could take; the weights kernels' rows must
                   not depend on the rows that share their call (bitwise);
-                  the ESS sweep (one cooperative launch that advances in
-                  rounds) and the v3 panel also at B=1, B=3 and more than the
-                  sweep's grid of blocks, bitwise equal to B=128, the sweep
-                  with its rounds against its chains' largest probe count
-                  and at the 32-shrink cap at full width, the panel with NaN
-                  on the diagonal from a failing column on;
+                  the estimator (one round of the sweep body), the ESS and
+                  the sigma sweep (one cooperative launch each that advances
+                  in rounds) and the v3 panel also at B=1, B=3 and more than
+                  the sweeps' grid of blocks, bitwise equal to B=128, the
+                  estimator also at n=1024, the sweeps with their rounds
+                  against their chains' largest probe count and at the
+                  32-shrink cap at full width, the panel with NaN on the
+                  diagonal from a failing column on; a cooperative grid one
+                  block larger than the card holds must be refused;
 3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
                   the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
@@ -100,6 +103,8 @@ COMBINE_RTOL = 2e-6                # weights + combine vs the fused estimate
 SHARDED_LL_TOL = 1e-4              # sharded step vs the unsharded loop path
 CHOL_BACK_RTOL, CHOL_INV_TOL = 1e-5, 1e-4
 ARD_PATH_LL_TOL, ARD_DECISION_TOL, ARD_MAX_AMBIGUOUS = 1e-2, 2e-3, 8
+TRI = N * (N + 1) // 2      # floats of a factor's lower triangle: what the
+                            # estimator family must read of C
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, float32 outside the tensor cores
 CLI_ARGS = [
@@ -266,7 +271,35 @@ def main():
         torch.cuda.synchronize()
         variants[f"{lik}/{wd}"] = check_close("fused_estimator", f"{lik}/{wd}",
                                               k_out, p_out, LL_TOL, rtol=LL_RTOL)
-    b_ms, b_by = bound(4 * (B * (N * N + S * N) + 2 * N + B),
+        if lik == "logistic" and wd == "float32":
+            est_full = k_out
+    # the same chains at B=1, B=3 and more chains than the grid has blocks
+    # (the 128 repeated): one round of the sweep body, each chain's fold in
+    # a fixed order, so bitwise the B=128 result
+    grid = ess.sweep_grid()
+    est_batches = {}
+    for nb_ in (1, 3, grid + 8):
+        idx = torch.arange(nb_, device=dev) % B
+        est_batches[f"B={nb_}"] = bool(torch.equal(fe.fused_estimate(
+            chol[idx].contiguous(), u[idx].contiguous(), y, mask, "logistic",
+            8), est_full[idx]))
+    if not all(est_batches.values()):
+        failures.append(f"fused_estimator: batches differ {est_batches}")
+    # n above the old shared-memory limit of the left operand (~880)
+    n_big = 1024
+    chol_big = t(np.tril(rng.standard_normal((8, n_big, n_big)) * 0.03)
+                 + np.eye(n_big))
+    u_big = t(rng.standard_normal((8, S, n_big)))
+    y_big = t(rng.choice([-1.0, 1.0], n_big))
+    mask_big = t((np.arange(n_big) < n_big - 37).astype(np.float32))
+    variants[f"B=8 n={n_big}"] = check_close(
+        "fused_estimator", f"n={n_big}",
+        fe.fused_estimate(chol_big, u_big, y_big, mask_big, "logistic", 8),
+        fe._ref_estimate(chol_big, u_big, y_big, mask_big, "logistic", 8),
+        LL_TOL, rtol=LL_RTOL)
+    del chol_big, u_big
+    est64 = [a[:B_ARD].contiguous() for a in (chol, u)]
+    b_ms, b_by = bound(4 * (B * (TRI + S * N) + 2 * N + B),
                        B * fe.probe_flops(S, N))
     kernels["fused_estimator"] = {
         "name": "fused_estimator", "route": "cuda",
@@ -274,10 +307,15 @@ def main():
         "replaces": "auxpm_tpu/ops/fused_estimator.py:265",
         "max_abs_err": variants["logistic/float32"], "tol": LL_TOL,
         "variants_max_abs_err": variants,
+        "batches_bitwise_equal": est_batches, "grid_blocks": grid,
         "ms": time_ms(lambda: fe.fused_estimate(chol, u, y, mask, "logistic", 8)),
         "plain_ms": time_ms(lambda: fe._ref_estimate(chol, u, y, mask,
                                                      "logistic", 8)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_B64": time_ms(lambda: fe.fused_estimate(*est64, y, mask,
+                                                     "logistic", 8)),
+        "bound_ms_B64": bound(4 * (B_ARD * (TRI + S * N) + 2 * N + B_ARD),
+                              B_ARD * fe.probe_flops(S, N))[0],
     }
 
     # ------------------------------------------------------- Cholesky panel
@@ -417,7 +455,6 @@ def main():
                 failures.append(f"ess_sweep: {rounds} rounds, but the most "
                                 f"probes of a chain is {chain_probes.max()}")
     probes = ess_err["logistic"]["probes"]
-    grid = ess.sweep_grid()
     # the same chains at other batch sizes: B=1, B=3 and more chains than the
     # cooperative grid has blocks (the 128 chains repeated).  A chain's result
     # does not depend on the others in its launch (each work item has one
@@ -462,7 +499,7 @@ def main():
             and cap_rounds == 33):
         failures.append("ess_sweep: cap-hit at B=128 did not keep the state")
     b_ms, b_by = bound(
-        4 * B * (N * N + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
+        4 * B * (TRI + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
         probes * fe.probe_flops(S, N))
     half = slice(0, B_ARD)
     sweep64 = [a[half].contiguous() for a in (chol, u, scal_logistic, v)]
@@ -491,7 +528,7 @@ def main():
             chol, u, scal_cap[:, :1].contiguous(), v[:, :1].contiguous(), y,
             mask, "logistic", 8, None, 1), 3),
         "bound_ms_B64": bound(
-            4 * B_ARD * (N * N + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
+            4 * B_ARD * (TRI + (2 + N_ESS) * S * N + N_ESS * 35 + 4),
             (float(chain_probes[half].sum())) * fe.probe_flops(S, N))[0],
         "probes_B64": float(chain_probes[half].sum()),
     }
@@ -537,9 +574,55 @@ def main():
             "probes": float(out_p[3].sum()), "moved": float(out_p[4].sum()),
         }
         if wd == "float32":
-            chain_f32 = chain
+            chain_f32, sig_full = chain, out_k
+            # one probe per active chain per round: the rounds are the
+            # largest probe count of a chain
+            sig_rounds = int(sig.last_rounds.item())
+            sig_chain_probes = out_k[3]
+            if sig_rounds != int(sig_chain_probes.max()):
+                failures.append(f"sigma_sweep: {sig_rounds} rounds, but the "
+                                "most probes of a chain is "
+                                f"{sig_chain_probes.max()}")
     probes = sig_err["float32"]["probes"]
-    b_ms, b_by = bound(4 * B * (N * N + S * N + 8 + N_SIGMA * 34 + 8),
+    # the same chains at B=1, B=3 and more chains than the cooperative grid
+    # has blocks: bitwise the B=128 result
+    sig_batches = {}
+    for nb_ in (1, 3, grid + 8):
+        idx = torch.arange(nb_, device=dev) % B
+        out_b = sig.sigma_sweep(
+            *(a[idx].contiguous() for a in (chol_r, u, chain_f32, rep)), y,
+            mask, "logistic", 8, None, N_SIGMA)
+        sig_batches[f"B={nb_}"] = all(
+            torch.equal(k_, f_[idx]) for k_, f_ in zip(out_b, sig_full))
+    if not all(sig_batches.values()):
+        failures.append(f"sigma_sweep: batches differ {sig_batches}")
+    # every chain to the 32-probe cap in both repeats at full width: the
+    # point is kept bitwise, 64 probes per chain, 64 rounds
+    rep_cap = rep.clone()
+    rep_cap[:, :, 0] = 1e4
+    out_c = sig.sigma_sweep(chol_r, u, chain_f32, rep_cap, y, mask,
+                            "logistic", 8, None, N_SIGMA)
+    torch.cuda.synchronize()
+    sig_cap_rounds = int(sig.last_rounds.item())
+    if not (torch.equal(out_c[0], chain_f32[:, 2])
+            and torch.equal(out_c[1], chain_f32[:, 0])
+            and torch.equal(out_c[2], chain_f32[:, 1])
+            and bool((out_c[3] == 32 * N_SIGMA).all())
+            and bool((out_c[4] == 0).all())
+            and sig_cap_rounds == 32 * N_SIGMA):
+        failures.append("sigma_sweep: cap-hit at B=128 did not keep the point")
+    # a cooperative grid the card cannot hold resident is refused, and the
+    # wrappers raise on the refusal: such a run fails, it does not fall back
+    coop = [ess.cooperative_launch_error(0), ess.cooperative_launch_error(1)]
+    try:
+        _build.check_launch(coop[1], "an oversized cooperative grid")
+        coop_raises = False
+    except RuntimeError:
+        coop_raises = True
+    if not (coop[0] == 0 and coop[1] != 0 and coop_raises):
+        failures.append(f"cooperative launch: resident grid gave error "
+                        f"{coop[0]}, one block more gave {coop[1]}")
+    b_ms, b_by = bound(4 * B * (TRI + S * N + 8 + N_SIGMA * 34 + 8),
                        probes * fe.probe_flops(S, N))
     kernels["sigma_sweep"] = {
         "name": "sigma_sweep", "route": "cuda",
@@ -548,6 +631,13 @@ def main():
         "max_abs_err": sig_err["float32"]["ll"], "tol": LL_TOL,
         "sigma_max_abs_err": sig_err["float32"]["sigma"],
         "sigma_tol": SIGMA_TOL, "variants": sig_err, "probes": probes,
+        "probes_max_chain": int(sig_chain_probes.max()),
+        "probes_mean_chain": float(sig_chain_probes.mean()),
+        "rounds": sig_rounds, "grid_blocks": grid,
+        "batches_bitwise_equal": sig_batches,
+        "cap_hit_rounds_B128": sig_cap_rounds,
+        "cooperative_launch_errors": {"resident_grid": coop[0],
+                                      "one_block_more": coop[1]},
         "ms": time_ms(lambda: sig.sigma_sweep(chol_r, u, chain_f32, rep, y,
                                               mask, "logistic", 8, None,
                                               N_SIGMA), 3),
@@ -555,6 +645,10 @@ def main():
             chol_r, u, chain_f32, rep, y, mask, "logistic", 8, None, N_SIGMA,
             "float32"), 3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        # all 128 chains active in every round
+        "ms_cap_hit_B128": time_ms(lambda: sig.sigma_sweep(
+            chol_r, u, chain_f32, rep_cap, y, mask, "logistic", 8, None,
+            N_SIGMA), 3),
     }
 
     # ------------------------------------------------- rotated estimator
@@ -591,7 +685,7 @@ def main():
         fe.fused_estimate_rot(*rot_args, y, mask, "logistic", 8),
         fe._ref_estimate_rot(*rot_args, y, mask, "logistic", 8), LL_TOL,
         rtol=LL_RTOL)
-    b_ms, b_by = bound(4 * (B_ARD * (N * N + 2 * S * N + 2) + 2 * N),
+    b_ms, b_by = bound(4 * (B_ARD * (TRI + 2 * S * N + 2) + 2 * N),
                        B_ARD * fe.probe_flops(S, N))
     kernels["fused_estimator_rot"] = {
         "name": "fused_estimator_rot", "route": "cuda",
@@ -727,7 +821,7 @@ def main():
                "shape": {"B": B, "S_local": S_LOCAL, "n": N},
                # a block computes 64 rows whatever S_local is
                "share_of_products_on_pad_rows": 1.0 - S_LOCAL / 64.0}
-    b_ms, b_by = bound(4 * (B * (N * N + S_LOCAL * N + S_LOCAL) + 2 * N),
+    b_ms, b_by = bound(4 * (B * (TRI + S_LOCAL * N + S_LOCAL) + 2 * N),
                        B * fe.probe_flops(S_LOCAL, N))
     kernels["fused_weights"] = {
         "name": "fused_weights", "route": "cuda",
@@ -741,7 +835,7 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_S64": time_ms(lambda: fe.fused_weights(chol, u, y, mask)),
     }
-    b_ms, b_by = bound(4 * (B * (N * N + 2 * S_LOCAL * N + S_LOCAL + 2)
+    b_ms, b_by = bound(4 * (B * (TRI + 2 * S_LOCAL * N + S_LOCAL + 2)
                             + 2 * N), B * fe.probe_flops(S_LOCAL, N))
     kernels["fused_rot_weights"] = {
         "name": "fused_rot_weights", "route": "cuda",

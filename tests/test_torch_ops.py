@@ -179,6 +179,16 @@ def test_probe_shape_checks_raise():
                            torch.ones(64), torch.ones(64), "cauchy")
 
 
+def test_sweep_body_shape_checks_take_any_n():
+    # the estimate and the sigma sweep run on csrc/sweep_body.cuh, whose
+    # shared memory does not depend on n: only the tile and row limits stay
+    tfe.check_probe_shapes(64, 4096, 8, left_in_smem=False)
+    with pytest.raises(ValueError):
+        tfe.check_probe_shapes(64, 4000, 8, left_in_smem=False)
+    with pytest.raises(ValueError):
+        tfe.check_probe_shapes(65, 4096, 8, left_in_smem=False)
+
+
 # ------------------------------------------------------------------- cholesky
 
 

@@ -22,6 +22,19 @@ package (and to the port's plain versions) on the same NumPy-seeded inputs:
     the JAX package within 5e-4, with the NaN contract: a tile made
     indefinite at column c has NaN on L's diagonal from c on and finite
     values before.
+(c) ``csrc/sigma_sweep.cu``: the log_sigma sweep in ROUNDS on the same body:
+    every active chain probes its next candidate x in each round, whatever
+    repeat it is at, with exp(x) applied to C0 BEFORE the product and f
+    folded tile by tile over the triangular k range; then lp(x) and the
+    bracket decision.  The model must give exactly the shrink and moved
+    counts of the port's ``_ref_sigma_sweep`` and of the JAX package's, and
+    sigma', ll', lp' within the bars of ``chip_smoke.py``'s kernels phase
+    (1e-5; 2e-4 + 2e-6 |ll|); at the 32-probe cap it keeps the point
+    bitwise.
+(d) ``fused_estimate_kernel`` of ``csrc/fused_estimator.cu``: ONE round of
+    the body over all chains, the block that completes a chain's last item
+    folding it, against the JAX package's ``_pallas_estimate(...,
+    interpret=True)`` and ``_ref_estimate`` within 2e-4 + 2e-6 |ll|.
 """
 
 import os
@@ -35,14 +48,17 @@ import torch
 from auxpm_tpu.core.state import init_chain_states as j_init
 from auxpm_tpu.models.gp_classification import make_gp_classification as jmake
 from auxpm_tpu.ops import chol_pallas as jchol
+from auxpm_tpu.ops import fused_estimator as jfe
+from auxpm_tpu.ops import sigma_sweep as jsig
 from auxpm_tpu.samplers.ess_u import make_ess_u as j_make_ess_u
 from auxpm_tpu_torch.models.likelihoods import log_ndtr, log_sigmoid
 from auxpm_tpu_torch.ops import ess_sweep as tess
+from auxpm_tpu_torch.ops import sigma_sweep as tsig
 from tests.test_torch_stepout import _ess_rows
 
 B, S, N_RAW, N, N_BLOCKS = 6, 64, 200, 256, 8
 TILE = tess._TILE   # columns of f per work item of the kernel
-LL_TOL, LL_RTOL, U_TOL, CHOL_TOL = 2e-4, 2e-6, 1e-5, 5e-4
+LL_TOL, LL_RTOL, U_TOL, CHOL_TOL, SIGMA_TOL = 2e-4, 2e-6, 1e-5, 5e-4, 1e-5
 F32 = np.float32
 TWO_PI = F32(2.0 * np.pi)
 
@@ -74,6 +90,29 @@ def _blocked_lse(lw, n_blocks):
     return np.log(cs) + (cm if np.isfinite(cm) else F32(0))
 
 
+def _tile_row_sums(left, c, y, mask, likelihood):
+    """Phase A of the sweep body for a batch of probes: for each 64-column
+    tile t of f = left c^T, contracting k < 64 (t + 1) only, every row's
+    log-likelihood summed over the tile's columns -> (batch, tiles, S)."""
+    n_tiles = left.shape[-1] // TILE
+    out = np.zeros((len(left), n_tiles, left.shape[1]), F32)
+    for t in reversed(range(n_tiles)):      # largest k range first
+        cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
+        f = left[:, :, :k_end] @ c[:, cols, :k_end].transpose(0, 2, 1)
+        out[:, t] = (_log_lik(y[cols] * f, likelihood)
+                     * mask[cols]).sum(-1, dtype=F32)
+    return out
+
+
+def _fold_estimate(rowsum, log_s):
+    """fold_estimate of the body: one chain's tile sums folded in tile
+    order, the fixed 8-block log-sum-exp, minus log S."""
+    lw = np.zeros(rowsum.shape[-1], F32)
+    for t in range(len(rowsum)):
+        lw = lw + rowsum[t]
+    return _blocked_lse(lw, N_BLOCKS) - log_s
+
+
 def sweep_rounds_model(chol, u, scal, v, y, mask, likelihood):
     """The round schedule of csrc/ess_sweep.cu.  Returns u', ll', n_shrink,
     moved and, per round, the repeat index of every chain probed in it."""
@@ -98,17 +137,10 @@ def sweep_rounds_model(chol, u, scal, v, y, mask, likelihood):
         rowsum = np.zeros((n_chains, n_tiles, s), F32)
         left = (uo[act] * np.cos(a[act])[:, None, None]
                 + v[act, r[act]] * np.sin(a[act])[:, None, None])
-        for t in reversed(range(n_tiles)):
-            cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
-            f = left[:, :, :k_end] @ chol[act, cols, :k_end].transpose(0, 2, 1)
-            rowsum[act, t] = (_log_lik(y[cols] * f, likelihood)
-                              * mask[cols]).sum(-1, dtype=F32)
+        rowsum[act] = _tile_row_sums(left, chol[act], y, mask, likelihood)
         # phase B: fold in tile order, decide
         for b in act:
-            lw = np.zeros(s, F32)
-            for t in range(n_tiles):
-                lw = lw + rowsum[b, t]
-            ll_p = _blocked_lse(lw, N_BLOCKS) - log_s
+            ll_p = _fold_estimate(rowsum[b], log_s)
             row = scal[b, r[b]]
             next_repeat = False
             if ll_p > log_y[b]:
@@ -258,6 +290,172 @@ def test_round_model_keeps_the_state_at_the_shrink_cap():
         *map(_t, inputs), "logistic", N_BLOCKS, None, 1, "float32")
     np.testing.assert_array_equal(ns_m, ns_p.numpy())
     assert torch.equal(u_p, _t(u))
+
+
+# ------------------------------------- (c) the sigma sweep's rounds
+
+
+def sigma_rounds_model(chol0, u, chain, rep, y, mask, likelihood):
+    """The round schedule of csrc/sigma_sweep.cu.  Returns sigma', ll', lp',
+    n_shrink, moved and, per round, the repeat index of every chain probed
+    in it."""
+    n_chains, s, _ = u.shape
+    n_rep = rep.shape[1]
+    log_s = np.log(F32(s))
+    ll, lp, sig = (chain[:, k].copy() for k in (0, 1, 2))
+    w, mu, hiv, lp_rest = (chain[:, k] for k in (3, 4, 5, 6))
+    r = np.zeros(n_chains, int)
+    i = np.zeros(n_chains, int)
+    l = sig - w * rep[:, 0, 1]
+    rt = l + w
+    x = l + (rt - l) * rep[:, 0, 2]          # each chain's next candidate
+    log_y = lp + rep[:, 0, 0]
+    n_shrink = np.zeros(n_chains, F32)
+    moved = np.zeros(n_chains, F32)
+    active = np.ones(n_chains, bool)
+    rounds = []
+    while active.any():
+        act = np.flatnonzero(active)
+        rounds.append(r[act].copy())
+        # phase A: u against exp(x) C0, the scale applied BEFORE the product
+        c_x = np.exp(x[act])[:, None, None] * chol0[act]
+        rowsum = _tile_row_sums(u[act], c_x, y, mask, likelihood)
+        # phase B: fold, lp(x), the bracket
+        for j, b in enumerate(act):
+            ll_x = _fold_estimate(rowsum[j], log_s)
+            d = x[b] - mu[b]
+            lp_x = lp_rest[b] - hiv[b] * d * d + ll_x
+            done = lp_x > log_y[b]
+            if not (done or x[b] >= sig[b]):
+                l[b] = x[b]
+            if not (done or x[b] < sig[b]):
+                rt[b] = x[b]
+            i[b] += 1
+            if done or i[b] == tsig.MAX_SHRINK:   # this repeat ends
+                if done:                          # at the cap the point stays
+                    sig[b], lp[b], ll[b] = x[b], lp_x, ll_x
+                    moved[b] += 1
+                n_shrink[b] += i[b]
+                r[b] += 1
+                if r[b] == n_rep:
+                    active[b] = False
+                    continue
+                log_y[b] = lp[b] + rep[b, r[b], 0]
+                l[b] = sig[b] - w[b] * rep[b, r[b], 1]
+                rt[b] = l[b] + w[b]
+                i[b] = 0
+            x[b] = l[b] + (rt[b] - l[b]) * rep[b, r[b], 2 + i[b]]
+    return sig, ll, lp, n_shrink, moved, rounds
+
+
+def _sigma_inputs(seed, n_rep, likelihood, level=None):
+    """NumPy-made sweep inputs: the sigma-free factor C0 of an SE Gram, u,
+    the chains' scalars at sigma0 and the per-repeat rows."""
+    rng = np.random.default_rng(seed)
+    chol, u, _, _, y, mask = _numpy_inputs(seed, 1, likelihood)
+    chol0 = (chol / F32(1.5)).astype(F32)
+    sigma0 = (np.log(1.5) + 0.3 * rng.standard_normal(B)).astype(F32)
+    hiv = F32(0.5 / 1.5**2)
+    ll0 = tsig._ref_estimate(_t(np.exp(sigma0)[:, None, None] * chol0), _t(u),
+                             _t(y), _t(mask), likelihood, N_BLOCKS).numpy()
+    lp_rest = (rng.standard_normal(B) - 3.0).astype(F32)
+    chain = np.zeros((B, 8), F32)
+    chain[:, 0], chain[:, 2] = ll0, sigma0
+    chain[:, 1] = lp_rest - hiv * sigma0 * sigma0 + ll0
+    chain[:, 3], chain[:, 4], chain[:, 5], chain[:, 6] = 1.3, 0.0, hiv, lp_rest
+    rep = rng.uniform(size=(B, n_rep, tsig.REP_COLS)).astype(F32)
+    rep[:, :, 0] = np.log(rep[:, :, 0]) if level is None else level
+    return chol0, u, chain, rep, y, mask
+
+
+def test_sigma_round_model_matches_plain_and_jax_sweeps():
+    n_rep, lik = 3, "logistic"
+    inputs = _sigma_inputs(23, n_rep, lik)
+    sig_m, ll_m, lp_m, ns_m, mv_m, rounds = sigma_rounds_model(*inputs, lik)
+    probe_log = []
+    out_p = tsig._ref_sigma_sweep(*map(_t, inputs), lik, N_BLOCKS, None,
+                                  n_rep, "float32", probe_log=probe_log)
+    margins = torch.cat([m[act].abs() for act, m in probe_log])
+    assert float(margins.min()) > LL_TOL, "a decision sat on its boundary"
+    ref = jsig.make_fused_sigma_sweep(jnp.asarray(inputs[4]),
+                                      jnp.asarray(inputs[5]), lik,
+                                      force=False, n_blocks=N_BLOCKS,
+                                      n_reps=n_rep)
+    out_j = jax.jit(jax.vmap(ref))(*(jnp.asarray(a) for a in (
+        inputs[0], inputs[1], inputs[2][:, None, :], inputs[3])))
+    for other in (out_p, out_j):
+        sig_o, ll_o, lp_o, ns_o, mv_o = (np.asarray(o) for o in other)
+        np.testing.assert_array_equal(ns_m, ns_o)
+        np.testing.assert_array_equal(mv_m, mv_o)
+        np.testing.assert_allclose(sig_m, sig_o, rtol=0, atol=SIGMA_TOL)
+        for got, want in ((ll_m, ll_o), (lp_m, lp_o)):
+            assert np.all(np.abs(got - want)
+                          <= LL_TOL + LL_RTOL * np.abs(want))
+    # one probe per active chain per round; chains at different repeats
+    # share a round
+    assert len(rounds) == int(ns_m.max())
+    assert sum(len(r) for r in rounds) == int(ns_m.sum())
+    assert any(len(set(r.tolist())) > 1 for r in rounds)
+    assert mv_m.sum() > 0 and ns_m.max() > n_rep
+
+
+def test_sigma_round_model_keeps_the_point_at_the_shrink_cap():
+    n_rep = 2
+    inputs = _sigma_inputs(24, n_rep, "logistic", level=50.0)
+    chain = inputs[2]
+    sig_m, ll_m, lp_m, ns_m, mv_m, rounds = sigma_rounds_model(*inputs,
+                                                               "logistic")
+    for got, col in ((sig_m, 2), (ll_m, 0), (lp_m, 1)):
+        assert np.array_equal(got, chain[:, col])
+    assert np.all(ns_m == tsig.MAX_SHRINK * n_rep) and np.all(mv_m == 0)
+    assert len(rounds) == tsig.MAX_SHRINK * n_rep
+    out_p = tsig._ref_sigma_sweep(*map(_t, inputs), "logistic", N_BLOCKS,
+                                  None, n_rep, "float32")
+    for got, col in zip(out_p[:3], (2, 0, 1)):
+        assert torch.equal(got, _t(chain[:, col]))
+    np.testing.assert_array_equal(ns_m, out_p[3].numpy())
+
+
+# ------------------------------------- (d) the estimator's one round
+
+
+def estimate_round_model(chol, u, y, mask, likelihood):
+    """fused_estimate_kernel: the items (chain, tile) of all chains in the
+    kernel's order, tile descending; the item that completes a chain's
+    tiles folds it (the fold's order does not depend on which that is)."""
+    n_chains, s, n = u.shape
+    n_tiles = n // TILE
+    log_s = np.log(F32(s))
+    rowsum = np.zeros((n_chains, n_tiles, s), F32)
+    arrivals = np.zeros(n_chains, int)
+    out = np.full(n_chains, np.nan, F32)
+    for w in range(n_chains * n_tiles):
+        t, b = n_tiles - 1 - w // n_chains, w % n_chains
+        cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
+        f = u[b, :, :k_end] @ chol[b, cols, :k_end].T
+        rowsum[b, t] = (_log_lik(y[cols] * f, likelihood)
+                        * mask[cols]).sum(-1, dtype=F32)
+        arrivals[b] += 1
+        if arrivals[b] == n_tiles:
+            out[b] = _fold_estimate(rowsum[b], log_s)
+    return out
+
+
+@pytest.mark.parametrize("likelihood", ["logistic", "probit"])
+def test_estimate_round_model_matches_jax(likelihood):
+    chol, u, _, _, y, mask = _numpy_inputs(25, 1, likelihood)
+    chol, u = chol[:3], u[:3]
+    got = estimate_round_model(chol, u, y, mask, likelihood)
+    j = [jnp.asarray(a) for a in (y, mask)]
+    for b in range(len(u)):
+        for want in (
+                jfe._pallas_estimate(jnp.asarray(chol[b]), jnp.asarray(u[b]),
+                                     *j, likelihood, n_blocks=N_BLOCKS,
+                                     interpret=True),
+                jfe._ref_estimate(jnp.asarray(chol[b]), jnp.asarray(u[b]), *j,
+                                  likelihood, n_blocks=N_BLOCKS)):
+            want = float(want)
+            assert abs(got[b] - want) <= LL_TOL + LL_RTOL * abs(want)
 
 
 # ------------------------------------------------ (b) the 32-block panel
