@@ -1,7 +1,7 @@
-// Probe body of three entries of fused_estimator.cu (rotated estimate, plain
-// and rotated per-sample weights), and the pieces every estimator kernel
-// shares (round_operand, log_lik, blocked_lse, the dispatch); the plain
-// estimate and both sweeps run on sweep_body.cuh instead.
+// Probe body of two entries of fused_estimator.cu (rotated estimate, plain
+// per-sample weights), and the pieces every estimator kernel shares
+// (round_operand, log_lik, blocked_lse, the dispatch); the plain estimate,
+// the rotated weights and both sweeps run on sweep_body.cuh instead.
 //
 // Replaces the probe body that the three TPU kernels share in
 // auxpm_tpu/ops/fused_estimator.py (_dot_whiten, _log_lik_tile,
@@ -24,7 +24,7 @@
 //     ways out and are left to later work.
 //   * C is lower-triangular but the contraction runs over the full n, as the
 //     reference does: the zero terms change nothing but cost half the FMAs
-//     and half the bytes.  sweep_body.cuh skips them; these three entries
+//     and half the bytes.  sweep_body.cuh skips them; these two entries
 //     are queued to move onto it.
 //   * each thread owns a 4x4 micro-tile of f (rows ty*4.., columns tx+16c),
 //     FP32 FMAs on the CUDA cores; the likelihood is applied to the finished

@@ -5,26 +5,49 @@
 //     R[i,j]   = exp(-0.5 * d2[i,j]) + jitter * (i == j)
 //     out[i,j] = R[i,j] * mask_i * mask_j + (i == j) * (1 - mask_i)
 //
-// with xs = x / ell the per-chain pre-scaled data (B, n, d).
+// with xs = x * exp(-log_ell) the per-chain scaled data (B, n, d), formed
+// in the kernel from x (n, d) and log_ells (B, d).
 //
 // Replaces the TPU kernel auxpm_tpu/ops/gram.py::_se_gram_kernel (wrapper
 // _se_gram_ard_pallas).  What is kept: the reference's expression, i.e. the
 // expansion sq_i + sq_j - 2 xs_i.xs_j with the cross term in exact float32
-// (sequential FMAs on the CUDA cores; no tensor cores, no TF32: the expansion
-// cancels for nearby points and a reduced-precision cross term makes the
-// matrix indefinite), the clamp at 0 and exp(-0.5 .).  What differs: the TPU
-// kernel leaves the jitter and the pad fix-up to elementwise passes outside
-// the kernel because its batching rule cannot tile a scalar operand; nothing
-// of the sort holds here, so the epilogue (jitter on the diagonal, zero
-// covariance to and from pad rows, unit pad diagonal) is applied before the
-// one write of each element.
+// (sequential FMAs on the CUDA cores; no tensor cores, no TF32, no
+// ex2.approx: the expansion cancels for nearby points, R(ell) is close to
+// singular, and a Gram ~1e-6 away moves log L-hat by ~2e-2), the clamp at 0
+// and exp(-0.5 .).  What differs: the TPU kernel leaves the jitter and the
+// pad fix-up to elementwise passes outside the kernel because its batching
+// rule cannot tile a scalar operand; here the epilogue (jitter on the
+// diagonal, zero covariance to and from pad rows, unit pad diagonal) is
+// applied before the one write of each element, and the scaling of x by
+// exp(-log_ell) happens as the data are staged (three elementwise launches
+// fewer per Gram than scaling in PyTorch first, the same floats: the
+// element's expf(-log_ell_k) and one product, as torch.exp and mul form it).
 //
 // Bound: bytes.  The work is a write of B*n*n*4 bytes (105 MB at B=64,
-// n=640) against 2*d + ~6 FLOPs and one expf per element; the inputs
-// (B*n*d*4 bytes) are noise.  Design: a block of 256 threads owns a 64 x 64
-// tile; the tile's 64 + 64 rows of xs and their squared norms sit in shared
-// memory; each thread computes 4 rows x 4 consecutive columns and writes one
-// float4 per row, so a warp writes two full 256-byte row segments.
+// n=640) against 2*d + ~8 FLOPs and one expf per element; the inputs
+// (x, log_ells, mask) are noise.  Design for Hopper:
+//   * a persistent grid (resident blocks x SMs) over the items (chain, tile
+//     pair ti >= tj) of 64 x 64 tiles: 55 items per chain at n = 640 where
+//     the full square has 100 tiles.  Block g takes a contiguous run of
+//     items, so it meets one or two chains;
+//   * per (block, chain) the chain's xs is formed and staged once in shared
+//     memory as [k][row] (row pitch n rounded up to 64, pad rows zero) with
+//     its squared norms and mask: a thread reads 4 columns as one float4
+//     with no bank conflict and the staging needs no integer division;
+//   * a thread computes 4 rows x 4 consecutive columns of a tile and stores
+//     each row's 4 as one streaming float4 (__stcs), 16 threads covering a
+//     256-byte row segment; an off-diagonal tile is also written at its
+//     mirror position: the tile goes through shared memory (pitch 65),
+//     transposed, so the mirror's stores are whole row segments too;
+//   * every element keeps the expression of the full-square kernel this
+//     replaced (one 64 x 64 tile per block, both triangles computed):
+//     fmaf over k ascending for the cross term and for sq, fmaxf(sq_i + sq_j
+//     - 2 cross, 0), expf(-0.5 d2), then the jitter and the pad fix-up.
+//     fmaf(a, b, c) == fmaf(b, a, c) and sq_i + sq_j == sq_j + sq_i, so the
+//     mirror element (j, i) is bitwise the one the full-square kernel
+//     computed; its mask product is taken in its own order, (v m_j) m_i.
+// Shared memory per block: 4 (n_pad (d + 2) + 64 * 65) bytes (40 KB at
+// n = 640, d = 7); the wrapper refuses shapes past a block's 227 KB.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -32,91 +55,170 @@ namespace auxpm {
 
 constexpr int kGramTile = 64;
 constexpr int kGramThreads = 256;
-constexpr int kGramMaxD = 32;
+constexpr int kGramLdT = kGramTile + 1;   // pitch of the transposed tile
+
+__host__ __device__ inline int gram_pad(int n) {
+  return (n + kGramTile - 1) / kGramTile * kGramTile;
+}
+
+inline size_t gram_smem_bytes(int n, int d) {
+  return sizeof(float) *
+         (size_t(gram_pad(n)) * (d + 2) + size_t(kGramTile) * kGramLdT);
+}
 
 __global__ void __launch_bounds__(kGramThreads)
-se_gram_ard_kernel(const float* __restrict__ xs,
-                   const float* __restrict__ mask,  // (n,) or nullptr
-                   float* __restrict__ out, int n, int d, float jitter) {
-  __shared__ float xi[kGramTile][kGramMaxD + 1];
-  __shared__ float xj[kGramTile][kGramMaxD + 1];
-  __shared__ float sqi[kGramTile], sqj[kGramTile];
-  __shared__ float mi[kGramTile], mj[kGramTile];
+se_gram_ard_kernel(const float* __restrict__ x,         // (n, d)
+                   const float* __restrict__ log_ells,  // (B, d), row stride
+                   const float* __restrict__ mask,      // (n,) or nullptr
+                   float* __restrict__ out, int B, int n, int d,
+                   int le_stride, float jitter) {
+  extern __shared__ __align__(16) float gsm[];
+  const int np = gram_pad(n);
+  float* xt = gsm;                   // [k][row], pitch np
+  float* sq = xt + size_t(d) * np;   // [row]
+  float* mk = sq + np;               // [row]
+  float* tt = mk + np;               // the tile, transposed: [col][row]
 
   const int tid = threadIdx.x;
-  const int i0 = blockIdx.y * kGramTile;
-  const int j0 = blockIdx.x * kGramTile;
-  const float* xb = xs + size_t(blockIdx.z) * n * d;
-  float* ob = out + size_t(blockIdx.z) * n * n;
+  const int n_tiles = np / kGramTile;
+  const int pairs = n_tiles * (n_tiles + 1) / 2;
+  const long long total = (long long)B * pairs;
+  const long long w0 = total * blockIdx.x / gridDim.x;
+  const long long w1 = total * (blockIdx.x + 1) / gridDim.x;
+  if (w0 >= w1) return;
 
-  for (int idx = tid; idx < kGramTile * d; idx += kGramThreads) {
-    const int r = idx / d, k = idx - r * d;
-    xi[r][k] = (i0 + r < n) ? xb[size_t(i0 + r) * d + k] : 0.0f;
-    xj[r][k] = (j0 + r < n) ? xb[size_t(j0 + r) * d + k] : 0.0f;
-  }
-  __syncthreads();
-  if (tid < 2 * kGramTile) {
-    const bool rows = tid < kGramTile;
-    const int r = rows ? tid : tid - kGramTile;
-    const float* row = rows ? xi[r] : xj[r];
-    float s = 0.0f;
-    for (int k = 0; k < d; ++k) s = fmaf(row[k], row[k], s);
-    const int g = (rows ? i0 : j0) + r;
-    const float m = (mask != nullptr && g < n) ? mask[g] : 1.0f;
-    if (rows) { sqi[r] = s; mi[r] = m; } else { sqj[r] = s; mj[r] = m; }
-  }
-  __syncthreads();
+  // the first item's (chain, ti, tj); later items step through the lower
+  // triangle row by row
+  int b = int(w0 / pairs);
+  int p = int(w0 - (long long)b * pairs);
+  int ti = 0;
+  while (p > ti) p -= ++ti;
+  int tj = p;
+  int staged = -1;
 
-  const int c0 = (tid & 15) * 4;  // 4 consecutive columns
-  const int r0 = tid >> 4;        // rows r0, r0 + 16, r0 + 32, r0 + 48
-#pragma unroll
-  for (int rr = 0; rr < 4; ++rr) {
-    const int r = r0 + 16 * rr;
-    const int gi = i0 + r;
-    if (gi >= n) continue;
-    float cross[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k = 0; k < d; ++k) {
-      const float a = xi[r][k];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) cross[c] = fmaf(a, xj[c0 + c][k], cross[c]);
-    }
-    float res[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int gj = j0 + c0 + c;
-      const float d2 = fmaxf(sqi[r] + sqj[c0 + c] - 2.0f * cross[c], 0.0f);
-      float v = expf(-0.5f * d2);
-      if (gi == gj) v += jitter;
-      if (mask != nullptr) {
-        v = v * mi[r] * mj[c0 + c];
-        if (gi == gj) v += 1.0f - mi[r];
+  const int c0 = (tid & 15) * 4;   // 4 consecutive columns
+  const int r0 = tid >> 4;         // rows r0, r0 + 16, r0 + 32, r0 + 48
+
+  for (long long w = w0; w < w1; ++w) {
+    if (b != staged) {             // the chain's xs, norms and mask
+      __syncthreads();
+      const float* le = log_ells + size_t(b) * le_stride;
+      for (int k = 0; k < d; ++k) {
+        const float scale = expf(-le[k]);
+        for (int r = tid; r < np; r += kGramThreads)
+          xt[k * np + r] = r < n ? x[size_t(r) * d + k] * scale : 0.0f;
       }
-      res[c] = v;
+      __syncthreads();
+      for (int r = tid; r < np; r += kGramThreads) {
+        float s = 0.0f;
+        for (int k = 0; k < d; ++k)
+          s = fmaf(xt[k * np + r], xt[k * np + r], s);
+        sq[r] = s;
+        mk[r] = (mask != nullptr && r < n) ? mask[r] : 1.0f;
+      }
+      __syncthreads();
+      staged = b;
     }
-    float* dst = ob + size_t(gi) * n + j0 + c0;
-    if (j0 + c0 + 3 < n) {
-      *reinterpret_cast<float4*>(dst) =
-          make_float4(res[0], res[1], res[2], res[3]);
-    } else {
-      for (int c = 0; c < 4; ++c)
-        if (j0 + c0 + c < n) dst[c] = res[c];
+    const int i0 = ti * kGramTile, j0 = tj * kGramTile;
+    float cross[4][4];
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) cross[rr][c] = 0.0f;
+    for (int k = 0; k < d; ++k) {
+      const float* row = xt + k * np;
+      const float4 xj = *reinterpret_cast<const float4*>(row + j0 + c0);
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const float a = row[i0 + r0 + 16 * rr];
+        cross[rr][0] = fmaf(a, xj.x, cross[rr][0]);
+        cross[rr][1] = fmaf(a, xj.y, cross[rr][1]);
+        cross[rr][2] = fmaf(a, xj.z, cross[rr][2]);
+        cross[rr][3] = fmaf(a, xj.w, cross[rr][3]);
+      }
+    }
+    float* ob = out + size_t(b) * n * n;
+    const bool mirror = ti != tj;
+#pragma unroll
+    for (int rr = 0; rr < 4; ++rr) {
+      const int r = r0 + 16 * rr;
+      const int gi = i0 + r;
+      const float sqi = sq[gi], mi = mk[gi];
+      float res[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int gj = j0 + c0 + c;
+        const float sqj = sq[gj], mj = mk[gj];
+        const float d2 = fmaxf(sqi + sqj - 2.0f * cross[rr][c], 0.0f);
+        float v = expf(-0.5f * d2);
+        if (gi == gj) v += jitter;
+        float vt = v;
+        if (mask != nullptr) {
+          vt = v * mj * mi;
+          v = v * mi * mj;
+          if (gi == gj) v += 1.0f - mi;
+        }
+        res[c] = v;
+        if (mirror) tt[(c0 + c) * kGramLdT + r] = vt;
+      }
+      if (gi < n && j0 + c0 < n)   // n % 4 == 0: all four columns or none
+        __stcs(reinterpret_cast<float4*>(ob + size_t(gi) * n + j0 + c0),
+               make_float4(res[0], res[1], res[2], res[3]));
+    }
+    if (mirror) {                  // uniform in the block
+      __syncthreads();
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr) {
+        const int jr = r0 + 16 * rr;
+        const float* src = tt + jr * kGramLdT + c0;
+        if (j0 + jr < n && i0 + c0 < n)
+          __stcs(reinterpret_cast<float4*>(ob + size_t(j0 + jr) * n + i0 +
+                                           c0),
+                 make_float4(src[0], src[1], src[2], src[3]));
+      }
+      __syncthreads();             // tt is rewritten by the next item
+    }
+    if (++tj > ti) {               // the next item
+      tj = 0;
+      if (++ti == n_tiles) {
+        ti = 0;
+        ++b;
+      }
     }
   }
 }
 
 }  // namespace auxpm
 
-// xs (B, n, d) pre-scaled, mask (n,) or null -> out (B, n, n).  n % 4 == 0
-// (float4 stores), d <= 32.
-extern "C" int auxpm_se_gram_ard(const void* xs, const void* mask, void* out,
-                                 int B, int n, int d, float jitter,
+// x (n, d), log_ells (B, d) with row stride le_stride, mask (n,) or null
+// -> out (B, n, n).  n % 4 == 0 (float4 stores) and gram_smem_bytes(n, d)
+// within a block's shared memory (the wrapper checks both).
+extern "C" int auxpm_se_gram_ard(const void* x, const void* log_ells,
+                                 const void* mask, void* out, int B, int n,
+                                 int d, int le_stride, float jitter,
                                  void* stream) {
   using namespace auxpm;
-  const int tiles = (n + kGramTile - 1) / kGramTile;
-  const dim3 grid(tiles, tiles, B);
-  se_gram_ard_kernel<<<grid, kGramThreads, 0,
+  const size_t smem = gram_smem_bytes(n, d);
+  cudaError_t err = cudaFuncSetAttribute(
+      se_gram_ard_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, se_gram_ard_kernel, kGramThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int pad_tiles = gram_pad(n) / kGramTile;
+  const long long items =
+      (long long)B * (pad_tiles * (pad_tiles + 1) / 2);
+  long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  if (items < grid) grid = items;
+  se_gram_ard_kernel<<<int(grid), kGramThreads, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xs), static_cast<const float*>(mask),
-      static_cast<float*>(out), n, d, jitter);
+      static_cast<const float*>(x), static_cast<const float*>(log_ells),
+      static_cast<const float*>(mask), static_cast<float*>(out), B, n, d,
+      le_stride, jitter);
   return static_cast<int>(cudaGetLastError());
 }

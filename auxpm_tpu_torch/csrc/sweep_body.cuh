@@ -1,8 +1,9 @@
 // Round-synchronous probe body of the sweep-body kernels: the ESS sweep
-// (ess_sweep.cu), the sigma sweep (sigma_sweep.cu) and the plain estimator
-// (fused_estimate_kernel of fused_estimator.cu, one round).  The three share
-// one definition of the estimator's f32 expression: the same items, the same
-// k order inside an item, the same fold over columns and tiles.
+// (ess_sweep.cu), the sigma sweep (sigma_sweep.cu), the plain estimator and
+// the rotated per-sample weights (fused_estimate_kernel and
+// fused_rot_weights_kernel of fused_estimator.cu, one round each).  The four
+// share one definition of the estimator's f32 expression: the same items,
+// the same k order inside an item, the same fold over columns and tiles.
 //
 // A sweep advances in ROUNDS inside ONE cooperative launch.  In each round
 // every still-active chain makes its next probe: phase A computes the
@@ -70,7 +71,8 @@ constexpr int kLdp = kDepth + 4;            // padded row of a u or C stage
 constexpr int kStages = 4;
 constexpr int kConsumers = 128;             // 16 x 8 threads, 4 x 8 f each
 constexpr int kThreads = kConsumers + 32;   // + the producer warp
-constexpr int kMaxChains = 2048;            // the active list is uint16
+constexpr int kMaxChains = 2048;            // the active list is uint16;
+                                            // wrappers split larger batches
 
 struct Stage {
   float u[kRows * kLdp];     // left rows (rotated in place)
@@ -232,7 +234,14 @@ __device__ inline int compact_active(Smem& sm, const float* active, int stride,
 // ProbeSpec, and `done(b, t)` runs on every consumer thread once item (b, t)
 // is in rowsum.  All threads of the block call it; the rings persist across
 // rounds.  Ends with a block barrier.
-template <int LIK, bool BF16, class Chain, class Spec, class Done>
+//
+// RPT: rows of f per consumer thread, 4 (all 64 rows) or 2 (the first 32,
+// for S <= 32: half the products, none on the zero pad rows 32..63).  A
+// row's arithmetic is the same either way (the same k order per element,
+// the same 8 columns and shuffle tree per row), so a row has the same bits
+// at RPT 2 and 4.
+template <int LIK, bool BF16, int RPT = 4, class Chain, class Spec,
+          class Done>
 __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
                                    int n, const float* __restrict__ y,
                                    const float* __restrict__ mask,
@@ -281,7 +290,7 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
     }
   } else {
     // --------------------------------------------------------- consumers
-    const int tx = tid & 7, ty = tid >> 3;   // rows 4 ty.., columns tx + 8 c
+    const int tx = tid & 7, ty = tid >> 3;   // rows RPT ty.., columns tx + 8 c
     const int rot_row = tid >> 1, rot_col = (tid & 1) * 16;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
       const int t = n_tiles - 1 - w / n_active;
@@ -289,9 +298,9 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
       const ProbeSpec p = spec(b);
       const int n_chunks = (t + 1) * (kCols / kDepth);
       const bool scale_c = BF16 || p.c_scale != 1.0f;
-      float acc[4][8];
+      float acc[RPT][8];
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
+      for (int r = 0; r < RPT; ++r)
 #pragma unroll
         for (int c = 0; c < 8; ++c) acc[r][c] = 0.0f;
 
@@ -332,19 +341,19 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
           }
         }
         if (p.v || scale_c) consumer_barrier();
-        const float* a_base = st.u + (ty * 4) * kLdp;
+        const float* a_base = st.u + (ty * RPT) * kLdp;
         const float* b_base = st.c + tx * kLdp;
 #pragma unroll
         for (int k = 0; k < kDepth; k += 4) {
-          float4 a[4], bv[8];
+          float4 a[RPT], bv[8];
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < RPT; ++r)
             a[r] = *reinterpret_cast<const float4*>(a_base + r * kLdp + k);
 #pragma unroll
           for (int c = 0; c < 8; ++c)
             bv[c] = *reinterpret_cast<const float4*>(b_base + 8 * c * kLdp + k);
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
+          for (int r = 0; r < RPT; ++r)
 #pragma unroll
             for (int c = 0; c < 8; ++c) {
               acc[r][c] = fmaf(a[r].x, bv[c].x, acc[r][c]);
@@ -358,18 +367,20 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
       }
 
       // likelihood on the finished tile, summed over its 64 columns
-      float rowacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float rowacc[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) rowacc[r] = 0.0f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int j = t * kCols + tx + 8 * c;
         const float yj = y[j], mj = mask[j];
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+        for (int r = 0; r < RPT; ++r)
           rowacc[r] += log_lik<LIK>(yj * acc[r][c]) * mj;
       }
-      float* out = rowsum + (size_t(b) * n_tiles + t) * kRows + ty * 4;
+      float* out = rowsum + (size_t(b) * n_tiles + t) * kRows + ty * RPT;
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < RPT; ++r) {
         float v = rowacc[r];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
@@ -382,12 +393,10 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
   __syncthreads();
 }
 
-// Phase B helper, warp 0: the chain's per-sample log-weights folded over its
-// tiles in tile order, into sm.lw; then the blocked log-sum-exp minus log S
-// (same value on every lane).
-__device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
-                                      int n_tiles, int S, int n_blocks,
-                                      float log_s) {
+// Warp 0: the chain's per-sample log-weights, each row's tile sums folded in
+// tile order, into sm.lw[0..S).  A row's weight depends on that row alone.
+__device__ inline void fold_rows(Smem& sm, const float* rowsum, int b,
+                                 int n_tiles, int S) {
   const int lane = threadIdx.x & 31;
   const float* base = rowsum + size_t(b) * n_tiles * kRows;
   for (int s = lane; s < S; s += 32) {
@@ -397,7 +406,35 @@ __device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
     sm.lw[s] = acc;
   }
   __syncwarp();
+}
+
+// Phase B helper, warp 0: fold_rows, then the blocked log-sum-exp minus
+// log S (same value on every lane).
+__device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
+                                      int n_tiles, int S, int n_blocks,
+                                      float log_s) {
+  fold_rows(sm, rowsum, b, n_tiles, S);
   return blocked_lse(sm.lw, S, n_blocks) - log_s;
+}
+
+// The `done` hook of a one-round kernel, on the consumers: counts item
+// arrivals of chain b (its stores fenced, then atomicAdd on arrivals[b],
+// zero at the launch) and runs `fold()` on warp 0 of the block that
+// completes the chain's last item, after a second fence, so that it sees
+// the other blocks' row sums of chain b.
+template <class Fold>
+__device__ inline void fold_when_last(int* arrivals, int b, int n_tiles,
+                                      Fold fold) {
+  __threadfence();        // this item's row sums, visible card-wide
+  consumer_barrier();     // ... from every consumer that wrote one
+  if (threadIdx.x < 32) {
+    int last = 0;
+    if (threadIdx.x == 0) last = atomicAdd(arrivals + b, 1) == n_tiles - 1;
+    if (__shfl_sync(0xffffffffu, last, 0)) {
+      __threadfence();    // the other blocks' row sums of chain b
+      fold();
+    }
+  }
 }
 
 // Blocks of a grid that is resident on the current device all at once

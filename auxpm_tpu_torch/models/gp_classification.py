@@ -48,9 +48,10 @@ It has no whole-sweep factories: a sweep kernel folds each estimate inside
 its launch, where no collective can reach.
 
 Every callable of the returned ``Target`` is batched over a leading chains
-axis.  On the card both whole-sweep kernels are always available; the
-reference's memory gates on its sweeps belong to the TPU and have no
-counterpart here.
+axis.  The reference's memory gates on its sweeps belong to the TPU; the
+port's factories return None where the sweep body refuses the shapes
+(``ops/fused_estimator.fits_sweep_body``: S > 64, or n not a multiple of
+64), and the step then takes the per-probe path.
 """
 
 from __future__ import annotations
@@ -66,6 +67,7 @@ from auxpm_tpu_torch.ops.cholesky import robust_cholesky
 from auxpm_tpu_torch.ops.ess_sweep import make_fused_ess_sweep
 from auxpm_tpu_torch.ops.fused_estimator import (
     WHITEN_DTYPES,
+    fits_sweep_body,
     make_fused_estimator,
     make_fused_rot_estimator,
     make_fused_rot_weights,
@@ -250,7 +252,14 @@ def make_gp_classification(
         r = (theta - prior_mean) / prior_std
         return -0.5 * (r * r).sum(-1) - log_norm
 
+    # the sweeps run where the sweep body takes the shapes (S <= 64, n a
+    # multiple of 64); elsewhere the factories return None and the step takes
+    # the per-probe path, as the reference's factories do past their gates
+    sweep_fits = fits_sweep_body(n_importance, n, nb_global)
+
     def _ess_sweep_factory(n_repeats):
+        if not sweep_fits:
+            return None
         return make_fused_ess_sweep(
             y_dev, mask, likelihood, n_blocks=nb_global,
             whiten_dtype=whiten_dtype, n_repeats=n_repeats,
@@ -259,6 +268,8 @@ def make_gp_classification(
     hiv = 0.5 / float(prior_std) ** 2
 
     def _sigma_sweep_factory(n_reps):
+        if not sweep_fits:
+            return None
         sweep = make_fused_sigma_sweep(
             y_dev, mask, likelihood, n_blocks=nb_global,
             whiten_dtype=whiten_dtype, n_reps=n_reps,

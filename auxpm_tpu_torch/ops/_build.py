@@ -36,9 +36,9 @@ _SIGNATURES = {
     "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _F, _I, _I, _P],
     "auxpm_fused_weights": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "auxpm_fused_rot_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _P],
-    "auxpm_se_gram_ard": [_P, _P, _P, _I, _I, _I, _F, _P],
+    "auxpm_fused_rot_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _P],
+    "auxpm_se_gram_ard": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "auxpm_ess_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _F, _I, _I, _P],
     "auxpm_sweep_grid": [],

@@ -13,9 +13,11 @@ Randomness is precomputed by the caller (``samplers/ess_u.py``):
     v    (B, R, S, n):   per-repeat direction draws
 
 On CUDA tensors the sweep is ONE cooperative launch of ``csrc/ess_sweep.cu``
-over the whole card: it advances in rounds, each active chain making its next
-probe in every round, so each chain runs exactly its own probe count and the
-number of rounds is the largest of them; on CPU tensors it is the plain
+over the whole card (one per slice of at most ``MAX_CHAINS`` chains): it
+advances in rounds, each active chain making its next probe in every round,
+so each chain runs exactly its own probe count and the number of rounds is
+the largest of them; any n that is a multiple of 64; on CPU tensors it is
+the plain
 batched, done-masked version ``_ref_ess_sweep``.  Cap-hit (32 shrinks) keeps
 the current state, an exact no-op move.
 """
@@ -29,22 +31,23 @@ import torch
 from auxpm_tpu_torch.ops import _build
 from auxpm_tpu_torch.ops.fused_estimator import (
     LIKELIHOOD_IDS,
+    MAX_CHAINS,
     WHITEN_DTYPES,
     _log_s,
     _ref_estimate,
     check_probe_shapes,
+    over_chain_slices,
 )
 
 MAX_SHRINK = 32
 SCAL_COLS = 3 + MAX_SHRINK
-MAX_CHAINS = 2048   # csrc/sweep_body.cuh kMaxChains
 _STATE = 16         # floats of per-chain state in the kernel's workspace
 _TILE = 64          # columns of f per work item
 _TWO_PI = 2.0 * math.pi
 
 launches = 0  # kernel launches made by this module's wrapper
-# rounds of the last launch: a 1-element CUDA tensor, read after a
-# synchronize (the kernel writes it at its end)
+# rounds of the last call (the most of its slices): a 1-element CUDA tensor,
+# read after a synchronize (the kernel writes it at its end)
 last_rounds = None
 
 
@@ -111,10 +114,22 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"scal {tuple(scal.shape)}, v {tuple(v.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks)
-    if not 1 <= b <= MAX_CHAINS or n_repeats < 1:
-        raise ValueError(f"B={b}, n_repeats={n_repeats}: the sweep takes 1 to "
-                         f"{MAX_CHAINS} chains and at least one repeat")
+    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
+    if b < 1 or n_repeats < 1:
+        raise ValueError(f"B={b}, n_repeats={n_repeats}: the sweep takes at "
+                         "least one chain and one repeat")
+    if b > MAX_CHAINS:
+        rounds = []
+
+        def part(*chained):
+            out = _cuda_ess_sweep(*chained, y, mask, likelihood, n_blocks,
+                                  log_s, n_repeats, whiten_dtype)
+            rounds.append(last_rounds)
+            return out
+
+        out = over_chain_slices(part, (chol, u, scal, v))
+        last_rounds = torch.cat(rounds).amax(0, keepdim=True)
+        return out
     device = _build.require_f32_contiguous(chol=chol, u=u, scal=scal, v=v,
                                            y=y, mask=mask)
     lib = _build.load_library()

@@ -24,11 +24,17 @@ stored), with ``_ref_estimate_rot`` as its plain version.
 in the reference) return the per-sample log-weights ``lw`` with no
 log-sum-exp: the local half of the particle-sharded estimator, where a rank
 holds ``S_local = S / K`` rows of u and a collective folds the blocked
-partials (``parallel/collectives.allgather_blocked_logsumexp``).  Third and
-fourth entry of the same source, on ``csrc/probe.cuh``, so a row's weight
-has the same bits whichever rows share its call (its fold order is not the
-plain estimate's: the two agree to rounding, not bitwise).  No backward
-kernel: nothing on the ported paths differentiates through them.
+partials (``parallel/collectives.allgather_blocked_logsumexp``).  Third
+entry of the same source on ``csrc/probe.cuh``, fourth (the rotated
+weights, one round of the sweep body over the ACTIVE chains only) on
+``csrc/sweep_body.cuh``; in both a row's weight has the same bits whichever
+rows share its call (their fold orders are not the plain estimate's: they
+agree with it to rounding, not bitwise).  No backward kernel: nothing on the
+ported paths differentiates through them.
+
+The wrappers whose kernel keeps a list of active chains (the rotated weights
+here, both sweeps) split a call of more than ``MAX_CHAINS`` chains into
+consecutive slices (``over_chain_slices``).
 """
 
 from __future__ import annotations
@@ -47,11 +53,17 @@ LIKELIHOOD_IDS = {"logistic": 0, "probit": 1}
 MAX_ROWS = 64       # importance samples a block can hold
 TILE_N = 64         # n must be a multiple of the column tile
 MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
+MAX_CHAINS = 2048   # chains of one launch with an active list
+                    # (csrc/sweep_body.cuh kMaxChains); wrappers split more
 
 launches = 0        # launches of the plain-estimator kernel by its wrapper
 launches_rot = 0    # launches of the rotated-estimator kernel by its wrapper
 launches_w = 0      # launches of the weights kernel by its wrapper
 launches_rot_w = 0  # launches of the rotated-weights kernel by its wrapper
+# chains passed to those launches, and per device the chains of them that
+# were active (an int32 the kernel adds to): rot_weights_active_share()
+rot_w_chain_slots = 0
+_rot_w_active_total = {}
 
 
 def _dot_whiten(u, chol, whiten_dtype):
@@ -91,24 +103,56 @@ def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
     return blocked_logsumexp(lw, n_blocks) - _log_s(u, log_s)
 
 
-def check_probe_shapes(s, n, n_blocks=None, left_in_smem=True):
-    """Raise on shapes the probe body does not take (``n_blocks=None``: an
-    entry without a log-sum-exp).  ``left_in_smem``: the entry keeps the
-    whole (64, n) left operand in shared memory (``probe.cuh``), which
-    bounds n; the sweep body's shared memory does not depend on n."""
+def probe_shape_error(s, n, n_blocks=None, left_in_smem=True):
+    """Why the probe body does not take these shapes, or None if it does
+    (``n_blocks=None``: an entry without a log-sum-exp).  ``left_in_smem``:
+    the entry keeps the whole (64, n) left operand in shared memory
+    (``probe.cuh``), which bounds n; the sweep body's shared memory does not
+    depend on n."""
     if n % TILE_N:
-        raise ValueError(f"n={n} must be a multiple of {TILE_N} (pad the target)")
+        return f"n={n} must be a multiple of {TILE_N} (pad the target)"
     if s < 1 or s > MAX_ROWS:
-        raise ValueError(f"S={s}: a block holds 1 to {MAX_ROWS} rows")
+        return f"S={s}: a block holds 1 to {MAX_ROWS} rows"
     if n_blocks is not None and (n_blocks < 1 or n_blocks > 32
                                  or s % n_blocks):
-        raise ValueError(f"n_blocks={n_blocks} must divide S={s} and be <= 32")
+        return f"n_blocks={n_blocks} must divide S={s} and be <= 32"
     smem = 4 * (MAX_ROWS * (n + 4) + TILE_N * 36 + MAX_ROWS + 8)
     if left_in_smem and smem > MAX_SMEM:
-        raise ValueError(
-            f"n={n}: the left operand needs {smem} bytes of shared memory, "
-            f"a block has {MAX_SMEM}"
-        )
+        return (f"n={n}: the left operand needs {smem} bytes of shared "
+                f"memory, a block has {MAX_SMEM}")
+    return None
+
+
+def check_probe_shapes(s, n, n_blocks=None, left_in_smem=True):
+    """Raise on shapes the probe body does not take (``probe_shape_error``)."""
+    err = probe_shape_error(s, n, n_blocks, left_in_smem)
+    if err is not None:
+        raise ValueError(err)
+
+
+def fits_sweep_body(s, n, n_blocks=None):
+    """Whether the kernels of the sweep body (``csrc/sweep_body.cuh``: the
+    estimate, the rotated weights and both sweeps) take S = ``s`` samples at
+    n = ``n`` with that reduction tree; any n that is a multiple of 64 does.
+    The target's sweep factories return None where this is False, as the
+    reference's return None past their memory gates."""
+    return probe_shape_error(s, n, n_blocks, left_in_smem=False) is None
+
+
+def over_chain_slices(fn, chained, limit=MAX_CHAINS):
+    """``fn(*parts)`` on consecutive slices of at most ``limit`` chains of
+    the tensors ``chained`` (leading axis = chains), the outputs (a tensor or
+    a tuple of tensors) concatenated along that axis.  A chain's result does
+    not depend on the other chains of its call, so the split gives the bits
+    one call would."""
+    b = chained[0].shape[0]
+    outs = [fn(*(a[i:i + limit] for a in chained))
+            for i in range(0, b, limit)]
+    if len(outs) == 1:
+        return outs[0]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(parts) for parts in zip(*outs))
+    return torch.cat(outs)
 
 
 def _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
@@ -285,7 +329,7 @@ def fused_weights(chol, u, y, mask, likelihood="logistic",
 
 def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
                       active):
-    global launches_rot_w
+    global launches_rot_w, rot_w_chain_slots
     if chol.dim() != 3 or u.dim() != 3:
         raise ValueError("expected chol (B, n, n) and u (B, S, n)")
     b, s, n = u.shape
@@ -296,24 +340,59 @@ def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"v {tuple(v.shape)}, angle {tuple(angle.shape)}"
         )
-    check_probe_shapes(s, n)
+    check_probe_shapes(s, n, left_in_smem=False)
+    if b > MAX_CHAINS:
+        chained = (chol, u, v, angle) + (() if active is None else (active,))
+        return over_chain_slices(
+            lambda c, u_, v_, a_, act=None: _cuda_rot_weights(
+                c, u_, v_, a_, y, mask, likelihood, whiten_dtype, act),
+            chained)
     tensors = dict(chol=chol, u=u, v=v, angle=angle, y=y, mask=mask)
     if active is not None:
         tensors["active"] = active
     device = _build.require_f32_contiguous(**tensors)
     lib = _build.load_library()
     out = torch.empty((b, s), dtype=torch.float32, device=device)
+    # the tile sums rowsum[chain][tile][64], then one arrival counter per
+    # chain (int32, zero at the launch)
+    rowsum = b * (n // TILE_N) * 64
+    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
+    workspace[rowsum:].zero_()
+    total = _rot_w_active_total.get(device)
+    if total is None:
+        total = _rot_w_active_total[device] = torch.zeros(
+            1, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         err = lib.auxpm_fused_rot_weights(
             chol.data_ptr(), u.data_ptr(), v.data_ptr(), angle.data_ptr(),
             None if active is None else active.data_ptr(), y.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), b, s, n,
+            mask.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+            total.data_ptr(), b, s, n,
             LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "fused_rot_weights_kernel")
     launches_rot_w += 1
+    rot_w_chain_slots += b
     return out
+
+
+def rot_weights_active_share():
+    """Mean share of active chains per rotated-weights launch since the
+    counters were last reset (``reset_rot_weights_active``): the kernel adds
+    each launch's active count on the card; reading it synchronises.  None
+    before any launch."""
+    if not rot_w_chain_slots:
+        return None
+    active = sum(int(t.item()) for t in _rot_w_active_total.values())
+    return active / rot_w_chain_slots
+
+
+def reset_rot_weights_active():
+    global rot_w_chain_slots
+    rot_w_chain_slots = 0
+    for t in _rot_w_active_total.values():
+        t.zero_()
 
 
 def fused_rot_weights(chol, u, v, angle, y, mask, likelihood="logistic",

@@ -15,8 +15,11 @@ so every build is a scaled cross product plus ``exp``:
 ``se_gram_ard_hopper`` is what the GP target calls: the correlation matrix
 ``R(ell) + jitter I`` with the pad fix-up of the target in one pass.  On a
 CUDA tensor it launches the hand-written kernel ``csrc/se_gram.cu`` (or
-raises), on a CPU tensor it takes ``se_gram_ard_masked``, the plain version
-of the same function.
+raises): a persistent grid over the (chain, 64-tile pair i >= j) items, each
+tile computed once and written with its mirror, bitwise symmetric; x is
+scaled by exp(-log_ell) inside the kernel, as ``_scaled`` forms it.  On a CPU
+tensor it takes ``se_gram_ard_masked``, the plain version of the same
+function.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 
 from auxpm_tpu_torch.ops import _build
 
-MAX_D = 32  # feature dimensions the kernel's shared-memory rows hold
+_TILE = 64            # the kernel's tiles (csrc/se_gram.cu kGramTile)
+_MAX_SMEM = 232448    # bytes of shared memory a block can use on sm_90
 
 launches = 0  # kernel launches made by this module's wrapper
 
@@ -90,6 +94,14 @@ def se_gram_ard_masked(x, log_ells, jitter=1e-6, mask=None):
     return r
 
 
+def gram_smem_bytes(n, d):
+    """Shared memory of one block of the ARD Gram kernel: a chain's xs as
+    [k][row] with its squared norms and mask (rows padded to 64), and one
+    transposed 64 x 65 tile (``csrc/se_gram.cu`` ``gram_smem_bytes``)."""
+    n_pad = -(-n // _TILE) * _TILE
+    return 4 * (n_pad * (d + 2) + _TILE * (_TILE + 1))
+
+
 def _cuda_se_gram_ard(x, log_ells, jitter, mask):
     global launches
     if x.dim() != 2 or log_ells.dim() != 2 or log_ells.shape[1] != x.shape[1]:
@@ -98,19 +110,28 @@ def _cuda_se_gram_ard(x, log_ells, jitter, mask):
             f"and {tuple(log_ells.shape)}")
     n, d = x.shape
     b = log_ells.shape[0]
-    if n % 4 or d > MAX_D:
-        raise ValueError(f"n={n} must be a multiple of 4 and d={d} <= {MAX_D}")
+    if n % 4:
+        raise ValueError(f"n={n} must be a multiple of 4 (float4 stores)")
+    smem = gram_smem_bytes(n, d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"n={n}, d={d}: a chain's staged data needs {smem} "
+                         f"bytes of shared memory, a block has {_MAX_SMEM}")
     if mask is not None and mask.shape != (n,):
         raise ValueError(f"mask {tuple(mask.shape)}: expected ({n},)")
-    xs = _scaled(x, log_ells).contiguous()
-    tensors = {"xs": xs} if mask is None else {"xs": xs, "mask": mask}
+    if log_ells.stride(1) != 1:    # rows may be strided (a slice of theta)
+        log_ells = log_ells.contiguous()
+    tensors = {"x": x} if mask is None else {"x": x, "mask": mask}
     device = _build.require_f32_contiguous(**tensors)
+    if (not log_ells.is_cuda or log_ells.device != device
+            or log_ells.dtype != torch.float32):
+        raise ValueError(f"log_ells: expected float32 on {device}")
     lib = _build.load_library()
     out = torch.empty((b, n, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.auxpm_se_gram_ard(
-            xs.data_ptr(), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), b, n, d, float(jitter),
+            x.data_ptr(), log_ells.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(), b, n,
+            d, log_ells.stride(0), float(jitter),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "se_gram_ard_kernel")

@@ -21,7 +21,8 @@ and ``samplers/slice_theta.py``):
                        placement), 32 shrink uniforms]
 
 On CUDA tensors the sweep is ONE cooperative launch of
-``csrc/sigma_sweep.cu`` over the whole card: it advances in rounds, each
+``csrc/sigma_sweep.cu`` over the whole card (one per slice of at most
+``MAX_CHAINS`` chains): it advances in rounds, each
 active chain making its next probe in every round, so each chain runs exactly
 its own probe count and the number of rounds is the largest of them; on CPU
 tensors it is the plain batched version ``_ref_sigma_sweep``.  The shrink cap
@@ -33,21 +34,23 @@ from __future__ import annotations
 import torch
 
 from auxpm_tpu_torch.ops import _build
-from auxpm_tpu_torch.ops.ess_sweep import MAX_CHAINS, sweep_workspace
+from auxpm_tpu_torch.ops.ess_sweep import sweep_workspace
 from auxpm_tpu_torch.ops.fused_estimator import (
     LIKELIHOOD_IDS,
+    MAX_CHAINS,
     WHITEN_DTYPES,
     _log_s,
     _ref_estimate,
     check_probe_shapes,
+    over_chain_slices,
 )
 
 MAX_SHRINK = 32
 REP_COLS = 2 + MAX_SHRINK
 
 launches = 0  # kernel launches made by this module's wrapper
-# rounds of the last launch: a 1-element CUDA tensor, read after a
-# synchronize (the kernel writes it at its end)
+# rounds of the last call (the most of its slices): a 1-element CUDA tensor,
+# read after a synchronize (the kernel writes it at its end)
 last_rounds = None
 
 
@@ -115,9 +118,21 @@ def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
             f"chain {tuple(chain.shape)}, rep {tuple(rep.shape)}"
         )
     check_probe_shapes(s, n, n_blocks, left_in_smem=False)
-    if not 1 <= b <= MAX_CHAINS or n_reps < 1:
-        raise ValueError(f"B={b}, n_reps={n_reps}: the sweep takes 1 to "
-                         f"{MAX_CHAINS} chains and at least one repeat")
+    if b < 1 or n_reps < 1:
+        raise ValueError(f"B={b}, n_reps={n_reps}: the sweep takes at least "
+                         "one chain and one repeat")
+    if b > MAX_CHAINS:
+        rounds = []
+
+        def part(*chained):
+            out = _cuda_sigma_sweep(*chained, y, mask, likelihood, n_blocks,
+                                    log_s, n_reps, whiten_dtype)
+            rounds.append(last_rounds)
+            return out
+
+        out = over_chain_slices(part, (chol0, u, chain, rep))
+        last_rounds = torch.cat(rounds).amax(0, keepdim=True)
+        return out
     device = _build.require_f32_contiguous(chol0=chol0, u=u, chain=chain,
                                            rep=rep, y=y, mask=mask)
     lib = _build.load_library()

@@ -170,16 +170,20 @@ def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
 def cli(argv, profile_steps=0):
     """``auxpm_tpu_torch.run.main(argv)`` on this rank (``argv`` must ask for
     ``--sharded true``); returns the rank's final state, the recorded theta
-    of all chains, the summary, and the kernel launches and collectives of
-    the run.  ``profile_steps > 0``: then that many more steps under
+    of all chains, the summary, the kernel launches and collectives of the
+    run, and the mean share of active chains per rotated-weights launch.
+    ``profile_steps > 0``: then that many more steps under
     ``utils/profiling.profile_run`` (every rank runs them, each reports its
     own view of the card)."""
     import torch.distributed as dist
 
     from auxpm_tpu_torch import run as port_run
 
+    from auxpm_tpu_torch.ops import fused_estimator as fe
+
     result = {}
     before = _counts()
+    fe.reset_rot_weights_active()
     with contextlib.redirect_stdout(sys.stderr):   # rank 0's summary line
         rc = port_run.main(list(argv), result=result)
     if rc != 0:
@@ -188,6 +192,7 @@ def cli(argv, profile_steps=0):
     if states.u.is_cuda:
         torch.cuda.synchronize(states.u.device)
     after = _counts()
+    active_share = fe.rot_weights_active_share()
     out = {
         "rank": mesh.rank, "chain_index": mesh.chain_index,
         "particle_index": mesh.particle_index,
@@ -199,6 +204,9 @@ def cli(argv, profile_steps=0):
         "windows": result["windows"],
         "widths": _np(result["params"]["slice_theta"]["widths"]),
         "counts": {k: after[k] - before[k] for k in after},
+        # mean share of active chains per rotated-weights launch (None if
+        # the kernel never launched: the CPU takes the plain version)
+        "rot_weights_active_share": active_share,
     }
     cache = states.extras.get("target_cache")
     if cache is not None:

@@ -33,7 +33,8 @@ Three branches, chosen as the reference chooses them:
   carried factor at the post-ell theta, outside every loop; then the last
   coordinate (log_sigma) off that factor with ``1 + n_sigma_extra`` repeats,
   capped at ``max_shrink``: all repeats in one call of the target's sweep
-  (``ops/sigma_sweep.py``) when ``max_step_out == 0``, per probe otherwise;
+  (``ops/sigma_sweep.py``) when ``max_step_out == 0``, the target has a
+  sweep and ``AUXPM_SIGMA_SWEEP`` is not ``0``, per probe otherwise;
 - structure-aware without a cache (``coord_estimators``): the same with the
   log_sigma factory factoring once per sweep;
 - generic (a target without factories, e.g. the Gaussian toy): every
@@ -63,6 +64,7 @@ Params:
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import torch
@@ -159,8 +161,13 @@ def make_slice_theta(target, n_sigma_extra=0):
                 f"target {target.name!r} has {len(factories)} coordinate "
                 f"factories for d={n_coords}")
     sigma_reps = 1 + n_sigma_extra
+    # AUXPM_SIGMA_SWEEP=0 disables the whole-sigma-slice sweep (A/B runs):
+    # the log_sigma updates then take the per-probe path.  Read when the
+    # step is built, as the reference reads it and as ess_u reads
+    # AUXPM_ESS_SWEEP
     sigma_sweep_fn = None
-    if target.sigma_sweep_factory is not None:
+    if (target.sigma_sweep_factory is not None
+            and os.environ.get("AUXPM_SIGMA_SWEEP", "1") != "0"):
         sigma_sweep_fn = target.sigma_sweep_factory(sigma_reps)
 
     def draw(generator, state: ChainState):

@@ -27,13 +27,23 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   against their chains' largest probe count and at the
                   32-shrink cap at full width, the panel with NaN on the
                   diagonal from a failing column on; a cooperative grid one
-                  block larger than the card holds must be refused;
+                  block larger than the card holds must be refused; both
+                  sweeps also at n=1024 (8 chains) against their plain
+                  versions with the n=640 bars, and at B=2051 (the wrappers
+                  split a call into launches of at most 2048 chains), each
+                  chain bitwise its B=128 result; the rotated weights (one
+                  round of the sweep body over the active chains) also at
+                  n=1024 and B=2051, and timed with 100, 25 and 3 % of the
+                  chains active; the ARD Gram (each tile pair computed
+                  once, written with its mirror) exactly symmetric;
 3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
                   the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
 4. ``path_parity`` one step from the final state with the same random rows,
                   kernels vs plain versions: decisions equal, values within
                   the bars stated where they are checked;
+   ``main_path_4096`` one config-2 step at 4096 chains (each sweep in two
+                  launches), its wall time and peak memory;
 5. ``main_path_ard`` the ``pima_ard_aux`` CLI run, twice (sweep, loop), with
                   the same checks and the launches each run must and must not
                   make; then launches and host synchronisations per step from
@@ -43,7 +53,8 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 7. ``main_path_sharded`` the sharded CLI run on two spawned ranks: both must
                   launch the two weights kernels and no estimator or sweep
                   kernel, and end with bitwise the same theta and log L-hat;
-                  then a short profiled window on rank 0;
+                  the mean share of chains active per rotated-weights
+                  launch; then a short profiled window on rank 0;
 8. ``path_parity_sharded`` one step from phase 3's final state on the same
                   rows, two ranks against the unsharded per-probe path: equal
                   counts, values within 1e-4, the two ranks bitwise equal;
@@ -99,6 +110,9 @@ PATH_CHOL_TOL, PATH_LL_TOL = 1e-2, 5e-2   # through a refactorisation
 MAX_AMBIGUOUS = 2
 B_ARD, D_ARD = 64, 7
 K_SHARDS, S_LOCAL = 2, 32          # the particle-sharded path: two ranks
+B_SPLIT = 2051      # more chains than one launch's active list (2048) holds
+B_BIG, N_BIG = 8, 1024   # n above the old left-operand limit (~880)
+B_WIDE = 4096       # one config-2 step at this many chains
 COMBINE_RTOL = 2e-6                # weights + combine vs the fused estimate
 SHARDED_LL_TOL = 1e-4              # sharded step vs the unsharded loop path
 CHOL_BACK_RTOL, CHOL_INV_TOL = 1e-5, 1e-4
@@ -225,7 +239,7 @@ def main():
     u = t(rng.standard_normal((B, S, N)))
 
     def ambiguous_chains(probe_log, tol):
-        amb = torch.zeros(B, dtype=torch.bool, device=dev)
+        amb = torch.zeros_like(probe_log[0][0], dtype=torch.bool)
         for active, margin in probe_log:
             amb |= active & (margin.abs() <= tol)
         return amb
@@ -485,6 +499,50 @@ def main():
         if not same:
             failures.append(f"ess_sweep: B={nb_} differs from the same "
                             "chains at B=128")
+    # more chains than one launch's active list holds: the wrapper splits
+    # the call into slices of at most MAX_CHAINS, each chain bitwise its
+    # B=128 result
+    idx_split = torch.arange(B_SPLIT, device=dev) % B
+    ess.launches = 0
+    out_split = ess.ess_sweep(*(a[idx_split].contiguous() for a in (
+        chol, u, scal_logistic, v)), y, mask, "logistic", 8, None, N_ESS)
+    split_launches = ess.launches
+    torch.cuda.synchronize()
+    ess_split = {"B": B_SPLIT, "bitwise_equal_to_B128": all(
+        torch.equal(k_, f_[idx_split]) for k_, f_ in zip(out_split,
+                                                         sweep_full)),
+        "rounds": int(ess.last_rounds.item())}
+    del out_split
+    if not ess_split["bitwise_equal_to_B128"]:
+        failures.append(f"ess_sweep: B={B_SPLIT} differs from the same "
+                        "chains at B=128")
+    # n above the old shared-memory limit of the left operand (~880)
+    big = _big_inputs(np, t, N_BIG)
+    scal_big = t(np.concatenate([
+        np.zeros((B_BIG, N_ESS, 1), np.float32),
+        np.log(big["rng"].uniform(size=(B_BIG, N_ESS, 1))),
+        big["rng"].uniform(size=(B_BIG, N_ESS, 1)) * 2.0 * np.pi,
+        big["rng"].uniform(size=(B_BIG, N_ESS, 32))], axis=2))
+    scal_big[:, 0, 0] = fe._ref_estimate(big["chol"], big["u"], big["y"],
+                                         big["mask"], "logistic", 8)
+    probe_log = []
+    out_k = ess.ess_sweep(big["chol"], big["u"], scal_big, big["v"],
+                          big["y"], big["mask"], "logistic", 8, None, N_ESS)
+    out_p = ess._ref_ess_sweep(big["chol"], big["u"], scal_big, big["v"],
+                               big["y"], big["mask"], "logistic", 8, None,
+                               N_ESS, "float32", probe_log=probe_log)
+    torch.cuda.synchronize()
+    amb = ambiguous_chains(probe_log, LL_TOL)
+    ess_big = {
+        "B": B_BIG, "S": S, "n": N_BIG,
+        "ambiguous_chains": check_counts(
+            f"ess_sweep n={N_BIG}", [("n_shrink", out_k[2], out_p[2]),
+                                     ("moved", out_k[3], out_p[3])], amb),
+        "u": check_close("ess_sweep", f"u' n={N_BIG}", out_k[0], out_p[0],
+                         U_TOL, ~amb),
+        "ll": check_close("ess_sweep", f"ll n={N_BIG}", out_k[1], out_p[1],
+                          LL_TOL, ~amb, LL_RTOL),
+        "moved": float(out_p[3].sum()), "shrinks": float(out_p[2].sum())}
     # every chain to the 32-shrink cap at full width: the state is kept
     # bitwise, 33 probes per chain, 33 rounds
     scal_cap = scal_logistic.clone()
@@ -513,6 +571,7 @@ def main():
         "probes_max_chain": int(chain_probes.max()),
         "probes_mean_chain": float(chain_probes.mean()),
         "rounds": rounds, "grid_blocks": grid, "batches": odd,
+        "split": ess_split, "launches_split": split_launches, "n1024": ess_big,
         "cap_hit_rounds_B128": cap_rounds,
         "ms": time_ms(lambda: ess.ess_sweep(chol, u, scal_logistic, v, y, mask,
                                             "logistic", 8, None, N_ESS), 3),
@@ -596,6 +655,52 @@ def main():
             torch.equal(k_, f_[idx]) for k_, f_ in zip(out_b, sig_full))
     if not all(sig_batches.values()):
         failures.append(f"sigma_sweep: batches differ {sig_batches}")
+    sig.launches = 0
+    out_split = sig.sigma_sweep(*(a[idx_split].contiguous() for a in (
+        chol_r, u, chain_f32, rep)), y, mask, "logistic", 8, None, N_SIGMA)
+    torch.cuda.synchronize()
+    sig_split = {"B": B_SPLIT, "launches": sig.launches,
+                 "bitwise_equal_to_B128": all(
+                     torch.equal(k_, f_[idx_split])
+                     for k_, f_ in zip(out_split, sig_full)),
+                 "rounds": int(sig.last_rounds.item())}
+    if not sig_split["bitwise_equal_to_B128"]:
+        failures.append(f"sigma_sweep: B={B_SPLIT} differs from the same "
+                        "chains at B=128")
+    # n above the old shared-memory limit, the n=640 bars
+    theta_big = t(big["rng"].normal(size=(B_BIG, 2)) * 0.5)
+    ll0 = fe._ref_estimate(torch.exp(theta_big[:, 1])[:, None, None]
+                           * big["chol"], big["u"], big["y"], big["mask"],
+                           "logistic", 8)
+    lp_rest = target.log_prior(theta_big) + hiv * theta_big[:, 1] ** 2
+    chain_big = torch.stack(
+        [ll0, target.log_prior(theta_big) + ll0, theta_big[:, 1],
+         torch.full_like(ll0, 1.2), torch.zeros_like(ll0),
+         torch.full_like(ll0, hiv), lp_rest, torch.zeros_like(ll0)],
+        dim=1).contiguous()
+    rep_big = t(big["rng"].uniform(size=(B_BIG, N_SIGMA, 2 + 32)))
+    rep_big[:, :, 0] = torch.log(rep_big[:, :, 0])
+    probe_log = []
+    out_k = sig.sigma_sweep(big["chol"], big["u"], chain_big, rep_big,
+                            big["y"], big["mask"], "logistic", 8, None,
+                            N_SIGMA)
+    out_p = sig._ref_sigma_sweep(big["chol"], big["u"], chain_big, rep_big,
+                                 big["y"], big["mask"], "logistic", 8, None,
+                                 N_SIGMA, "float32", probe_log=probe_log)
+    torch.cuda.synchronize()
+    amb = ambiguous_chains(probe_log, LL_TOL)
+    sig_big = {
+        "B": B_BIG, "S": S, "n": N_BIG,
+        "ambiguous_chains": check_counts(
+            f"sigma_sweep n={N_BIG}", [("n_shrink", out_k[3], out_p[3]),
+                                       ("moved", out_k[4], out_p[4])], amb),
+        "sigma": check_close("sigma_sweep", f"sigma' n={N_BIG}", out_k[0],
+                             out_p[0], SIGMA_TOL, ~amb),
+        "ll": check_close("sigma_sweep", f"ll n={N_BIG}", out_k[1], out_p[1],
+                          LL_TOL, ~amb, LL_RTOL),
+        "lp": check_close("sigma_sweep", f"lp n={N_BIG}", out_k[2], out_p[2],
+                          LL_TOL, ~amb, LL_RTOL),
+        "moved": float(out_p[4].sum()), "shrinks": float(out_p[3].sum())}
     # every chain to the 32-probe cap in both repeats at full width: the
     # point is kept bitwise, 64 probes per chain, 64 rounds
     rep_cap = rep.clone()
@@ -634,8 +739,8 @@ def main():
         "probes_max_chain": int(sig_chain_probes.max()),
         "probes_mean_chain": float(sig_chain_probes.mean()),
         "rounds": sig_rounds, "grid_blocks": grid,
-        "batches_bitwise_equal": sig_batches,
-        "cap_hit_rounds_B128": sig_cap_rounds,
+        "batches_bitwise_equal": sig_batches, "split": sig_split,
+        "n1024": sig_big, "cap_hit_rounds_B128": sig_cap_rounds,
         "cooperative_launch_errors": {"resident_grid": coop[0],
                                       "one_block_more": coop[1]},
         "ms": time_ms(lambda: sig.sigma_sweep(chol_r, u, chain_f32, rep, y,
@@ -749,7 +854,9 @@ def main():
         gr.se_gram_ard_hopper(x_pad, log_ells[:4].contiguous(), 1e-5),
         gr.se_gram_ard(x_pad, log_ells[:4].contiguous(), 0.0, 1e-5),
         gram_tol)
-    b_ms, b_by = bound(4 * (B_ARD * (N * N + N * D_ARD) + N),
+    # the kernel reads x (n, d), log_ells (B, d) and the mask once and
+    # writes B n^2 floats
+    b_ms, b_by = bound(4 * (B_ARD * (N * N + D_ARD) + N * D_ARD + N),
                        B_ARD * N * N * (2.0 * D_ARD + 8.0))
     kernels["se_gram_ard"] = {
         "name": "se_gram_ard", "route": "cuda",
@@ -762,7 +869,8 @@ def main():
         "ms": gram_ms[B_ARD][0], "plain_ms": gram_ms[B_ARD][1],
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_B128": gram_ms[B][0], "plain_ms_B128": gram_ms[B][1],
-        "bound_ms_B128": bound(4 * (B * (N * N + N * D_ARD) + N), 0)[0],
+        "bound_ms_B128": bound(4 * (B * (N * N + D_ARD) + N * D_ARD + N),
+                               0)[0],
     }
 
     # ------------------------------------------- per-sample weights kernels
@@ -835,6 +943,39 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_S64": time_ms(lambda: fe.fused_weights(chol, u, y, mask)),
     }
+    # the rotated weights over the sweep body: n above the old left-operand
+    # limit, and more chains than one launch's active list holds (split,
+    # each chain bitwise its B=128 result)
+    wr_err[f"B={B_BIG} n={N_BIG}"] = check_close(
+        "fused_rot_weights", f"n={N_BIG}",
+        fe.fused_rot_weights(big["chol"], big["u"][:, :S_LOCAL].contiguous(),
+                             big["v"][:, 0, :S_LOCAL].contiguous(),
+                             angle[:B_BIG].contiguous(), big["y"],
+                             big["mask"]),
+        fe._ref_rot_weights(big["chol"], big["u"][:, :S_LOCAL],
+                            big["v"][:, 0, :S_LOCAL],
+                            angle[:B_BIG], big["y"], big["mask"],
+                            "logistic"), LL_TOL, rtol=LL_RTOL)
+    del big
+    lwr_loc = fe.fused_rot_weights(chol, u_loc, v_loc, angle, y, mask)
+    fe.launches_rot_w = 0
+    lwr_split = fe.fused_rot_weights(
+        *(a[idx_split].contiguous() for a in (chol, u_loc, v_loc, angle)), y,
+        mask)
+    rw_split = {"B": B_SPLIT, "launches": fe.launches_rot_w,
+                "bitwise_equal_to_B128": bool(torch.equal(
+                    lwr_split, lwr_loc[idx_split]))}
+    del lwr_split
+    if not rw_split["bitwise_equal_to_B128"]:
+        failures.append(f"fused_rot_weights: B={B_SPLIT} differs from the "
+                        "same chains at B=128")
+    # a call costs what its active chains cost: every chain, one in 4, and
+    # 4 of 128 (the bracket loop's tail)
+    rw_active_ms = {}
+    for share, every in (("1.0", 1), ("0.25", 4), ("0.03", 32)):
+        act = (torch.arange(B, device=dev) % every == 0).to(torch.float32)
+        rw_active_ms[share] = time_ms(lambda: fe.fused_rot_weights(
+            chol, u_loc, v_loc, angle, y, mask, "logistic", "float32", act))
     b_ms, b_by = bound(4 * (B * (TRI + 2 * S_LOCAL * N + S_LOCAL + 2)
                             + 2 * N), B * fe.probe_flops(S_LOCAL, N))
     kernels["fused_rot_weights"] = {
@@ -842,13 +983,18 @@ def main():
         "source": "auxpm_tpu_torch/csrc/fused_estimator.cu",
         "replaces": "auxpm_tpu/ops/fused_estimator.py:461",
         "max_abs_err": wr_err["logistic/float32"], "tol": LL_TOL,
-        "variants_max_abs_err": wr_err,
+        "variants_max_abs_err": wr_err, "split": rw_split,
         "shape": {"B": B, "S_local": S_LOCAL, "n": N},
         "ms": time_ms(lambda: fe.fused_rot_weights(chol, u_loc, v_loc, angle,
                                                    y, mask)),
         "plain_ms": time_ms(lambda: fe._ref_rot_weights(
             chol, u_loc, v_loc, angle, y, mask, "logistic")),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_by_active_share": rw_active_ms,
+        # the least time with 4 of 128 chains active
+        "bound_ms_active_0.03": bound(
+            4 * (4 * (TRI + 2 * S_LOCAL * N + S_LOCAL + 2) + 2 * N + B),
+            4 * fe.probe_flops(S_LOCAL, N))[0],
     }
 
     # ------------------------------------------- Cholesky panels v1 and v2
@@ -1112,6 +1258,38 @@ def main():
           "probes": {k: float(v.sum()) for k, v in i_k.items()}})
     end_phase()
 
+    # ------------------------------------------------ config 2 at 4096 chains
+    # One unsharded step at more chains than a sweep launch's active list
+    # holds: each sweep's wrapper splits its call in two launches.
+    log(f"one config-2 step at {B_WIDE} chains")
+    from auxpm_tpu_torch.core.state import init_chain_states
+
+    torch.cuda.reset_peak_memory_stats()
+    wide = init_chain_states(7, tgt, B_WIDE, jitter_scale=0.3,
+                             with_cache=True)
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide, info_w = step(wide, params)
+    torch.cuda.synchronize()
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    counts_w = read_counts()
+    if counts_w["ess_sweep"] != 2 or counts_w["sigma_sweep"] != 2:
+        failures.append(f"{B_WIDE} chains: expected two launches of each "
+                        f"sweep, got {counts_w}")
+    if not (bool(torch.isfinite(wide.theta).all())
+            and bool(torch.isfinite(wide.log_lik_hat).all())
+            and wide.u.shape == (B_WIDE, S, N)):
+        failures.append(f"{B_WIDE} chains: non-finite or wrong-shaped state")
+    emit({"phase": "main_path_4096", "card": smi, "chains": B_WIDE,
+          "step_wall_ms": wide_ms, "launches": counts_w,
+          "ess_u/moved": float(info_w["ess_u/moved"].mean()),
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    del wide, info_w
+    torch.cuda.empty_cache()
+    end_phase()
+
     # -------------------------------------------------------- ARD main path
     ard = {}
     for mode, env, must, must_not in (
@@ -1305,6 +1483,8 @@ def main():
               k_: round(r0["counts"][k_] / n_steps_sh, 2)
               for k_ in ("fused_weights", "fused_rot_weights", "chol_panel",
                          "collectives")},
+          "rot_weights_mean_active_share_per_call":
+              r0["rot_weights_active_share"],
           "cache_max_abs_err": r0["cache_max_abs_err"], **health_sh,
           "profile_rank0": {k_: prof_sh[k_] for k_ in (
               "wall_ms_per_step", "device_busy_ms_per_step",
@@ -1453,6 +1633,22 @@ def main():
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _big_inputs(np, t, n):
+    """Inputs of the sweeps and the rotated weights at ``B_BIG`` chains and
+    ``n``, from their own seed: a unit-diagonal lower-triangular factor, u,
+    v (``N_ESS`` repeats), labels and a mask with a padded tail."""
+    rng = np.random.default_rng(n)
+    return {
+        "rng": rng,
+        "chol": t(np.tril(rng.standard_normal((B_BIG, n, n)) * 0.03)
+                  + np.eye(n)),
+        "u": t(rng.standard_normal((B_BIG, S, n))),
+        "v": t(rng.standard_normal((B_BIG, N_ESS, S, n))),
+        "y": t(rng.choice([-1.0, 1.0], n)),
+        "mask": t((np.arange(n) < n - 37).astype(np.float32)),
+    }
 
 
 def _pima_sqdist(np, x, n):

@@ -1,5 +1,7 @@
 """PyTorch port vs the JAX package: the ARD Gram, the rotated estimator and
-the ARD GP target (CPU, plain versions).
+the ARD GP target (CPU, plain versions), and a NumPy model of the ARD Gram
+kernel's schedule (``gram_schedule_model``: tile pairs i >= j, each written
+with its mirror).
 
 Inputs come from ``np.random.default_rng(seed)`` and go to both sides.  Where
 the JAX function reaches a Pallas kernel it runs in interpret mode, as the
@@ -46,6 +48,9 @@ JITTER_WC = 1e-3  # a well-conditioned R(ell) + jitter I
 _WD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 
+F32 = np.float32
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -83,6 +88,91 @@ def test_se_gram_ard_matches_jax_and_interpret_kernel(n):
     one = tgram.se_gram_ard(_t(x), _t(log_ells[1]), 0.3, 1e-5).numpy()
     ref = np.asarray(jgram.se_gram_ard(jnp.asarray(x), log_ells[1], 0.3, 1e-5))
     np.testing.assert_allclose(one, ref, rtol=2e-5, atol=GRAM_TOL)
+
+
+def gram_schedule_model(x, log_ells, jitter, mask, grid=7, tile=64):
+    """``csrc/se_gram.cu``: the items (chain, tile pair ti >= tj) in
+    contiguous runs over ``grid`` blocks; a block stages each chain's
+    xs = x exp(-log_ell) and squared norms once; an item computes its tile
+    (cross term and norms summed over k ascending, the clamp, exp, jitter,
+    pad fix-up) and writes it, and an off-diagonal tile also its mirror
+    with the mask product in the mirror's order.  Returns the Gram and how
+    often each element was written."""
+    n, d = x.shape
+    b_total = len(log_ells)
+    n_tiles = -(-n // tile)
+    n_pad = n_tiles * tile
+    pairs = [(ti, tj) for ti in range(n_tiles) for tj in range(ti + 1)]
+    items = [(b, ti, tj) for b in range(b_total) for ti, tj in pairs]
+    out = np.full((b_total, n, n), np.nan, F32)
+    written = np.zeros((b_total, n, n), int)
+    m = np.ones(n_pad, F32) if mask is None else np.concatenate(
+        [mask, np.ones(n_pad - n, F32)])
+    for g in range(grid):
+        staged = None
+        for b, ti, tj in items[len(items) * g // grid:
+                               len(items) * (g + 1) // grid]:
+            if b != staged:
+                xs = np.zeros((n_pad, d), F32)
+                xs[:n] = x * np.exp(-log_ells[b])
+                sq = np.zeros(n_pad, F32)
+                for k in range(d):
+                    sq = sq + xs[:, k] * xs[:, k]
+                staged = b
+            ri = slice(ti * tile, (ti + 1) * tile)
+            rj = slice(tj * tile, (tj + 1) * tile)
+            cross = np.zeros((tile, tile), F32)
+            for k in range(d):
+                cross = cross + xs[ri, k, None] * xs[None, rj, k]
+            d2 = np.maximum(sq[ri, None] + sq[None, rj] - F32(2) * cross, 0)
+            v = np.exp(F32(-0.5) * d2)
+            gi, gj = np.arange(n_pad)[ri, None], np.arange(n_pad)[None, rj]
+            v = np.where(gi == gj, v + F32(jitter), v).astype(F32)
+            vt = v
+            if mask is not None:
+                vt = v * m[None, rj] * m[ri, None]
+                v = v * m[ri, None] * m[None, rj]
+                v = np.where(gi == gj, v + (F32(1) - m[ri, None]), v)
+            keep = (gi < n) & (gj < n)
+            ii, jj = np.broadcast_to(gi, keep.shape)[keep], \
+                np.broadcast_to(gj, keep.shape)[keep]
+            out[b, ii, jj] = v[keep]
+            written[b, ii, jj] += 1
+            if ti != tj:
+                out[b, jj, ii] = vt[keep]
+                written[b, jj, ii] += 1
+    return out, written
+
+
+@pytest.mark.parametrize("n,n_real", [(256, 200), (100, 90)])
+def test_gram_schedule_model_matches_jax_interpret(n, n_real):
+    """The mirrored-tile schedule of the ARD Gram kernel writes every
+    element once, is exactly symmetric, keeps the pad fix-up, and agrees
+    with the Pallas kernel in interpret mode (n = 256; the reference kernel
+    takes 128-aligned n) and with the plain version (n = 100, a partial
+    tile)."""
+    x, _ = _xy(n_real)
+    x_pad = np.concatenate([x, np.zeros((n - n_real, D), np.float32)])
+    mask = (np.arange(n) < n_real).astype(np.float32)
+    log_ells = THETAS[:, :D]
+    got, written = gram_schedule_model(x_pad, log_ells, 1e-5, mask)
+    assert (written == 1).all()
+    assert np.array_equal(got, got.transpose(0, 2, 1))
+    diag = np.diagonal(got, axis1=1, axis2=2)
+    assert (diag[:, n_real:] == 1.0).all()
+    assert (got[:, n_real:, :n_real] == 0).all()
+    plain = tgram.se_gram_ard_masked(_t(x_pad), _t(log_ells), 1e-5,
+                                     _t(mask)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=0, atol=GRAM_TOL)
+    if n % 128:
+        return
+    m = jnp.asarray(mask)
+    for b in range(B):
+        r = jgram._se_gram_ard_pallas(jnp.asarray(x_pad),
+                                      jnp.asarray(log_ells[b]), 0.0, 1e-5,
+                                      interpret=True)
+        want = np.asarray(r * m[:, None] * m[None, :] + jnp.diag(1.0 - m))
+        np.testing.assert_allclose(got[b], want, rtol=0, atol=GRAM_TOL)
 
 
 def test_se_gram_ard_wrapper_applies_the_pad_fixup():

@@ -189,6 +189,96 @@ def test_sweep_body_shape_checks_take_any_n():
         tfe.check_probe_shapes(65, 4096, 8, left_in_smem=False)
 
 
+@pytest.mark.parametrize("s,n,n_blocks", [
+    (16, 1024, 8),    # n above the old left-operand limit (~880)
+    (64, 256, 8),
+    (80, 256, 8),     # more rows than a block holds
+    (16, 200, 8),     # n not a multiple of the 64-column tile
+    (16, 256, 3),     # a reduction tree that does not divide S
+])
+def test_sweep_wrappers_refuse_exactly_where_the_gate_says(s, n, n_blocks):
+    """``fits_sweep_body`` is the gate of the sweep body's wrappers: where it
+    holds they get past every shape check (and stop only at the CPU tensor),
+    where it does not they refuse the shapes."""
+    fits = tfe.fits_sweep_body(s, n, n_blocks)
+    assert fits == (tfe.probe_shape_error(s, n, n_blocks,
+                                          left_in_smem=False) is None)
+    z = torch.zeros
+    # (call, its gate): the rotated weights have no reduction tree
+    calls = {
+        "ess": (lambda: tess._cuda_ess_sweep(
+            z(1, n, n), z(1, s, n), z(1, 1, 35), z(1, 1, s, n), z(n), z(n),
+            "logistic", n_blocks, None, 1, "float32"), fits),
+        "sigma": (lambda: tsig._cuda_sigma_sweep(
+            z(1, n, n), z(1, s, n), z(1, 8), z(1, 1, 34), z(n), z(n),
+            "logistic", n_blocks, None, 1, "float32"), fits),
+        "rot_weights": (lambda: tfe._cuda_rot_weights(
+            z(1, n, n), z(1, s, n), z(1, s, n), z(1), z(n), z(n),
+            "logistic", "float32", None), tfe.fits_sweep_body(s, n)),
+    }
+    for name, (call, gate) in calls.items():
+        with pytest.raises(ValueError) as err:
+            call()
+        past_the_gate = "expected a CUDA tensor" in str(err.value)
+        assert past_the_gate == gate, (name, str(err.value))
+
+
+@pytest.mark.parametrize("s,pad", [(16, True), (80, True), (16, False)])
+def test_sweep_factories_return_none_past_the_gate(s, pad):
+    """The GP target's sweep factories return None exactly where the sweep
+    body refuses its shapes; the step then takes the per-probe path."""
+    from auxpm_tpu_torch.models.datasets import load
+    from auxpm_tpu_torch.models.gp_classification import (
+        make_gp_classification,
+    )
+    from auxpm_tpu_torch.samplers.composite import make_aux_slice
+
+    x, y = load("pima", subsample=100)
+    target = make_gp_classification(x, y, n_importance=s, pad_to_tiles=pad,
+                                    device="cpu")
+    fits = tfe.fits_sweep_body(s, target.u_shape[1], target.n_weight_blocks)
+    assert fits == (s <= 64 and pad)
+    for factory in (target.ess_sweep_factory, target.sigma_sweep_factory):
+        assert (factory(2) is not None) == fits
+    step = make_aux_slice(target, n_ess=2)
+    assert step.stages["ess_u"].uses_sweep == fits
+
+
+@pytest.mark.parametrize("kernel", ["ess", "sigma", "rot_weights"])
+def test_chain_slices_give_the_unsplit_result(kernel):
+    """``over_chain_slices``, the split that the three wrappers with an
+    active list make past ``MAX_CHAINS`` chains, on the plain versions with
+    a limit of 2 chains: each chain's result is its unsplit one."""
+    chol, u, scal, v, y, mask = (_t(a) for a in _ess_inputs(40, 2,
+                                                             "logistic"))
+    if kernel == "ess":
+        fn = lambda c, u_, sc, v_: tess._ref_ess_sweep(  # noqa: E731
+            c, u_, sc, v_, y, mask, "logistic", 8, None, 2, "float32")
+        chained = (chol, u, scal, v)
+    elif kernel == "sigma":
+        rng = np.random.default_rng(41)
+        chain = np.zeros((B, 8), np.float32)
+        chain[:, 0] = scal[:, 0, 0].numpy()
+        chain[:, 1] = chain[:, 0] - 3.0
+        chain[:, 3], chain[:, 5] = 1.3, 0.2
+        rep = rng.uniform(size=(B, 2, 34)).astype(np.float32)
+        rep[:, :, 0] = np.log(rep[:, :, 0])
+        fn = lambda c, u_, ch, r: tsig._ref_sigma_sweep(  # noqa: E731
+            c, u_, ch, r, y, mask, "logistic", 8, None, 2, "float32")
+        chained = (chol, u, _t(chain), _t(rep))
+    else:
+        angle = _t(np.float32([0.3, -2.0, 1.1]))
+        active = _t(np.float32([1.0, 0.0, 1.0]))
+        fn = lambda c, u_, v_, a, act: tfe._ref_rot_weights(  # noqa: E731
+            c, u_, v_, a, y, mask, "logistic", "float32", act)
+        chained = (chol, u, v[:, 0], angle, active)
+    whole = fn(*chained)
+    split = tfe.over_chain_slices(fn, chained, limit=2)
+    for a, b in zip(whole if isinstance(whole, tuple) else (whole,),
+                    split if isinstance(split, tuple) else (split,)):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
 # ------------------------------------------------------------------- cholesky
 
 

@@ -52,6 +52,7 @@ from auxpm_tpu_torch.core.transition import compose
 from auxpm_tpu_torch.models.gp_classification import (
     make_gp_classification as tmake,
 )
+from auxpm_tpu_torch.ops import sigma_sweep as tsig
 from auxpm_tpu_torch.samplers.adaptation import adapt_params as t_adapt
 from auxpm_tpu_torch.samplers.adaptation import warmup as t_warmup
 from auxpm_tpu_torch.samplers.chain import run_chains as t_run_chains
@@ -201,6 +202,43 @@ def test_slice_free_running(slice_run):
     assert torch.equal(state_t.extras["target_cache"]["chol_r"],
                        tt.cache_init(state_t.theta)["chol_r"])
     assert any(info["slice_theta/n_probe"].sum() > 0 for info in infos)
+
+
+def test_sigma_sweep_switch(slice_run, monkeypatch):
+    """``AUXPM_SIGMA_SWEEP=0`` is read when the step is built: the target's
+    sweep factory is not called and the log_sigma repeats take the per-probe
+    path; otherwise the factory is called once, for 1 + n_sigma_extra
+    repeats.  Under ``=0`` one cached step is held to the reference's step on
+    the same rows.  The reference reads the same switch; off the TPU its
+    sweep factory returns None whatever the setting, so the fixture's JAX
+    step is the step it builds under ``=0``."""
+    import dataclasses
+
+    states, infos, rows, params_t, _, tt = slice_run
+    calls = []
+
+    def factory(n_reps):
+        calls.append(n_reps)
+        return tt.sigma_sweep_factory(n_reps)
+
+    stubbed = dataclasses.replace(tt, sigma_sweep_factory=factory)
+    monkeypatch.setenv("AUXPM_SIGMA_SWEEP", "0")
+    make_aux_slice(stubbed, n_ess=N_ESS, n_sigma_extra=N_SIGMA_EXTRA)
+    assert calls == []
+    step_off = make_aux_slice(tt, n_ess=N_ESS, n_sigma_extra=N_SIGMA_EXTRA)
+    monkeypatch.setenv("AUXPM_SIGMA_SWEEP", "1")
+    make_aux_slice(stubbed, n_ess=N_ESS, n_sigma_extra=N_SIGMA_EXTRA)
+    monkeypatch.delenv("AUXPM_SIGMA_SWEEP")
+    make_aux_slice(stubbed, n_ess=N_ESS, n_sigma_extra=N_SIGMA_EXTRA)
+    assert calls == [1 + N_SIGMA_EXTRA] * 2
+
+    def no_sweep(*args, **kwargs):
+        raise AssertionError("the sigma sweep ran under AUXPM_SIGMA_SWEEP=0")
+
+    monkeypatch.setattr(tsig, "_ref_sigma_sweep", no_sweep)
+    state_t, info_t = _apply_step(step_off, _to_port(states[0]), rows[0],
+                                  params_t)
+    _assert_step_matches(state_t, info_t, states[1], infos[0], scale=1)
 
 
 def test_step_is_draw_then_apply(slice_run):

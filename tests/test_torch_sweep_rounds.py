@@ -1,4 +1,4 @@
-"""CPU models of the schedules of two CUDA kernels of the port.
+"""CPU models of the schedules of the CUDA kernels of the port.
 
 No CUDA kernel runs on the CPU, so the order in which each kernel does its
 work is written out here in NumPy, step for step, and held to the JAX
@@ -35,6 +35,13 @@ package (and to the port's plain versions) on the same NumPy-seeded inputs:
     the body over all chains, the block that completes a chain's last item
     folding it, against the JAX package's ``_pallas_estimate(...,
     interpret=True)`` and ``_ref_estimate`` within 2e-4 + 2e-6 |ll|.
+(e) ``fused_rot_weights_kernel`` of the same source: one round over the
+    ACTIVE chains only (the list built from ``active`` in ascending order),
+    items in the body's order, each row's tile sums folded in tile order,
+    against the JAX package's ``_pallas_rot_weights(..., interpret=True)``
+    and the port's ``_ref_rot_weights`` within the same bar; inactive chains
+    give 0, and a row's weights are bitwise those it has in a call of all
+    64 rows at S_local = 8, 16 and 32.
 """
 
 import os
@@ -53,6 +60,7 @@ from auxpm_tpu.ops import sigma_sweep as jsig
 from auxpm_tpu.samplers.ess_u import make_ess_u as j_make_ess_u
 from auxpm_tpu_torch.models.likelihoods import log_ndtr, log_sigmoid
 from auxpm_tpu_torch.ops import ess_sweep as tess
+from auxpm_tpu_torch.ops import fused_estimator as tfe
 from auxpm_tpu_torch.ops import sigma_sweep as tsig
 from tests.test_torch_stepout import _ess_rows
 
@@ -456,6 +464,81 @@ def test_estimate_round_model_matches_jax(likelihood):
                                   likelihood, n_blocks=N_BLOCKS)):
             want = float(want)
             assert abs(got[b] - want) <= LL_TOL + LL_RTOL * abs(want)
+
+
+# ------------------------------ (e) the rotated weights' one round
+
+
+def rot_weights_round_model(chol, u, v, angle, active, y, mask, likelihood):
+    """fused_rot_weights_kernel: the list of ACTIVE chains in ascending order
+    (compact_active), the items (list entry, tile) in the body's order (tile
+    descending, then the list), u cos a + v sin a formed from the streamed
+    rows, each f element a sum over k of that row alone, each row's tile sum
+    over the tile's columns; the item that completes a chain's tiles writes
+    its rows folded in tile order.  Inactive chains' rows are 0.  Returns
+    the weights and the chains of the items in order."""
+    n_chains, s, n = u.shape
+    n_tiles = n // TILE
+    chains = [b for b in range(n_chains) if active[b] != 0]
+    rowsum = np.zeros((n_chains, n_tiles, s), F32)
+    arrivals = np.zeros(n_chains, int)
+    out = np.zeros((n_chains, s), F32)
+    items = []
+    for w in range(len(chains) * n_tiles):
+        t, b = n_tiles - 1 - w // len(chains), chains[w % len(chains)]
+        items.append(b)
+        cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
+        left = (u[b, :, :k_end] * np.cos(angle[b])
+                + v[b, :, :k_end] * np.sin(angle[b]))
+        # row by row: a row's sums never see another row
+        f = (left[:, None, :] * chol[b, cols, :k_end][None]).sum(-1, dtype=F32)
+        rowsum[b, t] = (_log_lik(y[cols] * f, likelihood)
+                        * mask[cols]).sum(-1, dtype=F32)
+        arrivals[b] += 1
+        if arrivals[b] == n_tiles:
+            lw = np.zeros(s, F32)
+            for t_ in range(n_tiles):
+                lw = lw + rowsum[b, t_]
+            out[b] = lw
+    return out, items
+
+
+def test_rot_weights_round_model_matches_jax():
+    chol, u, scal, v, y, mask = _numpy_inputs(27, 1, "logistic")
+    chol, u, v = chol[:5], u[:5, :32], v[:5, 0, :32]
+    angle = (scal[:5, 0, 2] - np.pi).astype(F32)
+    active = np.float32([1, 0, 1, 1, 0])
+    got, items = rot_weights_round_model(chol, u, v, angle, active, y, mask,
+                                         "logistic")
+    n_tiles = N // TILE
+    assert items == [0, 2, 3] * n_tiles
+    assert (got[active == 0] == 0).all()
+    plain = tfe._ref_rot_weights(*map(_t, (chol, u, v, angle, y, mask)),
+                                 "logistic", active=_t(active)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=LL_RTOL, atol=LL_TOL)
+    j = [jnp.asarray(a) for a in (y, mask)]
+    for b in (0, 2, 3):
+        want = np.asarray(jfe._pallas_rot_weights(
+            jnp.asarray(chol[b]), jnp.asarray(u[b]), jnp.asarray(v[b]),
+            jnp.asarray(angle[b]), *j, "logistic", interpret=True))
+        np.testing.assert_allclose(got[b], want, rtol=LL_RTOL, atol=LL_TOL)
+
+
+@pytest.mark.parametrize("s_local", [8, 16, 32])
+def test_rot_weights_round_model_rows_are_independent(s_local):
+    """A row's weight has the same bits whichever rows share its call: the
+    sharded ranks, each with S / K rows, rest on it."""
+    chol, u, scal, v, y, mask = _numpy_inputs(28, 1, "probit")
+    chol, u, v = chol[:2], u[:2], v[:2, 0]
+    angle = scal[:2, 0, 2].astype(F32)
+    active = np.ones(2, F32)
+    full, _ = rot_weights_round_model(chol, u, v, angle, active, y, mask,
+                                      "probit")
+    for r0 in range(0, S, s_local):
+        rows = slice(r0, r0 + s_local)
+        part, _ = rot_weights_round_model(chol, u[:, rows], v[:, rows], angle,
+                                          active, y, mask, "probit")
+        assert np.array_equal(part, full[:, rows])
 
 
 # ------------------------------------------------ (b) the 32-block panel
