@@ -1,18 +1,20 @@
-// Round-synchronous probe body of the sweep-body kernels: the ESS sweep
-// (ess_sweep.cu), the sigma sweep (sigma_sweep.cu), the plain estimator and
-// the rotated per-sample weights (fused_estimate_kernel and
-// fused_rot_weights_kernel of fused_estimator.cu, one round each).  The four
-// share one definition of the estimator's f32 expression: the same items,
-// the same k order inside an item, the same fold over columns and tiles.
+// Round-synchronous probe body of every estimator kernel: the ESS sweep
+// (ess_sweep.cu), the sigma sweep (sigma_sweep.cu) and the four entries of
+// fused_estimator.cu (the estimate, the rotated estimate, the per-sample
+// weights and the rotated weights, one round each).  They share one
+// definition of the estimator's f32 expression: the same items, the same k
+// order inside an item, the same fold over columns and tiles.
 //
 // A sweep advances in ROUNDS inside ONE cooperative launch.  In each round
 // every still-active chain makes its next probe: phase A computes the
 // per-sample log-weights of all those probes with the work spread over every
 // block of the grid, a grid barrier follows, phase B (the caller's) folds
 // them, decides and publishes each chain's next probe, and a second grid
-// barrier closes the round.  What this replaces (probe.cuh, one block per
-// chain for the whole sweep) left the sweep as long as its slowest chain,
-// with every finished chain's SM idle.
+// barrier closes the round.  A finished chain costs nothing in later rounds:
+// the sweep lasts as many rounds as its chains' largest probe count, and
+// every round is spread over the whole card.  The entries of
+// fused_estimator.cu are one such round with no barrier: the block that
+// completes a chain's last item folds it (fold_when_last).
 //
 // Phase A.  A work item is (active chain, 64-column tile t of f = left C^T).
 // C is lower-triangular, so tile t contracts only k < 64 (t + 1): the terms
@@ -42,8 +44,10 @@
 //     the caller's `done(chain, t)` then runs on the consumers (the
 //     estimator counts arrivals there, the sweeps do nothing).
 // Each f element is the sum over k in ascending order in one accumulator,
-// as in probe.cuh; the fold over columns and tiles is in another (fixed)
-// order, so weights agree with the other kernels to rounding, not bitwise.
+// each row's sum over a tile's columns is one shuffle tree, and the tiles
+// fold in tile order (fold_rows): a row of a given probe has the same bits
+// in every kernel of the body, whichever rows share its call.  The plain
+// PyTorch versions sum in other orders and agree to rounding, not bitwise.
 //
 // Shared memory does not depend on n (a stage is 26 KB), so two blocks share
 // an SM; the grid is that occupancy times the SM count.  Tried and not kept

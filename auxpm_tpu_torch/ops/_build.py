@@ -33,9 +33,9 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                              _P],
-    "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                 _I, _F, _I, _I, _P],
-    "auxpm_fused_weights": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "auxpm_fused_estimate_rot": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _F, _I, _I, _P],
+    "auxpm_fused_weights": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "auxpm_fused_rot_weights": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _P],
     "auxpm_se_gram_ard": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -114,7 +114,7 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"scal {tuple(scal.shape)}, v {tuple(v.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
+    check_probe_shapes(s, n, n_blocks)
     if b < 1 or n_repeats < 1:
         raise ValueError(f"B={b}, n_repeats={n_repeats}: the sweep takes at "
                          "least one chain and one repeat")

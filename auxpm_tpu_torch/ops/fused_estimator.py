@@ -8,33 +8,34 @@ Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
     lw  = sum_i mask_i * log lik(y_i f_si)     per importance sample
     out = blocked-lse_s(lw) - log S            scalar
 
-On a CUDA tensor ``fused_estimate`` launches the hand-written kernel
-``csrc/fused_estimator.cu`` (one round of the sweep body
-``csrc/sweep_body.cuh``: the (chain, 64-column tile) items of all chains over
-the whole card, f never stored); on a CPU tensor it takes the plain version
-``_ref_estimate``.
+On a CUDA tensor each function of this module launches one entry of the
+hand-written kernel source ``csrc/fused_estimator.cu``; on a CPU tensor it
+takes its plain version (``_ref_*``).  Every entry is ONE round of the sweep
+body ``csrc/sweep_body.cuh``: the (chain, 64-column tile) items of the call's
+chains over the whole card, the triangle of C skipped, f never stored, and
+the block that completes a chain's last tile folds it.
 
-``fused_estimate_rot`` is the same estimate at the elliptical-slice proposal
-``u cos a + v sin a`` (second entry of the same source, on the probe body
-``csrc/probe.cuh``; the proposal is formed inside the kernel and never
-stored), with ``_ref_estimate_rot`` as its plain version.
+- ``fused_estimate``: the estimate at u.
+- ``fused_estimate_rot``: the same at the elliptical-slice proposal
+  ``u cos a + v sin a`` (formed inside the kernel, never stored), over the
+  ACTIVE chains only (``active``: the bracket loop's unfinished chains).
+- ``fused_weights`` / ``fused_rot_weights`` (``_pallas_weights`` /
+  ``_pallas_rot_weights`` / ``make_fused_weights`` /
+  ``make_fused_rot_weights`` in the reference): the per-sample log-weights
+  ``lw`` with no log-sum-exp, at u and at the rotated proposal (the latter
+  over the active chains only).  They are the local half of the
+  particle-sharded estimator, where a rank holds ``S_local = S / K`` rows of
+  u and a collective folds the blocked partials
+  (``parallel/collectives.allgather_blocked_logsumexp``).
 
-``fused_weights`` / ``fused_rot_weights`` (``_pallas_weights`` /
-``_pallas_rot_weights`` / ``make_fused_weights`` / ``make_fused_rot_weights``
-in the reference) return the per-sample log-weights ``lw`` with no
-log-sum-exp: the local half of the particle-sharded estimator, where a rank
-holds ``S_local = S / K`` rows of u and a collective folds the blocked
-partials (``parallel/collectives.allgather_blocked_logsumexp``).  Third
-entry of the same source on ``csrc/probe.cuh``, fourth (the rotated
-weights, one round of the sweep body over the ACTIVE chains only) on
-``csrc/sweep_body.cuh``; in both a row's weight has the same bits whichever
-rows share its call (their fold orders are not the plain estimate's: they
-agree with it to rounding, not bitwise).  No backward kernel: nothing on the
-ported paths differentiates through them.
+A row's weight has the same bits whichever rows share its call (the K ranks
+of a particle group rest on it), and a chain's result the same bits whichever
+chains share its call.  No backward kernel: nothing on the ported paths
+differentiates through them.
 
-The wrappers whose kernel keeps a list of active chains (the rotated weights
-here, both sweeps) split a call of more than ``MAX_CHAINS`` chains into
-consecutive slices (``over_chain_slices``).
+The wrappers whose kernel keeps a list of active chains (the rotated
+estimate and the rotated weights here, both sweeps) split a call of more
+than ``MAX_CHAINS`` chains into consecutive slices (``over_chain_slices``).
 """
 
 from __future__ import annotations
@@ -49,10 +50,9 @@ from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 WHITEN_DTYPES = ("float32", "bfloat16")
 LIKELIHOOD_IDS = {"logistic": 0, "probit": 1}
 
-# shapes the probe bodies (csrc/probe.cuh, csrc/sweep_body.cuh) take
+# shapes the sweep body (csrc/sweep_body.cuh) takes
 MAX_ROWS = 64       # importance samples a block can hold
 TILE_N = 64         # n must be a multiple of the column tile
-MAX_SMEM = 232448   # bytes of shared memory a block can use on sm_90
 MAX_CHAINS = 2048   # chains of one launch with an active list
                     # (csrc/sweep_body.cuh kMaxChains); wrappers split more
 
@@ -60,10 +60,39 @@ launches = 0        # launches of the plain-estimator kernel by its wrapper
 launches_rot = 0    # launches of the rotated-estimator kernel by its wrapper
 launches_w = 0      # launches of the weights kernel by its wrapper
 launches_rot_w = 0  # launches of the rotated-weights kernel by its wrapper
-# chains passed to those launches, and per device the chains of them that
-# were active (an int32 the kernel adds to): rot_weights_active_share()
-rot_w_chain_slots = 0
-_rot_w_active_total = {}
+
+
+class _ActiveCount:
+    """Chains passed to one kernel's launches, and per device an int32 to
+    which each launch adds how many of them were active (block 0 of the
+    kernel adds it on the card)."""
+
+    def __init__(self):
+        self.slots = 0
+        self._totals = {}
+
+    def total(self, device):
+        t = self._totals.get(device)
+        if t is None:
+            t = self._totals[device] = torch.zeros(1, dtype=torch.int32,
+                                                   device=device)
+        return t
+
+    def share(self):
+        """Mean share of active chains per launch since the last ``reset``;
+        reading it synchronises.  None before any launch."""
+        if not self.slots:
+            return None
+        return sum(int(t.item()) for t in self._totals.values()) / self.slots
+
+    def reset(self):
+        self.slots = 0
+        for t in self._totals.values():
+            t.zero_()
+
+
+# the kernels with an active list: "estimate_rot", "rot_weights"
+active_counts = {"estimate_rot": _ActiveCount(), "rot_weights": _ActiveCount()}
 
 
 def _dot_whiten(u, chol, whiten_dtype):
@@ -103,12 +132,10 @@ def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
     return blocked_logsumexp(lw, n_blocks) - _log_s(u, log_s)
 
 
-def probe_shape_error(s, n, n_blocks=None, left_in_smem=True):
-    """Why the probe body does not take these shapes, or None if it does
-    (``n_blocks=None``: an entry without a log-sum-exp).  ``left_in_smem``:
-    the entry keeps the whole (64, n) left operand in shared memory
-    (``probe.cuh``), which bounds n; the sweep body's shared memory does not
-    depend on n."""
+def probe_shape_error(s, n, n_blocks=None):
+    """Why the sweep body does not take these shapes, or None if it does
+    (``n_blocks=None``: an entry without a log-sum-exp).  Its shared memory
+    does not depend on n: any n that is a multiple of 64 goes."""
     if n % TILE_N:
         return f"n={n} must be a multiple of {TILE_N} (pad the target)"
     if s < 1 or s > MAX_ROWS:
@@ -116,27 +143,33 @@ def probe_shape_error(s, n, n_blocks=None, left_in_smem=True):
     if n_blocks is not None and (n_blocks < 1 or n_blocks > 32
                                  or s % n_blocks):
         return f"n_blocks={n_blocks} must divide S={s} and be <= 32"
-    smem = 4 * (MAX_ROWS * (n + 4) + TILE_N * 36 + MAX_ROWS + 8)
-    if left_in_smem and smem > MAX_SMEM:
-        return (f"n={n}: the left operand needs {smem} bytes of shared "
-                f"memory, a block has {MAX_SMEM}")
     return None
 
 
-def check_probe_shapes(s, n, n_blocks=None, left_in_smem=True):
-    """Raise on shapes the probe body does not take (``probe_shape_error``)."""
-    err = probe_shape_error(s, n, n_blocks, left_in_smem)
+def check_probe_shapes(s, n, n_blocks=None):
+    """Raise on shapes the sweep body does not take (``probe_shape_error``)."""
+    err = probe_shape_error(s, n, n_blocks)
     if err is not None:
         raise ValueError(err)
 
 
 def fits_sweep_body(s, n, n_blocks=None):
     """Whether the kernels of the sweep body (``csrc/sweep_body.cuh``: the
-    estimate, the rotated weights and both sweeps) take S = ``s`` samples at
-    n = ``n`` with that reduction tree; any n that is a multiple of 64 does.
-    The target's sweep factories return None where this is False, as the
-    reference's return None past their memory gates."""
-    return probe_shape_error(s, n, n_blocks, left_in_smem=False) is None
+    four entries of this module and both sweeps) take S = ``s`` samples at
+    n = ``n`` with that reduction tree.  The target's sweep factories return
+    None where this is False, as the reference's return None past their
+    memory gates."""
+    return probe_shape_error(s, n, n_blocks) is None
+
+
+def _round_workspace(b, n, device):
+    """Workspace of one round of the sweep body: the tile sums
+    rowsum[chain][tile][64], then one int32 arrival counter per chain, zero
+    at the launch."""
+    rowsum = b * (n // TILE_N) * MAX_ROWS
+    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
+    workspace[rowsum:].zero_()
+    return workspace
 
 
 def over_chain_slices(fn, chained, limit=MAX_CHAINS):
@@ -166,15 +199,11 @@ def _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"y {tuple(y.shape)}, mask {tuple(mask.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
+    check_probe_shapes(s, n, n_blocks)
     device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
     lib = _build.load_library()
     out = torch.empty((b,), dtype=torch.float32, device=device)
-    # the tile sums rowsum[chain][tile][64], then one arrival counter per
-    # chain (int32, zero at the launch)
-    rowsum = b * (n // TILE_N) * 64
-    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
-    workspace[rowsum:].zero_()
+    workspace = _round_workspace(b, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_fused_estimate(
             chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
@@ -233,23 +262,34 @@ def _cuda_estimate_rot(chol, u, v, angle, y, mask, likelihood, n_blocks,
             f"v {tuple(v.shape)}, angle {tuple(angle.shape)}"
         )
     check_probe_shapes(s, n, n_blocks)
+    if b > MAX_CHAINS:
+        chained = (chol, u, v, angle) + (() if active is None else (active,))
+        return over_chain_slices(
+            lambda c, u_, v_, a_, act=None: _cuda_estimate_rot(
+                c, u_, v_, a_, y, mask, likelihood, n_blocks, log_s,
+                whiten_dtype, act),
+            chained)
     tensors = dict(chol=chol, u=u, v=v, angle=angle, y=y, mask=mask)
     if active is not None:
         tensors["active"] = active
     device = _build.require_f32_contiguous(**tensors)
     lib = _build.load_library()
     out = torch.empty((b,), dtype=torch.float32, device=device)
+    workspace = _round_workspace(b, n, device)
+    count = active_counts["estimate_rot"]
     with torch.cuda.device(device):
         err = lib.auxpm_fused_estimate_rot(
             chol.data_ptr(), u.data_ptr(), v.data_ptr(), angle.data_ptr(),
             None if active is None else active.data_ptr(), y.data_ptr(),
-            mask.data_ptr(), out.data_ptr(), b, s, n, n_blocks,
+            mask.data_ptr(), out.data_ptr(), workspace.data_ptr(),
+            count.total(device).data_ptr(), b, s, n, n_blocks,
             _log_s(u, log_s), LIKELIHOOD_IDS[likelihood],
             int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "fused_estimate_rot_kernel")
     launches_rot += 1
+    count.slots += b
     return out
 
 
@@ -299,13 +339,16 @@ def _cuda_weights(chol, u, y, mask, likelihood, whiten_dtype):
             f"y {tuple(y.shape)}, mask {tuple(mask.shape)}"
         )
     check_probe_shapes(s, n)
+    # no split: without an active list the kernel takes any number of chains
     device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
     lib = _build.load_library()
     out = torch.empty((b, s), dtype=torch.float32, device=device)
+    workspace = _round_workspace(b, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_fused_weights(
             chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
-            out.data_ptr(), b, s, n, LIKELIHOOD_IDS[likelihood],
+            out.data_ptr(), workspace.data_ptr(), b, s, n,
+            LIKELIHOOD_IDS[likelihood],
             int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -329,7 +372,7 @@ def fused_weights(chol, u, y, mask, likelihood="logistic",
 
 def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
                       active):
-    global launches_rot_w, rot_w_chain_slots
+    global launches_rot_w
     if chol.dim() != 3 or u.dim() != 3:
         raise ValueError("expected chol (B, n, n) and u (B, S, n)")
     b, s, n = u.shape
@@ -340,7 +383,7 @@ def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"v {tuple(v.shape)}, angle {tuple(angle.shape)}"
         )
-    check_probe_shapes(s, n, left_in_smem=False)
+    check_probe_shapes(s, n)
     if b > MAX_CHAINS:
         chained = (chol, u, v, angle) + (() if active is None else (active,))
         return over_chain_slices(
@@ -353,46 +396,21 @@ def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
     device = _build.require_f32_contiguous(**tensors)
     lib = _build.load_library()
     out = torch.empty((b, s), dtype=torch.float32, device=device)
-    # the tile sums rowsum[chain][tile][64], then one arrival counter per
-    # chain (int32, zero at the launch)
-    rowsum = b * (n // TILE_N) * 64
-    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
-    workspace[rowsum:].zero_()
-    total = _rot_w_active_total.get(device)
-    if total is None:
-        total = _rot_w_active_total[device] = torch.zeros(
-            1, dtype=torch.int32, device=device)
+    workspace = _round_workspace(b, n, device)
+    count = active_counts["rot_weights"]
     with torch.cuda.device(device):
         err = lib.auxpm_fused_rot_weights(
             chol.data_ptr(), u.data_ptr(), v.data_ptr(), angle.data_ptr(),
             None if active is None else active.data_ptr(), y.data_ptr(),
             mask.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-            total.data_ptr(), b, s, n,
+            count.total(device).data_ptr(), b, s, n,
             LIKELIHOOD_IDS[likelihood], int(whiten_dtype == "bfloat16"),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check_launch(err, "fused_rot_weights_kernel")
     launches_rot_w += 1
-    rot_w_chain_slots += b
+    count.slots += b
     return out
-
-
-def rot_weights_active_share():
-    """Mean share of active chains per rotated-weights launch since the
-    counters were last reset (``reset_rot_weights_active``): the kernel adds
-    each launch's active count on the card; reading it synchronises.  None
-    before any launch."""
-    if not rot_w_chain_slots:
-        return None
-    active = sum(int(t.item()) for t in _rot_w_active_total.values())
-    return active / rot_w_chain_slots
-
-
-def reset_rot_weights_active():
-    global rot_w_chain_slots
-    rot_w_chain_slots = 0
-    for t in _rot_w_active_total.values():
-        t.zero_()
 
 
 def fused_rot_weights(chol, u, v, angle, y, mask, likelihood="logistic",

@@ -29,7 +29,7 @@ import torch
 from auxpm_tpu_torch.ops import _build
 
 _TILE = 64            # the kernel's tiles (csrc/se_gram.cu kGramTile)
-_MAX_SMEM = 232448    # bytes of shared memory a block can use on sm_90
+_BLOCK_SMEM_BYTES = 232448  # bytes of shared memory a block can use on sm_90
 
 launches = 0  # kernel launches made by this module's wrapper
 
@@ -113,9 +113,10 @@ def _cuda_se_gram_ard(x, log_ells, jitter, mask):
     if n % 4:
         raise ValueError(f"n={n} must be a multiple of 4 (float4 stores)")
     smem = gram_smem_bytes(n, d)
-    if smem > _MAX_SMEM:
+    if smem > _BLOCK_SMEM_BYTES:
         raise ValueError(f"n={n}, d={d}: a chain's staged data needs {smem} "
-                         f"bytes of shared memory, a block has {_MAX_SMEM}")
+                         "bytes of shared memory, a block has "
+                         f"{_BLOCK_SMEM_BYTES}")
     if mask is not None and mask.shape != (n,):
         raise ValueError(f"mask {tuple(mask.shape)}: expected ({n},)")
     if log_ells.stride(1) != 1:    # rows may be strided (a slice of theta)

@@ -117,7 +117,7 @@ def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
             f"shape mismatch: chol0 {tuple(chol0.shape)}, u {tuple(u.shape)}, "
             f"chain {tuple(chain.shape)}, rep {tuple(rep.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks, left_in_smem=False)
+    check_probe_shapes(s, n, n_blocks)
     if b < 1 or n_reps < 1:
         raise ValueError(f"B={b}, n_reps={n_reps}: the sweep takes at least "
                          "one chain and one repeat")

@@ -183,7 +183,8 @@ def cli(argv, profile_steps=0):
 
     result = {}
     before = _counts()
-    fe.reset_rot_weights_active()
+    for count in fe.active_counts.values():
+        count.reset()
     with contextlib.redirect_stdout(sys.stderr):   # rank 0's summary line
         rc = port_run.main(list(argv), result=result)
     if rc != 0:
@@ -192,7 +193,7 @@ def cli(argv, profile_steps=0):
     if states.u.is_cuda:
         torch.cuda.synchronize(states.u.device)
     after = _counts()
-    active_share = fe.rot_weights_active_share()
+    active_share = fe.active_counts["rot_weights"].share()
     out = {
         "rank": mesh.rank, "chain_index": mesh.chain_index,
         "particle_index": mesh.particle_index,

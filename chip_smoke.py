@@ -31,11 +31,14 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   sweeps also at n=1024 (8 chains) against their plain
                   versions with the n=640 bars, and at B=2051 (the wrappers
                   split a call into launches of at most 2048 chains), each
-                  chain bitwise its B=128 result; the rotated weights (one
-                  round of the sweep body over the active chains) also at
-                  n=1024 and B=2051, and timed with 100, 25 and 3 % of the
-                  chains active; the ARD Gram (each tile pair computed
-                  once, written with its mirror) exactly symmetric;
+                  chain bitwise its B=128 result; the rotated estimate and
+                  the rotated weights (one round of the sweep body over the
+                  active chains each) also at n=1024 and B=2051, and timed
+                  with 100, 25 and 3 % of the chains active; the plain
+                  weights also at n=1024, and equal bit for bit to the
+                  rotated weights at angle 0; the ARD Gram (each tile pair
+                  computed once, written with its mirror) exactly
+                  symmetric;
 3. ``main_path``  the config-2 CLI run; every kernel's launch count must rise,
                   the chains must be finite and moving, and the carried factor
                   must equal ``cache_init(theta)`` on the final state;
@@ -50,6 +53,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   a short profiled window;
 6. ``path_parity_ard`` one step from the loop run's final state, the new
                   kernels and the estimator vs their plain versions;
+   ``loop_ess_n1024`` one step with ``AUXPM_ESS_SWEEP=0`` on a synthetic GP
+                  target at n=1024 (8 chains): the loop's probes must go
+                  through the rotated-estimate kernel;
 7. ``main_path_sharded`` the sharded CLI run on two spawned ranks: both must
                   launch the two weights kernels and no estimator or sweep
                   kernel, and end with bitwise the same theta and log L-hat;
@@ -790,6 +796,36 @@ def main():
         fe.fused_estimate_rot(*rot_args, y, mask, "logistic", 8),
         fe._ref_estimate_rot(*rot_args, y, mask, "logistic", 8), LL_TOL,
         rtol=LL_RTOL)
+    # n above the old left-operand limit (~880), and more chains than one
+    # launch's active list holds (split, each chain bitwise its B=128 result)
+    v_big0 = big["v"][:, 0].contiguous()
+    rot_err[f"B={B_BIG} n={N_BIG}"] = check_close(
+        "fused_estimator_rot", f"n={N_BIG}",
+        fe.fused_estimate_rot(big["chol"], big["u"], v_big0,
+                              angle[:B_BIG].contiguous(), big["y"],
+                              big["mask"], "logistic", 8),
+        fe._ref_estimate_rot(big["chol"], big["u"], v_big0, angle[:B_BIG],
+                             big["y"], big["mask"], "logistic", 8), LL_TOL,
+        rtol=LL_RTOL)
+    del v_big0
+    fe.launches_rot = 0
+    k_split = fe.fused_estimate_rot(
+        *(a[idx_split].contiguous() for a in (chol, u, v0, angle)), y, mask,
+        "logistic", 8)
+    rot_split = {"B": B_SPLIT, "launches": fe.launches_rot,
+                 "bitwise_equal_to_B128": bool(torch.equal(
+                     k_split, k_all[idx_split]))}
+    del k_split
+    if not rot_split["bitwise_equal_to_B128"]:
+        failures.append(f"fused_estimator_rot: B={B_SPLIT} differs from the "
+                        "same chains at B=128")
+    # a call costs what its active chains cost: every chain, one in 4, and
+    # 2 of 64 (the bracket loop's tail)
+    rot_active_ms = {}
+    for share, every in (("1.0", 1), ("0.25", 4), ("0.03", 32)):
+        act = (torch.arange(B_ARD, device=dev) % every == 0).to(torch.float32)
+        rot_active_ms[share] = time_ms(lambda: fe.fused_estimate_rot(
+            *rot_args, y, mask, "logistic", 8, None, "float32", act))
     b_ms, b_by = bound(4 * (B_ARD * (TRI + 2 * S * N + 2) + 2 * N),
                        B_ARD * fe.probe_flops(S, N))
     kernels["fused_estimator_rot"] = {
@@ -798,11 +834,17 @@ def main():
         "replaces": "auxpm_tpu/ops/fused_estimator.py:294",
         "max_abs_err": rot_err["B=64"], "tol": LL_TOL,
         "variants_max_abs_err": rot_err, "shape": {"B": B_ARD, "S": S, "n": N},
+        "split": rot_split,
         "ms": time_ms(lambda: fe.fused_estimate_rot(*rot_args, y, mask,
                                                     "logistic", 8)),
         "plain_ms": time_ms(lambda: fe._ref_estimate_rot(*rot_args, y, mask,
                                                          "logistic", 8)),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_by_active_share": rot_active_ms,
+        # the least time with 2 of 64 chains active
+        "bound_ms_active_0.03": bound(
+            4 * (2 * (TRI + 2 * S * N + 1) + 2 * N + 2 * B_ARD),
+            2 * fe.probe_flops(S, N))[0],
         "ms_B128": time_ms(lambda: fe.fused_estimate_rot(
             chol, u, v0, angle, y, mask, "logistic", 8)),
         "plain_estimator_ms_B64": time_ms(lambda: fe.fused_estimate(
@@ -923,12 +965,22 @@ def main():
             and bool((k_act[active == 0] == 0).all())):
         failures.append("fused_rot_weights: the active mask changed a wanted "
                         "chain or did not zero an unwanted one")
+    # at angle 0 the rotated weights are the plain weights, bit for bit
+    rot0_bitwise = torch.equal(
+        fe.fused_rot_weights(chol, u_loc, v_loc, torch.zeros_like(angle), y,
+                             mask),
+        fe.fused_weights(chol, u_loc, y, mask))
+    if not rot0_bitwise:
+        failures.append("fused_rot_weights at angle 0 differs from "
+                        "fused_weights")
     w_extra = {"rows_bitwise_independent": rows_bitwise,
+               "rot_weights_at_angle_0_bitwise": rot0_bitwise,
                "combine_vs_estimate_bitwise": torch.equal(comb, est_full),
                "combine_vs_estimate_max_rel": combine_rel,
                "shape": {"B": B, "S_local": S_LOCAL, "n": N},
-               # a block computes 64 rows whatever S_local is
-               "share_of_products_on_pad_rows": 1.0 - S_LOCAL / 64.0}
+               # the consumers take 2 rows each at S_local <= 32: no
+               # products on the pad rows of a 64-row stage
+               "rows_per_consumer_thread": 2 if S_LOCAL <= 32 else 4}
     b_ms, b_by = bound(4 * (B * (TRI + S_LOCAL * N + S_LOCAL) + 2 * N),
                        B * fe.probe_flops(S_LOCAL, N))
     kernels["fused_weights"] = {
@@ -943,9 +995,15 @@ def main():
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_S64": time_ms(lambda: fe.fused_weights(chol, u, y, mask)),
     }
-    # the rotated weights over the sweep body: n above the old left-operand
-    # limit, and more chains than one launch's active list holds (split,
-    # each chain bitwise its B=128 result)
+    # both weights kernels at n above the old left-operand limit; the
+    # rotated weights also at more chains than one launch's active list
+    # holds (split, each chain bitwise its B=128 result)
+    w_err[f"B={B_BIG} n={N_BIG}"] = check_close(
+        "fused_weights", f"n={N_BIG}",
+        fe.fused_weights(big["chol"], big["u"][:, :S_LOCAL].contiguous(),
+                         big["y"], big["mask"]),
+        fe._ref_weights(big["chol"], big["u"][:, :S_LOCAL], big["y"],
+                        big["mask"], "logistic"), LL_TOL, rtol=LL_RTOL)
     wr_err[f"B={B_BIG} n={N_BIG}"] = check_close(
         "fused_rot_weights", f"n={N_BIG}",
         fe.fused_rot_weights(big["chol"], big["u"][:, :S_LOCAL].contiguous(),
@@ -1306,7 +1364,9 @@ def main():
         if env is not None:
             os.environ["AUXPM_ESS_SWEEP"] = env   # read when the step is built
         try:
+            fe.active_counts["estimate_rot"].reset()
             res, cnt = run_cli(ARD_CLI_ARGS, must, must_not)
+            rot_share = fe.active_counts["estimate_rot"].share()
             st_a, tgt_a, par_a = res["states"], res["target"], res["params"]
             step_a = SAMPLERS["aux_slice"](tgt_a)
         finally:
@@ -1343,6 +1403,8 @@ def main():
             "wall_ms_per_step": prof["wall_ms_per_step"],
             "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
             "device_idle_share": prof["device_idle_share"],
+            # mean share of the chains active per rotated-estimate launch
+            "rot_estimate_mean_active_share_per_call": rot_share,
         }
         if mode == "sweep":
             kernels["se_gram_ard"]["launches"] = cnt["se_gram_ard"]
@@ -1419,6 +1481,59 @@ def main():
           "of_those_outside_tolerance": n_bad_a,
           "max_abs_err": parity_a,
           "probes": {k: float(v.sum()) for k, v in ia_k.items()}})
+    end_phase()
+
+    # ------------------------------------------------- loop ESS at n=1024
+    # One aux_slice step with the per-probe elliptical-slice loop
+    # (AUXPM_ESS_SWEEP=0, read when the step is built) on a synthetic GP
+    # target at n = 1024, past the left operand that bounded the earlier
+    # rotated-estimate kernel: the loop's probes go through that kernel.
+    log(f"loop ESS at n={N_BIG}")
+    from auxpm_tpu_torch.core.state import init_chain_states
+    from auxpm_tpu_torch.utils.config import PRESETS, initial_params
+
+    rng_1024 = np.random.default_rng(N_BIG)
+    x_1024 = rng_1024.standard_normal((N_BIG - 37, D_ARD))
+    y_1024 = rng_1024.choice([-1.0, 1.0], N_BIG - 37)
+    tgt_1024 = make_gp_classification(x_1024, y_1024, n_importance=S,
+                                      device="cuda")
+    # the target's padded labels and mask, for the plain estimate below
+    y_1024 = t(np.concatenate([y_1024, np.ones(37)]))
+    mask_1024 = t(np.arange(N_BIG) < N_BIG - 37)
+    if tgt_1024.u_shape != (S, N_BIG):
+        raise AssertionError(f"loop ESS n={N_BIG}: u {tgt_1024.u_shape}")
+    with mock.patch.dict(os.environ, {"AUXPM_ESS_SWEEP": "0"}):
+        step_1024 = port_run_step(tgt_1024)
+    if step_1024.stages["ess_u"].uses_sweep:
+        raise AssertionError(f"loop ESS n={N_BIG}: the step took the sweep")
+    st_1024 = init_chain_states(N_BIG, tgt_1024, B_BIG, with_cache=True)
+    par_1024 = initial_params(PRESETS["pima_aux_slice"], tgt_1024)
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    t0 = time.time()
+    out_1024, info_1024 = step_1024(st_1024, par_1024)
+    torch.cuda.synchronize()
+    step_1024_s = time.time() - t0
+    cnt_1024 = read_counts()
+    if cnt_1024["fused_estimator_rot"] <= 0:
+        raise AssertionError(f"loop ESS n={N_BIG}: the rotated estimate "
+                             f"never launched: {cnt_1024}")
+    if not (bool(torch.isfinite(out_1024.theta).all())
+            and bool(torch.isfinite(out_1024.log_lik_hat).all())
+            and out_1024.u.shape == (B_BIG, S, N_BIG)):
+        raise AssertionError(f"loop ESS n={N_BIG}: non-finite or misshapen "
+                             "state")
+    emit({"phase": "loop_ess_n1024", "B": B_BIG, "S": S, "n": N_BIG,
+          "launches": cnt_1024, "step_seconds": step_1024_s,
+          "ll_vs_plain_estimate_of_own_state": check_close(
+              "loop_ess_n1024", "ll of own state", out_1024.log_lik_hat,
+              fe._ref_estimate(
+                  tgt_1024.prepare_c(out_1024.theta,
+                                     out_1024.extras["target_cache"]),
+                  out_1024.u, y_1024, mask_1024, "logistic", 8),
+              LL_TOL, None, LL_RTOL),
+          "probes": {k: float(v.sum()) for k, v in info_1024.items()}})
+    del tgt_1024, st_1024, out_1024, y_1024, mask_1024
     end_phase()
 
     # -------------------------------------------------- sharded main path

@@ -173,20 +173,20 @@ def test_probe_shape_checks_raise():
     with pytest.raises(ValueError):
         tfe.check_probe_shapes(64, 640, 7)     # blocks do not divide S
     with pytest.raises(ValueError):
-        tfe.check_probe_shapes(64, 4096, 8)    # left operand exceeds smem
+        tfe.check_probe_shapes(0, 640, 8)      # no rows
     with pytest.raises(ValueError):
         tfe.fused_estimate(torch.zeros(1, 64, 64), torch.zeros(1, 8, 64),
                            torch.ones(64), torch.ones(64), "cauchy")
 
 
 def test_sweep_body_shape_checks_take_any_n():
-    # the estimate and the sigma sweep run on csrc/sweep_body.cuh, whose
-    # shared memory does not depend on n: only the tile and row limits stay
-    tfe.check_probe_shapes(64, 4096, 8, left_in_smem=False)
+    # every estimator kernel runs on csrc/sweep_body.cuh, whose shared
+    # memory does not depend on n: only the tile and row limits stay
+    tfe.check_probe_shapes(64, 4096, 8)
     with pytest.raises(ValueError):
-        tfe.check_probe_shapes(64, 4000, 8, left_in_smem=False)
+        tfe.check_probe_shapes(64, 4000, 8)
     with pytest.raises(ValueError):
-        tfe.check_probe_shapes(65, 4096, 8, left_in_smem=False)
+        tfe.check_probe_shapes(65, 4096, 8)
 
 
 @pytest.mark.parametrize("s,n,n_blocks", [
@@ -201,10 +201,9 @@ def test_sweep_wrappers_refuse_exactly_where_the_gate_says(s, n, n_blocks):
     holds they get past every shape check (and stop only at the CPU tensor),
     where it does not they refuse the shapes."""
     fits = tfe.fits_sweep_body(s, n, n_blocks)
-    assert fits == (tfe.probe_shape_error(s, n, n_blocks,
-                                          left_in_smem=False) is None)
+    assert fits == (tfe.probe_shape_error(s, n, n_blocks) is None)
     z = torch.zeros
-    # (call, its gate): the rotated weights have no reduction tree
+    # (call, its gate): the weights have no reduction tree
     calls = {
         "ess": (lambda: tess._cuda_ess_sweep(
             z(1, n, n), z(1, s, n), z(1, 1, 35), z(1, 1, s, n), z(n), z(n),
@@ -215,6 +214,12 @@ def test_sweep_wrappers_refuse_exactly_where_the_gate_says(s, n, n_blocks):
         "rot_weights": (lambda: tfe._cuda_rot_weights(
             z(1, n, n), z(1, s, n), z(1, s, n), z(1), z(n), z(n),
             "logistic", "float32", None), tfe.fits_sweep_body(s, n)),
+        "weights": (lambda: tfe._cuda_weights(
+            z(1, n, n), z(1, s, n), z(n), z(n), "logistic", "float32"),
+            tfe.fits_sweep_body(s, n)),
+        "estimate_rot": (lambda: tfe._cuda_estimate_rot(
+            z(1, n, n), z(1, s, n), z(1, s, n), z(1), z(n), z(n),
+            "logistic", n_blocks, None, "float32", None), fits),
     }
     for name, (call, gate) in calls.items():
         with pytest.raises(ValueError) as err:
@@ -244,9 +249,10 @@ def test_sweep_factories_return_none_past_the_gate(s, pad):
     assert step.stages["ess_u"].uses_sweep == fits
 
 
-@pytest.mark.parametrize("kernel", ["ess", "sigma", "rot_weights"])
+@pytest.mark.parametrize("kernel", ["ess", "sigma", "rot_weights",
+                                    "estimate_rot"])
 def test_chain_slices_give_the_unsplit_result(kernel):
-    """``over_chain_slices``, the split that the three wrappers with an
+    """``over_chain_slices``, the split that the four wrappers with an
     active list make past ``MAX_CHAINS`` chains, on the plain versions with
     a limit of 2 chains: each chain's result is its unsplit one."""
     chol, u, scal, v, y, mask = (_t(a) for a in _ess_inputs(40, 2,
@@ -269,8 +275,12 @@ def test_chain_slices_give_the_unsplit_result(kernel):
     else:
         angle = _t(np.float32([0.3, -2.0, 1.1]))
         active = _t(np.float32([1.0, 0.0, 1.0]))
-        fn = lambda c, u_, v_, a, act: tfe._ref_rot_weights(  # noqa: E731
-            c, u_, v_, a, y, mask, "logistic", "float32", act)
+        if kernel == "rot_weights":
+            fn = lambda c, u_, v_, a, act: tfe._ref_rot_weights(  # noqa: E731
+                c, u_, v_, a, y, mask, "logistic", "float32", act)
+        else:
+            fn = lambda c, u_, v_, a, act: tfe._ref_estimate_rot(  # noqa: E731
+                c, u_, v_, a, y, mask, "logistic", 8, None, "float32", act)
         chained = (chol, u, v[:, 0], angle, active)
     whole = fn(*chained)
     split = tfe.over_chain_slices(fn, chained, limit=2)

@@ -42,6 +42,15 @@ package (and to the port's plain versions) on the same NumPy-seeded inputs:
     and the port's ``_ref_rot_weights`` within the same bar; inactive chains
     give 0, and a row's weights are bitwise those it has in a call of all
     64 rows at S_local = 8, 16 and 32.
+(f) ``fused_weights_kernel``: the same round at u over every chain, against
+    ``_pallas_weights(..., interpret=True)`` and ``_ref_weights`` within the
+    same bar, rows bitwise independent at S_local = 8, 16 and 32.
+(g) ``fused_estimate_rot_kernel``: the rotated round over the active chains
+    with the estimate's fold, against ``_pallas_estimate_rot(...,
+    interpret=True)`` and ``_ref_estimate_rot`` within the same bar;
+    ``active`` zeroes the unwanted chains and leaves the others bitwise as
+    they were.  Both (f) and (g) also at n = 1024 (S = 8, 2 chains), against
+    the plain versions of both packages.
 """
 
 import os
@@ -469,27 +478,29 @@ def test_estimate_round_model_matches_jax(likelihood):
 # ------------------------------ (e) the rotated weights' one round
 
 
-def rot_weights_round_model(chol, u, v, angle, active, y, mask, likelihood):
-    """fused_rot_weights_kernel: the list of ACTIVE chains in ascending order
-    (compact_active), the items (list entry, tile) in the body's order (tile
-    descending, then the list), u cos a + v sin a formed from the streamed
-    rows, each f element a sum over k of that row alone, each row's tile sum
-    over the tile's columns; the item that completes a chain's tiles writes
-    its rows folded in tile order.  Inactive chains' rows are 0.  Returns
-    the weights and the chains of the items in order."""
+def one_round_model(chol, u, v, angle, active, y, mask, likelihood, fold):
+    """The round of every entry of csrc/fused_estimator.cu but the plain
+    estimate's (``estimate_round_model``): the list of ACTIVE chains in
+    ascending order (compact_active; all chains where ``active`` is None),
+    the items (list entry, tile) in the body's order (tile descending, then
+    the list), the probe u, or u cos a + v sin a formed from the streamed
+    rows (``v`` not None), each f element a sum over k of that row alone,
+    each row's tile sum over the tile's columns; the item that completes a
+    chain's tiles folds its rows in tile order and hands them to ``fold``.
+    Returns {chain: fold(rows)} and the chains of the items in order."""
     n_chains, s, n = u.shape
     n_tiles = n // TILE
-    chains = [b for b in range(n_chains) if active[b] != 0]
+    chains = [b for b in range(n_chains) if active is None or active[b] != 0]
     rowsum = np.zeros((n_chains, n_tiles, s), F32)
     arrivals = np.zeros(n_chains, int)
-    out = np.zeros((n_chains, s), F32)
-    items = []
+    out, items = {}, []
     for w in range(len(chains) * n_tiles):
         t, b = n_tiles - 1 - w // len(chains), chains[w % len(chains)]
         items.append(b)
         cols, k_end = slice(t * TILE, (t + 1) * TILE), (t + 1) * TILE
-        left = (u[b, :, :k_end] * np.cos(angle[b])
-                + v[b, :, :k_end] * np.sin(angle[b]))
+        left = u[b, :, :k_end]
+        if v is not None:
+            left = left * np.cos(angle[b]) + v[b, :, :k_end] * np.sin(angle[b])
         # row by row: a row's sums never see another row
         f = (left[:, None, :] * chol[b, cols, :k_end][None]).sum(-1, dtype=F32)
         rowsum[b, t] = (_log_lik(y[cols] * f, likelihood)
@@ -499,7 +510,42 @@ def rot_weights_round_model(chol, u, v, angle, active, y, mask, likelihood):
             lw = np.zeros(s, F32)
             for t_ in range(n_tiles):
                 lw = lw + rowsum[b, t_]
-            out[b] = lw
+            out[b] = fold(lw)
+    return out, items
+
+
+def rot_weights_round_model(chol, u, v, angle, active, y, mask, likelihood):
+    """fused_rot_weights_kernel: ``one_round_model`` at the rotated
+    proposal, the folded rows written out; inactive chains' rows are 0.
+    Returns the weights and the chains of the items in order."""
+    folded, items = one_round_model(chol, u, v, angle, active, y, mask,
+                                    likelihood, lambda lw: lw)
+    out = np.zeros(u.shape[:2], F32)
+    for b, lw in folded.items():
+        out[b] = lw
+    return out, items
+
+
+def weights_round_model(chol, u, y, mask, likelihood):
+    """fused_weights_kernel: ``one_round_model`` at u over every chain, the
+    folded rows written out.  Returns the weights and the items' chains."""
+    folded, items = one_round_model(chol, u, None, None, None, y, mask,
+                                    likelihood, lambda lw: lw)
+    return np.stack([folded[b] for b in range(len(u))]), items
+
+
+def estimate_rot_round_model(chol, u, v, angle, active, y, mask, likelihood):
+    """fused_estimate_rot_kernel: ``one_round_model`` at the rotated
+    proposal over the active chains, each folded chain's fixed 8-block
+    log-sum-exp minus log S written out; inactive chains give 0.  Returns
+    the estimates and the items' chains."""
+    log_s = np.log(F32(u.shape[1]))
+    folded, items = one_round_model(
+        chol, u, v, angle, active, y, mask, likelihood,
+        lambda lw: _blocked_lse(lw, N_BLOCKS) - log_s)
+    out = np.zeros(len(u), F32)
+    for b, est in folded.items():
+        out[b] = est
     return out, items
 
 
@@ -539,6 +585,98 @@ def test_rot_weights_round_model_rows_are_independent(s_local):
         part, _ = rot_weights_round_model(chol, u[:, rows], v[:, rows], angle,
                                           active, y, mask, "probit")
         assert np.array_equal(part, full[:, rows])
+
+
+# ------------------------ (f), (g) the weights and the rotated estimate
+
+
+@pytest.mark.parametrize("s_local", [8, 16, 32])
+def test_weights_round_model_matches_jax(s_local):
+    """The weights' round: each S_local slice of rows bitwise the same rows
+    of a call of all 64 (the sharded ranks rest on it), and within
+    LL_TOL + LL_RTOL |lw| of both packages' weights."""
+    chol, u, _, _, y, mask = _numpy_inputs(29, 1, "logistic")
+    chol, u = chol[:2], u[:2]
+    full, items = weights_round_model(chol, u, y, mask, "logistic")
+    assert items == [0, 1] * (N // TILE)
+    for r0 in range(0, S, s_local):
+        rows = slice(r0, r0 + s_local)
+        part, _ = weights_round_model(chol, u[:, rows], y, mask, "logistic")
+        assert np.array_equal(part, full[:, rows])
+    u_loc = u[:, :s_local]
+    got = full[:, :s_local]
+    plain = tfe._ref_weights(*map(_t, (chol, u_loc, y, mask)),
+                             "logistic").numpy()
+    np.testing.assert_allclose(got, plain, rtol=LL_RTOL, atol=LL_TOL)
+    j = [jnp.asarray(a) for a in (y, mask)]
+    for b in range(len(u)):
+        want = np.asarray(jfe._pallas_weights(
+            jnp.asarray(chol[b]), jnp.asarray(u_loc[b]), *j, "logistic",
+            interpret=True))
+        np.testing.assert_allclose(got[b], want, rtol=LL_RTOL, atol=LL_TOL)
+
+
+def test_estimate_rot_round_model_matches_jax():
+    """The rotated estimate's round over the active chains: within
+    LL_TOL + LL_RTOL |ll| of both packages' rotated estimate; the chains
+    not wanted give 0 and the others keep the bits of a call with every
+    chain active."""
+    chol, u, scal, v, y, mask = _numpy_inputs(30, 1, "probit")
+    chol, u, v = chol[:5], u[:5], v[:5, 0]
+    angle = (scal[:5, 0, 2] - np.pi).astype(F32)
+    active = np.float32([1, 0, 1, 1, 0])
+    got, items = estimate_rot_round_model(chol, u, v, angle, active, y, mask,
+                                          "probit")
+    assert items == [0, 2, 3] * (N // TILE)
+    every, _ = estimate_rot_round_model(chol, u, v, angle, None, y, mask,
+                                        "probit")
+    assert (got[active == 0] == 0).all()
+    assert np.array_equal(got[active != 0], every[active != 0])
+    plain = tfe._ref_estimate_rot(*map(_t, (chol, u, v, angle, y, mask)),
+                                  "probit", N_BLOCKS,
+                                  active=_t(active)).numpy()
+    assert np.all(np.abs(got - plain) <= LL_TOL + LL_RTOL * np.abs(plain))
+    j = [jnp.asarray(a) for a in (y, mask)]
+    for b in (0, 2, 3):
+        want = float(jfe._pallas_estimate_rot(
+            jnp.asarray(chol[b]), jnp.asarray(u[b]), jnp.asarray(v[b]),
+            jnp.asarray(angle[b]), *j, "probit", n_blocks=N_BLOCKS,
+            interpret=True))
+        assert abs(got[b] - want) <= LL_TOL + LL_RTOL * abs(want)
+
+
+@pytest.mark.parametrize("entry", ["weights", "estimate_rot"])
+def test_round_models_at_n1024(entry):
+    """n = 1024, past the left operand that bounded the earlier design: both
+    models against the plain versions of both packages (S = 8, 2 chains)."""
+    n, s = 1024, 8
+    rng = np.random.default_rng(31)
+    chol = (np.tril(rng.standard_normal((2, n, n)) * 0.03)
+            + np.eye(n)).astype(F32)
+    u = rng.standard_normal((2, s, n)).astype(F32)
+    v = rng.standard_normal((2, s, n)).astype(F32)
+    angle = np.float32([0.7, -2.5])
+    y = rng.choice([-1.0, 1.0], n).astype(F32)
+    mask = (np.arange(n) < n - 37).astype(F32)
+    j = [jnp.asarray(a) for a in (y, mask)]
+    if entry == "weights":
+        got, _ = weights_round_model(chol, u, y, mask, "logistic")
+        plain = tfe._ref_weights(*map(_t, (chol, u, y, mask)),
+                                 "logistic").numpy()
+        jax_ref = np.stack([np.asarray(jfe._ref_weights(
+            jnp.asarray(chol[b]), jnp.asarray(u[b]), *j, "logistic"))
+            for b in range(2)])
+    else:
+        got, _ = estimate_rot_round_model(chol, u, v, angle, None, y, mask,
+                                          "logistic")
+        plain = tfe._ref_estimate_rot(*map(_t, (chol, u, v, angle, y, mask)),
+                                      "logistic", N_BLOCKS).numpy()
+        jax_ref = np.stack([np.asarray(jfe._ref_estimate(
+            jnp.asarray(chol[b]),
+            jnp.asarray(u[b] * np.cos(angle[b]) + v[b] * np.sin(angle[b])),
+            *j, "logistic", n_blocks=N_BLOCKS)) for b in range(2)])
+    for want in (plain, jax_ref):
+        assert np.all(np.abs(got - want) <= LL_TOL + LL_RTOL * np.abs(want))
 
 
 # ------------------------------------------------ (b) the 32-block panel
