@@ -1,14 +1,24 @@
-// Cholesky factor and transposed inverse of a batch of 128 x 128 SPD tiles.
+// Cholesky factor of a batch of 128 x 128 SPD tiles, and its inverse: one
+// kernel, three output modes, one per panel route of ops/chol_hopper.py.
 //
-// Replaces the TPU kernel auxpm_tpu/ops/chol_pallas.py::_chol_panel_kernel3
-// (wrapper chol_panel_batched3): (B,128,128) SPD -> L (lower) and inv(L)^T
-// (upper), the two operands the blocked right-looking factorisation consumes
-// (L_ij = A_ij @ inv(L_jj)^T).  The TPU kernel vectorises a batch of tiles
-// over its lanes and groups columns into 8-wide mini-panels with rank-8
-// matrix-unit updates; that structure answers a TPU's shape and is not
-// carried over.
+// Replaces the TPU kernels of auxpm_tpu/ops/chol_pallas.py:
+//   v3  _chol_panel_kernel3 (wrapper chol_panel_batched3): L (lower) and
+//       inv(L)^T (upper), the two operands the blocked right-looking
+//       factorisation consumes (L_ij = A_ij @ inv(L_jj)^T);
+//   v1  _chol_panel_kernel (chol_panel_batched): L and inv(L), both lower;
+//   v2  _chol_panel_kernel2 (chol_panel_batched2): L only (the blocked loop
+//       inverts it by Newton iteration, outside the kernel).
+// The TPU kernels reach these outputs three ways (masked full-tile
+// reductions for v1, the symmetric row slice and rsqrt for v2, 8-wide
+// mini-panels with rank-8 matrix-unit updates for v3), each vectorising a
+// batch of tiles over its lanes; those choices answer a TPU's shape and are
+// not carried over.  What each computes is a subset of v3's work, so here
+// the three share one body and differ only in what they write: v1 stores
+// inv(L) row by row instead of transposing it, v2 skips the inverse (half
+// the shared memory).  All three run the same factor code, so their L are
+// the same bits, and v1's inv(L) is v3's inv(L)^T transposed, bit for bit.
 //
-// Here one block of 256 threads owns one tile, held in shared memory (A,
+// One block of 256 threads owns one tile, held in shared memory (A,
 // overwritten by L, and X = inv(L); 2 x 66 KB, one block per SM), and
 // factors it in four 32-wide column blocks j:
 //   1. warp 0 factors the diagonal block A_jj in registers, lane i holding
@@ -16,7 +26,7 @@
 //      steps need no block barrier.  It publishes L_jj and 1 / diag and
 //      arrives on a named barrier;
 //   2. warp 0 then inverts L_jj (X_jj, lane m solving column m by forward
-//      substitution) while warps 1-3 solve the rows below,
+//      substitution; not in v2) while warps 1-3 solve the rows below,
 //      L_ij = A_ij inv(L_jj)^T, one thread per row, forward substitution
 //      against L_jj;
 //   3. after a block barrier all 8 warps update the trailing matrix,
@@ -24,22 +34,26 @@
 //      64-thread group per block with a 4 x 4 register tile each, fed by
 //      float4 shared loads (a first version with scalar loads and an odd
 //      stride took 0.062 ms per launch).
-// inv(L) is assembled after the four columns by block forward substitution,
-// X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj, row block i = 1, 2, 3 in turn, the
-// partial sums T_ij parked in the unused upper blocks of the L buffer.
-// 17 block-wide barriers in all, against 128 in the column-at-a-time kernel
-// this replaces, and ~1.1 M FMAs per tile against its 4.2 M (it updated the
-// full square of A and of W = inv(L) at every step).  32-wide blocks: a
-// warp's width, so the diagonal factor is one warp in registers; 16-wide
-// blocks would halve that serial part and double the barriers.
+// inv(L) is assembled after the four columns by block forward substitution
+// (v3 and v1), X_ij = -X_ii sum_{k=j}^{i-1} L_ik X_kj, row block i = 1, 2, 3
+// in turn, the partial sums T_ij parked in the unused upper blocks of the L
+// buffer.  17 block-wide barriers in all, against 128 in the column-at-a-time
+// kernels this design replaced, and ~1.1 M FMAs per tile against their 2.1 M
+// (the full square of A at each of 128 steps; 4.2 M in v3's first kernel,
+// which updated inv(L) the same way).
+// 32-wide blocks: a warp's width, so the diagonal factor is one warp in
+// registers; 16-wide blocks would halve that serial part and double the
+// barriers.
 //
 // A non-positive (or NaN) pivot becomes NaN on L's diagonal and spreads to
 // every later column (through the rows below and the trailing update): that
 // is the failure signal robust_cholesky escalates on, so nothing is clamped.
+// v2 takes 1 / sqrtf of the pivot, as v3 does, not the TPU v2 body's rsqrt.
 //
-// Bound: bytes (three 64 KB tiles moved per matrix against 2*128^3/3 FLOPs).
-// What limits the kernel is its serial part: warp 0's four diagonal factors
-// (32 dependent steps each) and the barriers between the phases.
+// Bound: bytes (three 64 KB tiles moved per matrix for v3 and v1, two for v2,
+// against 2*128^3/3 FLOPs).  What limits the kernel is its serial part: warp
+// 0's four diagonal factors (32 dependent steps each) and the barriers
+// between the phases.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -185,12 +199,38 @@ __device__ __forceinline__ void block_mm(const Unit& u, float sign,
     }
 }
 
+// What a launch writes: the outputs of one panel route.
+enum class PanelOut {
+  kV3,   // L and inv(L)^T (upper)
+  kV1,   // L and inv(L), both lower
+  kV2,   // L only
+};
+
+// Rows of the lower triangle of S (stride kLd) to the dense tile `out`,
+// exact zeros above the diagonal: one float4 per thread and step.
+__device__ __forceinline__ void store_lower(const float* S, float* out) {
+  float4* o4 = reinterpret_cast<float4*>(out);
+#pragma unroll 4
+  for (int q = 0; q < kTile * kTile / 4 / kCholThreads; ++q) {
+    const int idx = q * kCholThreads + threadIdx.x;
+    const int i = idx >> 5, j = (idx & 31) * 4;
+    float4 l = *reinterpret_cast<const float4*>(S + i * kLd + j);
+    l.x = j <= i ? l.x : 0.0f;
+    l.y = j + 1 <= i ? l.y : 0.0f;
+    l.z = j + 2 <= i ? l.z : 0.0f;
+    l.w = j + 3 <= i ? l.w : 0.0f;
+    o4[idx] = l;
+  }
+}
+
+template <PanelOut kOut>
 __global__ void __launch_bounds__(kCholThreads, 1)
 chol_panel_kernel(const float* __restrict__ a, float* __restrict__ l_out,
-                  float* __restrict__ xt_out) {
+                  float* __restrict__ x_out) {
+  constexpr bool kInverse = kOut != PanelOut::kV2;
   extern __shared__ __align__(16) float smem[];
   float* Ls = smem;                    // A, becoming L (lower blocks)
-  float* Xs = smem + kTile * kLd;      // inv(L) (lower blocks)
+  float* Xs = smem + kTile * kLd;      // inv(L) (lower blocks; not in v2)
   __shared__ float inv_diag[kTile];
 
   const int tid = threadIdx.x;
@@ -219,7 +259,7 @@ chol_panel_kernel(const float* __restrict__ a, float* __restrict__ l_out,
       __syncwarp();
       if (j + 1 < kBlocks)
         asm volatile("bar.arrive 1, %0;" ::"n"(kCholThreads) : "memory");
-      invert_diag(Ls, inv_diag, Xs, j0);
+      if constexpr (kInverse) invert_diag(Ls, inv_diag, Xs, j0);
     } else if (j + 1 < kBlocks) {
       asm volatile("bar.sync 1, %0;" ::"n"(kCholThreads) : "memory");
       const int i = j0 + kNb + tid - 32;
@@ -239,64 +279,77 @@ chol_panel_kernel(const float* __restrict__ a, float* __restrict__ l_out,
   }
 
   // inv(L) by block forward substitution, row block i = 1, 2, 3
-  for (int i = 1; i < kBlocks; ++i) {
-    for (int j = group; j < i; j += 4) {   // T_ij -> upper block (j, i) of Ls
-      Unit u{{}, {}, i - j, blk(Ls, j, i)};
-      for (int k = j; k < i; ++k) {
-        u.a[k - j] = blk(Ls, i, k);
-        u.b[k - j] = blk(Xs, k, j);
+  if constexpr (kInverse) {
+    for (int i = 1; i < kBlocks; ++i) {
+      for (int j = group; j < i; j += 4) {   // T_ij -> upper block (j, i) of Ls
+        Unit u{{}, {}, i - j, blk(Ls, j, i)};
+        for (int k = j; k < i; ++k) {
+          u.a[k - j] = blk(Ls, i, k);
+          u.b[k - j] = blk(Xs, k, j);
+        }
+        block_mm<false>(u, 1.0f, false, g);
       }
-      block_mm<false>(u, 1.0f, false, g);
+      __syncthreads();
+      for (int j = group; j < i; j += 4) {   // X_ij = -X_ii T_ij
+        Unit u{{blk(Xs, i, i)}, {blk(Ls, j, i)}, 1, blk(Xs, i, j)};
+        block_mm<false>(u, -1.0f, false, g);
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    for (int j = group; j < i; j += 4) {   // X_ij = -X_ii T_ij
-      Unit u{{blk(Xs, i, i)}, {blk(Ls, j, i)}, 1, blk(Xs, i, j)};
-      block_mm<false>(u, -1.0f, false, g);
-    }
-    __syncthreads();
   }
 
-  float4* l4 = reinterpret_cast<float4*>(l_out + off);
-#pragma unroll 4
-  for (int q = 0; q < kTile * kTile / 4 / kCholThreads; ++q) {
-    const int idx = q * kCholThreads + tid;
-    const int i = idx >> 5, j = (idx & 31) * 4;
-    float4 l = *reinterpret_cast<const float4*>(Ls + i * kLd + j);
-    l.x = j <= i ? l.x : 0.0f;
-    l.y = j + 1 <= i ? l.y : 0.0f;
-    l.z = j + 2 <= i ? l.z : 0.0f;
-    l.w = j + 3 <= i ? l.w : 0.0f;
-    l4[idx] = l;
-  }
-  // inv(L)^T: thread (i, 8 columns) reads column i of inv(L) (neighbouring
-  // threads, neighbouring banks) and writes one 32-byte sector of row i
+  store_lower(Ls, l_out + off);
+  if constexpr (kOut == PanelOut::kV1) store_lower(Xs, x_out + off);
+  if constexpr (kOut == PanelOut::kV3) {
+    // inv(L)^T: thread (i, 8 columns) reads column i of inv(L) (neighbouring
+    // threads, neighbouring banks) and writes one 32-byte sector of row i
 #pragma unroll 2
-  for (int q = 0; q < kTile * kTile / 8 / kCholThreads; ++q) {
-    const int idx = q * kCholThreads + tid;
-    const int i = idx & (kTile - 1), j = (idx >> 7) * 8;
-    float x[8];
+    for (int q = 0; q < kTile * kTile / 8 / kCholThreads; ++q) {
+      const int idx = q * kCholThreads + tid;
+      const int i = idx & (kTile - 1), j = (idx >> 7) * 8;
+      float x[8];
 #pragma unroll
-    for (int c = 0; c < 8; ++c)
-      x[c] = j + c >= i ? Xs[(j + c) * kLd + i] : 0.0f;
-    float4* dst = reinterpret_cast<float4*>(xt_out + off + i * kTile + j);
-    dst[0] = make_float4(x[0], x[1], x[2], x[3]);
-    dst[1] = make_float4(x[4], x[5], x[6], x[7]);
+      for (int c = 0; c < 8; ++c)
+        x[c] = j + c >= i ? Xs[(j + c) * kLd + i] : 0.0f;
+      float4* dst = reinterpret_cast<float4*>(x_out + off + i * kTile + j);
+      dst[0] = make_float4(x[0], x[1], x[2], x[3]);
+      dst[1] = make_float4(x[4], x[5], x[6], x[7]);
+    }
   }
+}
+
+template <PanelOut kOut>
+int launch_panel(const void* a, void* l_out, void* x_out, int B,
+                 void* stream) {
+  const int buffers = kOut == PanelOut::kV2 ? 1 : 2;
+  const size_t smem = sizeof(float) * buffers * kTile * kLd;
+  cudaError_t err = cudaFuncSetAttribute(
+      chol_panel_kernel<kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  chol_panel_kernel<kOut><<<B, kCholThreads, smem,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<float*>(l_out),
+      static_cast<float*>(x_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace auxpm
 
 extern "C" int auxpm_chol_panel(const void* a, void* l_out, void* xt_out,
                                 int B, void* stream) {
-  using namespace auxpm;
-  const size_t smem = sizeof(float) * 2 * kTile * kLd;
-  cudaError_t err = cudaFuncSetAttribute(
-      chol_panel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  chol_panel_kernel<<<B, kCholThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<float*>(l_out),
-      static_cast<float*>(xt_out));
-  return static_cast<int>(cudaGetLastError());
+  return auxpm::launch_panel<auxpm::PanelOut::kV3>(a, l_out, xt_out, B,
+                                                   stream);
+}
+
+extern "C" int auxpm_chol_panel_v1(const void* a, void* l_out, void* linv_out,
+                                   int B, void* stream) {
+  return auxpm::launch_panel<auxpm::PanelOut::kV1>(a, l_out, linv_out, B,
+                                                   stream);
+}
+
+extern "C" int auxpm_chol_panel_v2(const void* a, void* l_out, int B,
+                                   void* stream) {
+  return auxpm::launch_panel<auxpm::PanelOut::kV2>(a, l_out, nullptr, B,
+                                                   stream);
 }

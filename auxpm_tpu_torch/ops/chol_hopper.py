@@ -8,16 +8,19 @@ right-looking loop
         L[i,j]   = A[i,j] @ inv(L[j,j])^T        (torch.bmm, exact f32)
         A[tr,tr] -= L[tr,j] @ L[tr,j]^T          (torch.bmm, exact f32)
 
-and they differ in the panel kernel and in where the inverse comes from:
+and they differ in what the panel kernel writes and in where the inverse
+comes from.  The panel kernel is one, ``csrc/chol_panel.cu``, with three
+output modes over the same factor code, so the three routes' panels give the
+same L bit for bit:
 
-- v3 (``chol_panel_batched3`` + ``cholesky_batched3``, ``csrc/chol_panel.cu``):
-  the kernel returns L and inv(L)^T.  The route ``ops/cholesky.py`` takes.
+- v3 (``chol_panel_batched3`` + ``cholesky_batched3``): the kernel returns L
+  and inv(L)^T.  The route ``ops/cholesky.py`` takes.
 - v1 (``chol_panel_batched`` + ``cholesky_batched``, and ``cholesky_fast`` for
-  any n and any batch dims by identity padding; ``csrc/chol_panel_v12.cu``):
-  the kernel returns L and inv(L), by forward substitution in the kernel.
-- v2 (``chol_panel_batched2`` + ``cholesky_batched2``, same source): the
-  kernel returns L only, working from row k of the symmetric trailing block;
-  the inverse is ``tri_inv_newton``, matrix products in the blocked loop.
+  any n and any batch dims by identity padding): the kernel returns L and
+  inv(L), v3's inverse stored untransposed.
+- v2 (``chol_panel_batched2`` + ``cholesky_batched2``): the kernel returns L
+  only; the inverse is ``tri_inv_newton``, matrix products in the blocked
+  loop.
 
 The panel solve and the trailing update are plain matrix products outside the
 kernels, as they are in the reference's blocked loops; TF32 is off for them
@@ -116,7 +119,7 @@ def cholesky_batched3(a):
 
 
 # ---------------------------------------------------------------------------
-# v1: L and inv(L) from the kernel (forward substitution in the kernel)
+# v1: L and inv(L) from the kernel
 # ---------------------------------------------------------------------------
 
 
@@ -138,7 +141,7 @@ def _cuda_chol_panel_v1(a):
             a.data_ptr(), l.data_ptr(), linv.data_ptr(), a.shape[0],
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "chol_panel_v1_kernel")
+    _build.check_launch(err, "chol_panel_kernel (v1)")
     launches_v1 += 1
     return l, linv
 
@@ -214,7 +217,7 @@ def _cuda_chol_panel_v2(a):
             a.data_ptr(), l.data_ptr(), a.shape[0],
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check_launch(err, "chol_panel_v2_kernel")
+    _build.check_launch(err, "chol_panel_kernel (v2)")
     launches_v2 += 1
     return l
 
@@ -223,7 +226,9 @@ def chol_panel_batched2(a):
     """``(B,128,128)`` SPD tiles -> ``L`` (lower-triangular).
 
     CUDA tensors go to the kernel (or raise); CPU tensors take the plain
-    version."""
+    version.  The kernel is v3's factor phase alone: its L is v3's bit for
+    bit, pivots scaled by 1 / sqrt as there, not by the reference v2 body's
+    rsqrt, so it is held to that body by tolerance only."""
     if a.device.type == "cpu":
         return _ref_chol_panel_v2(a)
     return _cuda_chol_panel_v2(a)

@@ -25,8 +25,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   the sweeps' grid of blocks, bitwise equal to B=128, the
                   estimator also at n=1024, the sweeps with their rounds
                   against their chains' largest probe count and at the
-                  32-shrink cap at full width, the panel with NaN on the
-                  diagonal from a failing column on; a cooperative grid one
+                  32-shrink cap at full width; the three panel modes with
+                  NaN on the diagonal from a failing column on, v1's and
+                  v2's L and v1's inv(L) bitwise v3's L and inv(L)^T
+                  transposed (one factor code); a cooperative grid one
                   block larger than the card holds must be refused; both
                   sweeps also at n=1024 (8 chains) against their plain
                   versions with the n=640 bars, and at B=2051 (the wrappers
@@ -359,22 +361,29 @@ def main():
     # NaN contract: an indefinite tile fails alone, as NaN on L's diagonal
     sick = tiles.clone()
     sick[5] -= 0.5 * eye
-    l_s, _ = chol_hopper.chol_panel_batched3(sick)
-    d_s = torch.diagonal(l_s, dim1=-2, dim2=-1)
-    if not bool(torch.isnan(d_s[5]).any()) or \
-            not bool(torch.isfinite(torch.cat([d_s[:5], d_s[6:]])).all()):
-        raise AssertionError("chol_panel: NaN contract broken")
     # ... and from the failing column on: a tile whose pivot at column c is
     # made -0.5 has a finite diagonal before c and NaN from c on
+    l64 = torch.linalg.cholesky(tiles[7].double())
+    bad_at = {}
     for c_ in (40, 100):
-        t64 = tiles[7].double()
-        l64 = torch.linalg.cholesky(t64)
-        bad = tiles[7:8].clone()
-        bad[0, c_, c_] = float((l64[c_, :c_] ** 2).sum() - 0.5)
-        d_b = torch.diagonal(chol_hopper.chol_panel_batched3(bad)[0][0])
-        if not (bool(torch.isfinite(d_b[:c_]).all())
-                and bool(torch.isnan(d_b[c_:]).all())):
-            raise AssertionError(f"chol_panel: NaN contract at column {c_}")
+        bad_at[c_] = tiles[7:8].clone()
+        bad_at[c_][0, c_, c_] = float((l64[c_, :c_] ** 2).sum() - 0.5)
+
+    def nan_contract_holds(panel_l):
+        """``panel_l``: tiles -> L, one of the three panel modes."""
+        d_s = torch.diagonal(panel_l(sick), dim1=-2, dim2=-1)
+        if not bool(torch.isnan(d_s[5]).any()) or \
+                not bool(torch.isfinite(torch.cat([d_s[:5], d_s[6:]])).all()):
+            return False
+        for c_, bad in bad_at.items():
+            d_b = torch.diagonal(panel_l(bad)[0])
+            if not (bool(torch.isfinite(d_b[:c_]).all())
+                    and bool(torch.isnan(d_b[c_:]).all())):
+                return False
+        return True
+
+    if not nan_contract_holds(lambda a: chol_hopper.chol_panel_batched3(a)[0]):
+        raise AssertionError("chol_panel: NaN contract broken")
     # the same tiles at B=1, B=3 and more tiles than the sweep's cooperative
     # grid has blocks (the 128 repeated): bitwise the B=128 result
     panel_batches = {}
@@ -1076,10 +1085,17 @@ def main():
         failures.append("chol_panel v1/v2: an output is not lower triangular")
     for name, fn in (("v1", lambda a: chol_hopper.chol_panel_batched(a)[0]),
                      ("v2", chol_hopper.chol_panel_batched2)):
-        d_s = torch.diagonal(fn(sick), dim1=-2, dim2=-1)
-        if not bool(torch.isnan(d_s[5]).any()) or \
-                not bool(torch.isfinite(torch.cat([d_s[:5], d_s[6:]])).all()):
+        if not nan_contract_holds(fn):
             failures.append(f"chol_panel {name}: NaN contract broken")
+    # one factor code under the three output modes: v1 and v2 give v3's bits
+    v1_same = {"l_equals_v3_l": bool(torch.equal(l1_k, l_k)),
+               "inv_equals_v3_xt_transposed": bool(torch.equal(x1_k,
+                                                               xt_k.mT))}
+    v2_same = {"l_equals_v3_l": bool(torch.equal(l2_k, l_k))}
+    for name, same in (("v1", v1_same), ("v2", v2_same)):
+        for key, ok in same.items():
+            if not ok:
+                failures.append(f"chol_panel {name}: {key} is false")
     # a small odd batch (one block, three blocks) gives the same tiles
     for nb_ in (1, 3):
         if not (torch.equal(chol_hopper.chol_panel_batched(
@@ -1096,9 +1112,10 @@ def main():
     b_ms, b_by = bound(4 * 3 * B * 128 * 128, B * 2 * 128**3 / 3.0)
     kernels["chol_panel_v1"] = {
         "name": "chol_panel_v1", "route": "cuda",
-        "source": "auxpm_tpu_torch/csrc/chol_panel_v12.cu",
+        "source": "auxpm_tpu_torch/csrc/chol_panel.cu",
         "replaces": "auxpm_tpu/ops/chol_pallas.py:108",
         "max_abs_err": err_l1, "tol": CHOL_TOL, "inverse_residual": resid1,
+        **v1_same,
         "ms": time_ms(lambda: chol_hopper.chol_panel_batched(tiles)),
         "plain_ms": time_ms(lambda: chol_hopper._ref_chol_panel_v1(tiles)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1108,9 +1125,9 @@ def main():
     b_ms, b_by = bound(4 * 2 * B * 128 * 128, B * 128**3 / 3.0)
     kernels["chol_panel_v2"] = {
         "name": "chol_panel_v2", "route": "cuda",
-        "source": "auxpm_tpu_torch/csrc/chol_panel_v12.cu",
+        "source": "auxpm_tpu_torch/csrc/chol_panel.cu",
         "replaces": "auxpm_tpu/ops/chol_pallas.py:262",
-        "max_abs_err": err_l2, "tol": CHOL_TOL,
+        "max_abs_err": err_l2, "tol": CHOL_TOL, **v2_same,
         "newton_inverse_residual": resid2,
         "ms": time_ms(lambda: chol_hopper.chol_panel_batched2(tiles)),
         "plain_ms": time_ms(lambda: chol_hopper._ref_chol_panel_v2(tiles)),

@@ -1,9 +1,9 @@
 """PyTorch port vs the JAX package: the v1 and v2 factorisation routes (CPU).
 
-The reference's panel kernels are Pallas kernels for the TPU; here the test
-wraps their BODIES (``_chol_panel_kernel``, ``_chol_panel_kernel2``) in its
-own ``pl.pallas_call(..., interpret=True)``, as the reference's tests run the
-v3 kernel, and holds the port's panel functions to them.  The reference's
+The reference's panel kernels are Pallas kernels for the TPU; here their
+BODIES (``_chol_panel_kernel``, ``_chol_panel_kernel2``) run in interpret mode
+(``test_torch_panel_bodies.py``), as the reference's tests run the v3 kernel,
+and the port's panel functions are held to them.  The reference's
 blocked loops call the kernels without interpret mode and cannot run here;
 off the TPU ``cholesky_fast`` IS ``jnp.linalg.cholesky``, so the port's
 blocked loops are held to that.  The plain-JAX helpers (``tri_inv_newton``,
@@ -17,16 +17,15 @@ the well-conditioned bench matrices used here (jitter 1e-2), elementwise to
 max |inv(L) L - I| <= 1e-4.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 from auxpm_tpu.ops import chol_pallas as cp
 from auxpm_tpu_torch.ops import chol_hopper as ch
 from auxpm_tpu_torch.utils import chol_bench
+from tests.test_torch_panel_bodies import interpret_v1, interpret_v2
 
 BACK_TOL, L_TOL, INV_TOL = 1e-5, 5e-4, 1e-4
 
@@ -45,40 +44,20 @@ def _backward(l, k):
     return float((torch.bmm(l, l.mT) - k).abs().max())
 
 
-def _interpret_v1(tiles):
-    spec = pl.BlockSpec(tiles.shape, lambda i: (0, 0, 0))
-    shape = jax.ShapeDtypeStruct(tiles.shape, tiles.dtype)
-    return pl.pallas_call(cp._chol_panel_kernel, grid=(1,), in_specs=[spec],
-                          out_specs=(spec, spec), out_shape=(shape, shape),
-                          interpret=True)(tiles)
-
-
-def _interpret_v2(tiles):
-    from jax.experimental.pallas import tpu as pltpu
-
-    spec = pl.BlockSpec(tiles.shape, lambda i: (0, 0, 0))
-    lt = pl.pallas_call(
-        cp._chol_panel_kernel2, grid=(1,), in_specs=[spec], out_specs=spec,
-        out_shape=jax.ShapeDtypeStruct(tiles.shape, tiles.dtype),
-        scratch_shapes=[pltpu.VMEM(tiles.shape, jnp.float32)],
-        interpret=True)(tiles)
-    return jnp.swapaxes(lt, -1, -2)
-
-
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_panel_functions_match_the_reference_bodies(batch, version):
     tiles = np.ascontiguousarray(batch[:, :128, :128])
     eye = torch.eye(128)
     if version == "v1":
         l_t, x_t = ch.chol_panel_batched(_t(tiles))
-        l_j, x_j = _interpret_v1(jnp.asarray(tiles))
+        l_j, x_j = interpret_v1(jnp.asarray(tiles))
         np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=0,
                                    atol=L_TOL)
         assert float((torch.bmm(x_t, l_t) - eye).abs().max()) <= INV_TOL
         assert float(torch.triu(x_t, 1).abs().max()) == 0.0
     else:
         l_t = ch.chol_panel_batched2(_t(tiles))
-        l_j = _interpret_v2(jnp.asarray(tiles))
+        l_j = interpret_v2(jnp.asarray(tiles))
     np.testing.assert_allclose(l_t.numpy(), np.tril(np.asarray(l_j)), rtol=0,
                                atol=L_TOL)
     assert _backward(l_t, _t(tiles)) <= BACK_TOL
@@ -151,3 +130,4 @@ def test_chol_bench_reports_every_route_on_the_cpu(capsys):
         assert r["finite"] and r["lower"] and r["backward_err_rel"] <= BACK_TOL
     assert max(report["panel_inverse_residual"].values()) <= INV_TOL
     assert report["device"] == "cpu" and report["n_padded"] == 256
+

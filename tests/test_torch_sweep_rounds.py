@@ -21,7 +21,10 @@ package (and to the port's plain versions) on the same NumPy-seeded inputs:
     substitution), against ``chol_panel_batched3(..., interpret=True)`` of
     the JAX package within 5e-4, with the NaN contract: a tile made
     indefinite at column c has NaN on L's diagonal from c on and finite
-    values before.
+    values before.  The kernel's v1 and v2 output modes (L and inv(L); L
+    alone, without the inverse phase) likewise against the reference's v1
+    and v2 bodies in ``pl.pallas_call(..., interpret=True)``, L within 5e-4,
+    |inv(L) L - I| <= 2e-4, L bitwise the v3 mode's.
 (c) ``csrc/sigma_sweep.cu``: the log_sigma sweep in ROUNDS on the same body:
     every active chain probes its next candidate x in each round, whatever
     repeat it is at, with exp(x) applied to C0 BEFORE the product and f
@@ -71,6 +74,7 @@ from auxpm_tpu_torch.models.likelihoods import log_ndtr, log_sigmoid
 from auxpm_tpu_torch.ops import ess_sweep as tess
 from auxpm_tpu_torch.ops import fused_estimator as tfe
 from auxpm_tpu_torch.ops import sigma_sweep as tsig
+from tests.test_torch_panel_bodies import interpret_v1, interpret_v2
 from tests.test_torch_stepout import _ess_rows
 
 B, S, N_RAW, N, N_BLOCKS = 6, 64, 200, 256, 8
@@ -684,9 +688,11 @@ def test_round_models_at_n1024(entry):
 NB = 32
 
 
-def panel_model(a):
-    """The schedule of csrc/chol_panel.cu on one (128,128) tile, float32:
-    -> (L lower, inv(L)^T upper)."""
+def panel_model(a, out="v3"):
+    """The schedule of csrc/chol_panel.cu on one (128,128) tile, float32, in
+    the kernel's output modes: ``out="v3"`` -> (L lower, inv(L)^T upper),
+    ``"v1"`` -> (L, inv(L)), both lower, ``"v2"`` -> L (no inverse phase)."""
+    inverse = out != "v2"
     a = a.astype(F32).copy()
     x = np.zeros_like(a)
     inv_d = np.zeros(128, F32)
@@ -703,11 +709,12 @@ def panel_model(a):
                 d_blk[k + 1:, k], d_blk[k, k] = col, d
             l_jj = np.tril(d_blk)
             a[s, s] = l_jj
-            x_jj = np.zeros((NB, NB), F32)     # forward substitution
-            for r in range(NB):
-                x_jj[r] = (np.eye(NB, dtype=F32)[r]
-                           - l_jj[r, :r] @ x_jj[:r]) * inv_d[j * NB + r]
-            x[s, s] = x_jj
+            if inverse:
+                x_jj = np.zeros((NB, NB), F32)     # forward substitution
+                for r in range(NB):
+                    x_jj[r] = (np.eye(NB, dtype=F32)[r]
+                               - l_jj[r, :r] @ x_jj[:r]) * inv_d[j * NB + r]
+                x[s, s] = x_jj
             below = slice((j + 1) * NB, 128)   # rows below, one per thread
             p = a[below, s].copy()
             for k in range(NB):
@@ -717,12 +724,14 @@ def panel_model(a):
             for pp in range(j + 1, len(blk)):  # trailing, lower blocks only
                 for q in range(j + 1, pp + 1):
                     a[blk[pp], blk[q]] -= a[blk[pp], s] @ a[blk[q], s].T
-        for i in range(1, len(blk)):           # inv(L), block rows in turn
+        for i in range(1, len(blk)) if inverse else ():   # inv(L), by rows
             t = {j: sum(a[blk[i], blk[k]] @ x[blk[k], blk[j]]
                         for k in range(j, i)) for j in range(i)}
             for j in range(i):
                 x[blk[i], blk[j]] = -(x[blk[i], blk[i]] @ t[j])
-    return np.tril(a), np.triu(x.T)
+    if out == "v2":
+        return np.tril(a)
+    return np.tril(a), (np.tril(x) if out == "v1" else np.triu(x.T))
 
 
 def _spd_tiles(b, seed, jitter=1e-2):
@@ -762,6 +771,49 @@ def test_panel_model_nan_from_the_failing_column(col):
     l_m, _ = panel_model(tile)
     l_j, _ = (np.asarray(o)[0] for o in jchol.chol_panel_batched3(
         jnp.asarray(tile[None]), bt=1, interpret=True))
+    for l in (l_m, l_j):
+        diag = np.diagonal(l)
+        assert np.all(np.isfinite(diag[:col])) and np.all(np.isnan(diag[col:]))
+    np.testing.assert_allclose(l_m[:, :col], l_j[:, :col], rtol=0,
+                               atol=CHOL_TOL)
+
+
+def _reference_body(tiles, body):
+    """The reference's v1 or v2 panel body in interpret mode: v1 -> (L,
+    inv(L)), v2 -> L (its transposed output swapped back, as its wrapper
+    does)."""
+    out = (interpret_v1 if body == "v1" else interpret_v2)(jnp.asarray(tiles))
+    if body == "v1":
+        return tuple(np.asarray(o) for o in out)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("body", ["v1", "v2"])
+def test_panel_model_matches_the_v1_v2_bodies(body):
+    tiles = _spd_tiles(2, seed=21)
+    got_j = _reference_body(tiles, body)
+    for b in range(len(tiles)):
+        got_m = panel_model(tiles[b], out=body)
+        if body == "v1":
+            (l_m, x_m), (l_j, x_j) = got_m, (o[b] for o in got_j)
+            np.testing.assert_allclose(x_m, x_j, rtol=2e-3, atol=2e-3)
+            assert np.abs(x_m @ l_m - np.eye(128)).max() <= 2e-4
+            assert np.all(np.triu(x_m, 1) == 0)
+        else:
+            l_m, l_j = got_m, got_j[b]
+        np.testing.assert_allclose(l_m, np.tril(l_j), rtol=0, atol=CHOL_TOL)
+        assert np.all(np.triu(l_m, 1) == 0)
+        # one factor code: the mode changes no bit of L
+        np.testing.assert_array_equal(l_m, panel_model(tiles[b])[0])
+
+
+@pytest.mark.parametrize("col", [40, 100])
+@pytest.mark.parametrize("body", ["v1", "v2"])
+def test_panel_model_nan_from_the_failing_column_in_v1_v2(body, col):
+    tile = _indefinite_at(_spd_tiles(1, seed=12 + col)[0], col)
+    l_m = panel_model(tile, out=body)
+    l_j = _reference_body(tile[None], body)
+    l_m, l_j = (l_m[0], l_j[0][0]) if body == "v1" else (l_m, l_j[0])
     for l in (l_m, l_j):
         diag = np.diagonal(l)
         assert np.all(np.isfinite(diag[:col])) and np.all(np.isnan(diag[col:]))
