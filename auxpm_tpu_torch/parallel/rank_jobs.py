@@ -203,7 +203,9 @@ def cli(argv, profile_steps=0):
         "theta": _np(states.theta), "log_lik_hat": _np(states.log_lik_hat),
         "recorded_theta": result["theta"], "summary": result["summary"],
         "windows": result["windows"],
-        "widths": _np(result["params"]["slice_theta"]["widths"]),
+        # the adapted slice widths (None for a sampler without that stage)
+        "widths": (_np(result["params"]["slice_theta"]["widths"])
+                   if "slice_theta" in result["params"] else None),
         "counts": {k: after[k] - before[k] for k in after},
         # mean share of active chains per rotated-weights launch (None if
         # the kernel never launched: the CPU takes the plain version)

@@ -4,6 +4,12 @@
         --max-step-out 0 --n-ess 4 --n-sigma-extra 1 --max-shrink-chol 3
     python -m auxpm_tpu_torch.run --preset pima_ard_aux
     AUXPM_ESS_SWEEP=0 python -m auxpm_tpu_torch.run --preset pima_ard_aux
+    python -m auxpm_tpu_torch.run --preset toy_pm_mh --device cpu
+    python -m auxpm_tpu_torch.run --preset abalone_aux [--subsample 0]
+    python -m auxpm_tpu_torch.run --sampler pm_mh       # or aux_mh, on Pima
+    python -m auxpm_tpu_torch.run --preset pima_aux_slice \
+        --checkpoint-dir ckpt --checkpoint-every 2 --profile-dir prof \
+        --plots fig --metrics-path metrics.jsonl
     python -m auxpm_tpu_torch.run --list-presets
     torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sharded true \
         --particle-shards 2 --preset pima_aux_slice --max-step-out 0 ...
@@ -19,14 +25,21 @@ on NCCL; ranks that share a card (or the CPU) on gloo.
 through its per-probe loop instead of the whole-sweep kernel.
 
 Counterpart of ``auxpm_tpu/run.py``: warm-up windows with global adaptation,
-a main run with windowed metrics, posterior summaries and ESS/sec on exit as
-one JSON line.  Runs on the GPU unless ``--device cpu`` is given; without a
-GPU and without that flag it raises.
+a main run with windowed metrics (optionally under a ``torch.profiler``
+trace, ``--profile-dir``, and checkpointed every ``--checkpoint-every``
+windows into ``--checkpoint-dir``; ``utils/checkpoint.load_checkpoint``
+resumes from it bit for bit), posterior summaries and ESS/sec on exit as one
+JSON line, and with ``--plots PREFIX`` the trace, density and autocorrelation
+figures (matplotlib).  The carried Cholesky factor is used by the
+``aux_slice`` family only, as in the reference: the other samplers would
+only refresh it, one more factorisation per step.  Runs on the GPU unless
+``--device cpu`` is given; without a GPU and without that flag it raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -62,7 +75,8 @@ def main(argv=None, result=None):
 
     ``result``: optional dict that is filled with the final ``states``,
     ``params``, the ``target``, the ``step``, the recorded ``theta``, the
-    per-window metrics (``windows``), the ``summary`` and, for a sharded run,
+    per-window metrics (``windows``), the ``summary``, the checkpoint's
+    ``config`` (what ``load_checkpoint`` hashes) and, for a sharded run,
     this rank's ``mesh`` (states and target are then the rank's share), for
     a caller that drives the CLI from Python."""
     args = parse_args(argv)
@@ -141,13 +155,15 @@ def main(argv=None, result=None):
 
             target, _ = shard_target_particles(target, mesh)
             particle_axis = mesh
+    aux_slice = cfg.sampler.startswith("aux_slice")
     states = init_chain_states(
         cfg.seed, target, n_chains, jitter_scale=cfg.jitter_scale,
-        with_cache=cfg.chol_cache, mesh=mesh,
+        with_cache=cfg.chol_cache and aux_slice, mesh=mesh,
     )
+    slice_kw = ({"n_ess": cfg.n_ess, "n_sigma_extra": cfg.n_sigma_extra}
+                if aux_slice else {})
     step = SAMPLERS[cfg.sampler](target, particle_axis=particle_axis,
-                                 n_ess=cfg.n_ess,
-                                 n_sigma_extra=cfg.n_sigma_extra)
+                                 **slice_kw)
 
     def run_step_fn(t, s, p, n, gather=False):
         if mesh is not None:
@@ -166,23 +182,42 @@ def main(argv=None, result=None):
     if lead:
         logger.info(f"warmup done in {time.time()-t0:.1f}s; params={params}")
 
+    if cfg.profile_dir:
+        from auxpm_tpu_torch.utils.profiling import trace
+
+        profile_cm = trace(cfg.profile_dir)
+    else:
+        profile_cm = contextlib.nullcontext()
+    ckpt_cfg = {**dataclasses.asdict(cfg),
+                # the switches that choose a path with its own rounding
+                **{k: os.environ.get(k, "")
+                   for k in ("AUXPM_ESS_SWEEP", "AUXPM_SIGMA_SWEEP")}}
+
     all_theta, windows = [], []
     t0 = time.time()
     n_windows = max(cfg.steps // cfg.window_steps, 1)
-    for w in range(n_windows):
-        # every chain shard's records, for the report
-        states, recs, infos = run_step_fn(step, states, params,
-                                          cfg.window_steps, gather=True)
-        # one copy to the host per window (it also waits for the device)
-        all_theta.append(recs["theta"].cpu().numpy())
-        windows.append(
-            {"phase": "sample", "window": w,
-             "wall": round(time.time() - t0, 2),
-             "log_lik_mean": float(recs["log_lik_hat"].mean()),
-             **{k: float(v.mean()) for k, v in infos.items()}}
-        )
-        metrics.write(windows[-1])
-    sync()
+    with profile_cm:
+        for w in range(n_windows):
+            # every chain shard's records, for the report
+            states, recs, infos = run_step_fn(step, states, params,
+                                              cfg.window_steps, gather=True)
+            # one copy to the host per window (it also waits for the device)
+            all_theta.append(recs["theta"].cpu().numpy())
+            windows.append(
+                {"phase": "sample", "window": w,
+                 "wall": round(time.time() - t0, 2),
+                 "log_lik_mean": float(recs["log_lik_hat"].mean()),
+                 **{k: float(v.mean()) for k, v in infos.items()}}
+            )
+            metrics.write(windows[-1])
+            if cfg.checkpoint_dir and cfg.checkpoint_every and (
+                    (w + 1) % cfg.checkpoint_every == 0):
+                from auxpm_tpu_torch.utils.checkpoint import save_checkpoint
+
+                save_checkpoint(cfg.checkpoint_dir, states,
+                                step=(w + 1) * cfg.window_steps,
+                                config=ckpt_cfg, params=params, mesh=mesh)
+        sync()
     wall = time.time() - t0
 
     theta = np.concatenate(all_theta, axis=1)  # (chains, steps, d)
@@ -207,10 +242,17 @@ def main(argv=None, result=None):
     if cfg.out and lead:
         np.savez(cfg.out, theta=theta)
         logger.info(f"chains saved to {cfg.out}")
+    if cfg.plots and lead:
+        from auxpm_tpu_torch.utils.plots import experiment_report
+
+        truth = (None if target.posterior_mean is None
+                 else target.posterior_mean.cpu().numpy())
+        paths = experiment_report(theta, cfg.plots, truth=truth)
+        logger.info(f"figures: {paths}")
     if result is not None:
         result.update(states=states, params=params, target=target,
                       theta=theta, windows=windows, summary=summary,
-                      mesh=mesh, step=step)
+                      mesh=mesh, step=step, config=ckpt_cfg)
     return 0
 
 

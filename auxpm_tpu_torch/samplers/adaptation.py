@@ -1,20 +1,25 @@
 """Windowed global adaptation of sampler hyperparameters.
 
-Counterpart of ``auxpm_tpu/samplers/adaptation.py`` (the slice-width rule and
-the warm-up loop; the step-size rules of the MH/HMC/NUTS samplers come with
-those samplers).  Slice widths are set to ``width_scale`` x the global
-per-coordinate posterior std of the window's samples over ALL chains,
-clamped to a sane range.  Warm-up only: params are frozen afterwards, so the
-main chain is a fixed valid kernel.
+Counterpart of ``auxpm_tpu/samplers/adaptation.py`` (the slice-width rule,
+the random-walk step-size rule and the warm-up loop; the dual averaging of
+HMC/NUTS comes with those samplers).  Slice widths are set to
+``width_scale`` x the global per-coordinate posterior std of the window's
+samples over ALL chains, clamped to a sane range.  A random-walk step size
+(``pm_mh``'s un-namespaced ``step_size``, ``mh_theta``'s group) is scaled
+by ``exp(lr (acceptance - target_accept))`` with the window's global mean
+acceptance.  Warm-up only: params are frozen afterwards, so the main chain
+is a fixed valid kernel.
 
 On a mesh with several chain shards a rank sees only its own chains: the
-window's moments (and the means of the infos, for the log) are averaged over
-the chain group with ``parallel/collectives.pmean_tree``, mean first and the
-squared deviations from the GLOBAL mean second, so every rank arrives at the
-same widths.
+window's moments and acceptance (and the means of the infos, for the log)
+are averaged over the chain group with ``parallel/collectives.pmean_tree``,
+mean first and the squared deviations from the GLOBAL mean second, so every
+rank arrives at the same widths and step sizes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -37,11 +42,36 @@ def _global_std(theta, mesh):
     return torch.sqrt(var)
 
 
-def adapt_params(params, recs, infos, width_scale=2.0,
-                 width_bounds=(1e-3, 1e3), mesh=None):
+def _global_mean(x, mesh):
+    """Mean of ``x`` over the chains of ALL chain shards, as a float."""
+    m = x.mean()
+    if _chain_shards(mesh) > 1:
+        from auxpm_tpu_torch.parallel.collectives import pmean_tree
+
+        m = pmean_tree({"m": m}, mesh.chain_group, mesh.n_chain_shards)["m"]
+    return float(m)
+
+
+def _scaled_step(old, acc, lr, target_accept):
+    """``old * exp(lr (acc - target_accept))``, as a float."""
+    return float(old) * math.exp(lr * (acc - target_accept))
+
+
+def adapt_params(params, recs, infos, target_accept=0.234, lr=1.0,
+                 width_scale=2.0, width_bounds=(1e-3, 1e3), mesh=None):
     """One window update; returns a new params dict.  ``mesh``: this rank's
     ``parallel.mesh.Mesh`` when ``recs`` hold one chain shard's chains."""
     new = {k: dict(v) if isinstance(v, dict) else v for k, v in params.items()}
+    if "accept" in infos:   # pm_mh's un-namespaced info
+        new["step_size"] = _scaled_step(
+            params.get("step_size", 0.5), _global_mean(infos["accept"], mesh),
+            lr, target_accept)
+    if "mh_theta/accept" in infos:
+        g = dict(new.get("mh_theta", {}))
+        g["step_size"] = _scaled_step(
+            g.get("step_size", 0.5),
+            _global_mean(infos["mh_theta/accept"], mesh), lr, target_accept)
+        new["mh_theta"] = g
     if any(k.startswith("slice_theta/") for k in infos):
         stds = _global_std(recs["theta"], mesh)
         g = dict(new.get("slice_theta", {}))

@@ -2,15 +2,23 @@
 
 Counterpart of ``auxpm_tpu/samplers/composite.py``.  "Auxiliary
 pseudo-marginal slice sampling" is the composition (ESS on u | theta) then
-(slice on theta | u).  ``SAMPLERS`` holds the composites the port can run;
-the others of the reference (``aux_slice_rd``, ``aux_mh``, ``pm_mh``,
-``aux_hmc``, ``aux_nuts``, the joint kernels) are listed in ROADMAP.md.
+(slice on theta | u).  ``SAMPLERS`` holds the transitions the port can run:
+
+- ``aux_slice``: ESS(u) then per-coordinate slice(theta)   [the method]
+- ``aux_mh``:    ESS(u) then random-walk MH(theta)
+- ``pm_mh``:     plain pseudo-marginal MH baseline
+
+The others of the reference (``aux_slice_rd``, ``aux_slice_pcrd``,
+``aux_slice_joint``, ``aux_hmc``, ``aux_nuts``, the joint kernels, the
+theta-only factories and SMC) are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from auxpm_tpu_torch.core.transition import compose
 from auxpm_tpu_torch.samplers.ess_u import make_ess_u
+from auxpm_tpu_torch.samplers.mh_theta import make_mh_theta
+from auxpm_tpu_torch.samplers.pm_mh import make_pm_mh
 from auxpm_tpu_torch.samplers.slice_theta import make_slice_theta
 
 
@@ -30,4 +38,19 @@ def make_aux_slice(target, particle_axis=None, n_ess=1, n_sigma_extra=0):
     )
 
 
-SAMPLERS = {"aux_slice": make_aux_slice}
+def make_aux_mh(target, particle_axis=None):
+    """ESS(u) then random-walk MH(theta), one elliptical-slice update per
+    step as in the reference."""
+    return compose(
+        [
+            ("ess_u", make_ess_u(target, particle_axis)),
+            ("mh_theta", make_mh_theta(target)),
+        ]
+    )
+
+
+SAMPLERS = {
+    "aux_slice": make_aux_slice,
+    "aux_mh": make_aux_mh,
+    "pm_mh": make_pm_mh,
+}

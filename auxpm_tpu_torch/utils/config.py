@@ -2,12 +2,11 @@
 
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
-same here.  Fields that select a part of the system not ported yet (other
-samplers than ``aux_slice``, the Laplace proposal, other datasets than Pima,
-SMC, multi-host runs, checkpoints, plots, profile traces) are accepted by the
-parser
-and refused with ``NotImplementedError`` when used (``unsupported``).
-``PRESETS`` holds the presets the port can run.
+same here.  Fields that select a part of the system not ported yet (samplers
+outside ``samplers.composite.SAMPLERS``, the Laplace proposal, SMC, multi-host
+runs) are accepted by the parser and refused with ``NotImplementedError``
+when used (``unsupported``).  ``PRESETS`` holds the presets the port can run,
+each field for field the reference's preset of the same name.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ class RunConfig:
     device: str = "cuda"  # "cuda" raises without a GPU; tests pass "cpu"
     # target
     target: str = "gp"  # gp | gaussian_toy
-    dataset: str = "pima"  # pima (breast_cancer | abalone: not ported yet)
+    dataset: str = "pima"  # pima | breast_cancer | abalone
     n_importance: int = 16
     likelihood: str = "logistic"
     proposal: str = "prior"  # prior (laplace: not ported yet)
@@ -60,21 +59,32 @@ class RunConfig:
     sharded: bool = False
     particle_shards: int = 1
     multihost: bool = False
-    profile_dir: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler Chrome trace of the run
     # misc
     seed: int = 0
     jitter_scale: float = 0.3
     metrics_path: Optional[str] = None
     checkpoint_dir: Optional[str] = None
-    checkpoint_every: int = 0
+    checkpoint_every: int = 0  # windows; 0 = off
     out: Optional[str] = None
-    plots: Optional[str] = None
+    plots: Optional[str] = None  # prefix for trace/density/autocorr figures
 
     def replace(self, **kw):
         return dataclasses.replace(self, **kw)
 
 
 PRESETS = {
+    # BASELINE config 1: 2-D Gaussian target, PM-MH with 16 importance
+    # samples, 4 chains
+    "toy_pm_mh": RunConfig(
+        preset="toy_pm_mh",
+        target="gaussian_toy",
+        n_importance=16,
+        sampler="pm_mh",
+        chains=4,
+        steps=5000,
+        step_size=0.6,
+    ),
     # BASELINE config 2: GP classification on Pima (532 points), auxiliary PM
     # slice sampling, 64 importance samples per step
     "pima_aux_slice": RunConfig(
@@ -86,6 +96,28 @@ PRESETS = {
         chains=128,
         steps=1000,
         widths=1.0,
+    ),
+    # BASELINE config 3: GP classification on Breast-Cancer (569 points ->
+    # 640; real data through scikit-learn) and Abalone (a synthetic
+    # stand-in of 4177 x 8 unless data/abalone.csv exists)
+    "breast_cancer_aux": RunConfig(
+        preset="breast_cancer_aux",
+        target="gp",
+        dataset="breast_cancer",
+        n_importance=64,
+        sampler="aux_slice",
+        chains=64,
+        steps=1000,
+    ),
+    "abalone_aux": RunConfig(
+        preset="abalone_aux",
+        target="gp",
+        dataset="abalone",
+        n_importance=64,
+        sampler="aux_slice",
+        chains=32,
+        steps=500,
+        subsample=1024,  # full 4177-pt abalone (n -> 4224): --subsample 0
     ),
     # config 2 variant: ARD kernel (per-dimension lengthscales, theta is
     # (d+1)-dimensional); every ell probe builds its Gram with the ARD Gram
@@ -115,15 +147,10 @@ def unsupported(cfg: RunConfig):
         asked.append(f"sampler={cfg.sampler!r}")
     if cfg.target == "gp" and cfg.proposal == "laplace":
         asked.append("proposal='laplace'")
-    if cfg.target == "gp" and cfg.dataset != "pima":
-        asked.append(f"dataset={cfg.dataset!r}")
     if cfg.multihost:
         asked.append("multihost")
     if cfg.particle_shards > 1 and not cfg.sharded:
         raise ValueError("--particle-shards > 1 needs --sharded true")
-    for field in ("profile_dir", "checkpoint_dir", "plots"):
-        if getattr(cfg, field):
-            asked.append(field)
     if asked:
         raise NotImplementedError(
             "not ported to auxpm_tpu_torch yet: " + ", ".join(asked)
@@ -160,6 +187,10 @@ def initial_params(cfg: RunConfig, target):
     """Initial sampler params of the composite, from the config."""
     import torch
 
+    if cfg.sampler == "pm_mh":
+        return {"step_size": cfg.step_size}
+    if cfg.sampler == "aux_mh":
+        return {"ess_u": {}, "mh_theta": {"step_size": cfg.step_size}}
     widths = torch.full((target.d,), cfg.widths, dtype=torch.float32,
                         device=target.device)
     return {

@@ -20,6 +20,12 @@ card, with the run's chain-steps/s, the collectives per step, the time of one
 collective estimate and whether the ranks of every particle group ended with
 bitwise the same theta and log L-hat.  Needs a GPU (it raises without
 one); nothing here is a CPU number.
+
+``trace(logdir)`` is the context manager behind ``run.py --profile-dir``:
+everything run inside it is recorded by ``torch.profiler`` (host operators,
+and the card's kernels on a GPU) and written as a Chrome trace,
+``<logdir>/trace_rank<rank>.json``, readable in Perfetto or
+``chrome://tracing``.
 """
 
 from __future__ import annotations
@@ -27,8 +33,32 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import sys
 import time
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """Record what runs inside under ``torch.profiler``; on exit write the
+    Chrome trace ``<logdir>/trace_rank<rank>.json`` (rank 0 unless a
+    ``torch.distributed`` world is up).  Yields the trace file's path."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    rank = dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_rank{rank}.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
 
 
 def profile_steps(step, states, params, n_steps):

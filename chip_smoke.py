@@ -6,9 +6,12 @@ config 2 with the bench settings: ``aux_slice`` on the GP classification
 posterior, Pima n=532 padded to 640, S=64, 128 chains; the preset
 ``pima_ard_aux`` as the CLI runs it: ARD kernel, theta of 8, 64 chains,
 stepping-out slices, once with the whole-sweep elliptical-slice kernel and
-once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop; and config 2 again with
+once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop; config 2 again with
 ``--sharded true --particle-shards 2``: two ranks on the one card, each
-holding 32 of every chain's 64 importance samples) and holds each of its ten
+holding 32 of every chain's 64 importance samples; config 3's
+``abalone_aux`` at n=1024 and one step at full n=4224; PM-MH and ``aux_mh``
+on config 2's target and the config-1 preset ``toy_pm_mh``; a checkpointed
+resume) and holds each of its ten
 hand-written CUDA kernels against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
 
@@ -69,7 +72,36 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 9. ``chol_variants`` ``utils/chol_bench.bench`` (``torch.linalg.cholesky`` and
                   the v1, v2, v3 routes at B=128, n=640) and ``cholesky_fast``
                   at n=532: each backward error below 1e-5 relative, each
-                  panel inverse residual below 1e-4.
+                  panel inverse residual below 1e-4;
+10. ``main_path_config3`` the preset ``abalone_aux`` (n=1024, 32 chains,
+                  stepping out) through the CLI under ``--profile-dir``: the
+                  estimator, the v3 panel and the ESS sweep must launch and
+                  be named in the trace, the sigma sweep and the side paths'
+                  kernels must not; wall and busy time per step from a
+                  profiled window;
+11. ``path_parity_config3`` one step from that state on the same rows, the
+                  estimator and the ESS sweep vs their plain versions (the
+                  panel kernel shared, as in ``path_parity_ard``): decisions
+                  equal, u' and log L-hat after the ESS sweep at the kernels'
+                  bars, the step's values at the path bars, log L-hat of the
+                  kernel's state at the estimator's bar against the plain
+                  estimate; the factor at n=1024 through the blocked loop vs
+                  the plain panel, all but four chains on the same jitter;
+12. ``abalone_full_n_step`` one step of ``abalone_aux --subsample 0`` (n=4224,
+                  32 chains): finite, the carried factor equal to a fresh
+                  ``cache_init``, the same launches as phase 10; wall and
+                  busy time of the step, peak memory; then one more step on
+                  the same rows through the kernels and the plain versions,
+                  held as in phase 11;
+13. ``main_path_pm_mh`` ``--sampler pm_mh`` (the estimator and the v3 panel,
+                  nothing else) and ``--sampler aux_mh`` (plus the ESS sweep)
+                  on config 2's target and width, and the preset
+                  ``toy_pm_mh``: finite, acceptance strictly between 0 and 1,
+                  no carried factor; wall and busy time per step;
+14. ``resume_bitwise`` config 2 at 128 chains: 2K steps against K, a
+                  checkpoint (``utils/checkpoint``) saved and loaded, and K
+                  more: theta, u, log L-hat and the carried factor bitwise
+                  equal.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -146,6 +178,24 @@ ARD_CLI_ARGS = [
     "--preset", "pima_ard_aux", "--warmup-windows", "1", "--window-steps", "5",
     "--steps", "10",
 ]
+B3, N3 = 32, 1024              # config 3: abalone_aux (subsample 1024)
+N_FULL = 4224                  # abalone_aux --subsample 0: 4177 -> 4224
+CONFIG3_CLI_ARGS = [
+    "--preset", "abalone_aux", "--warmup-windows", "1", "--window-steps", "5",
+    "--steps", "10",
+]
+CONFIG3_MAX_AMBIGUOUS = 4      # of 32 chains, ARD_MAX_AMBIGUOUS's share
+TRACE_KERNELS = ("fused_estimate_kernel", "chol_panel_kernel",
+                 "ess_sweep_kernel")
+MH_CLI_ARGS = [                # pm_mh / aux_mh on config 2's target
+    "--preset", "pima_aux_slice", "--chains", str(B), "--warmup-windows", "1",
+    "--window-steps", "10", "--steps", "20",
+]
+TOY_CLI_ARGS = [
+    "--preset", "toy_pm_mh", "--warmup-windows", "1", "--window-steps", "50",
+    "--steps", "200",
+]
+K_RESUME = 3                   # resume_bitwise: 2K steps vs K + load + K
 
 
 def log(*a):
@@ -189,6 +239,7 @@ def main():
     from auxpm_tpu_torch.ops import gram as gr
     from auxpm_tpu_torch.ops import sigma_sweep as sig
     from auxpm_tpu_torch.ops.gram import se_gram_iso
+    from auxpm_tpu_torch.samplers.chain import run_chains
     from auxpm_tpu_torch.samplers.composite import SAMPLERS
     from auxpm_tpu_torch.utils.profiling import profile_steps
 
@@ -1750,6 +1801,375 @@ def main():
     emit({"phase": "chol_variants", "card": smi, **bench,
           "cholesky_fast_n532_backward_err_rel": back532,
           "launches": {k_: counts_b[k_] for k_ in (*only_bench, "chol_panel")}})
+    end_phase()
+
+    # ------------------------------------------------ config 3 main path
+    # abalone_aux as the CLI runs it (n = 1024, 32 chains, S = 64, stepping
+    # out with max_step_out = 8, max_shrink_chol = 32), its main run under
+    # --profile-dir: the ESS sweep, the ell probes' factorisations and
+    # estimates; log_sigma per probe (the sigma sweep is for shrinkage-only
+    # slices), so the sigma sweep must not launch.
+    log("main path (config 3):", " ".join(CONFIG3_CLI_ARGS))
+    import tempfile
+
+    path3 = ("fused_estimator", "chol_panel", "ess_sweep")
+    not_path3 = ("sigma_sweep", "fused_estimator_rot", "se_gram_ard",
+                 *only_sharded, *only_bench)
+    with tempfile.TemporaryDirectory() as prof_dir:
+        res3, cnt3 = run_cli(CONFIG3_CLI_ARGS + ["--profile-dir", prof_dir],
+                             path3, not_path3)
+        trace_file = os.path.join(prof_dir, "trace_rank0.json")
+        trace_mb = os.path.getsize(trace_file) / 2**20
+        with open(trace_file) as fh:
+            trace_names = {e.get("name", "")
+                           for e in json.load(fh)["traceEvents"]}
+    traced = {k_: any(f"auxpm::{k_}" in nm for nm in trace_names)
+              for k_ in TRACE_KERNELS}
+    if not all(traced.values()):
+        raise AssertionError(f"config 3: the trace lacks kernels: {traced}")
+    st3, tgt3, par3 = res3["states"], res3["target"], res3["params"]
+    if st3.u.shape != (B3, S, N3) or not st3.u.is_cuda:
+        raise AssertionError(f"config 3 did not run at full width on the "
+                             f"GPU: u {tuple(st3.u.shape)}")
+    if not np.isfinite(res3["theta"]).all() or \
+            not bool(torch.isfinite(st3.log_lik_hat).all()):
+        raise AssertionError("config 3: non-finite theta or log L-hat")
+    health3 = _sampler_health(res3)
+    cache_err3 = max_err(st3.extras["target_cache"]["chol_r"],
+                         tgt3.cache_init(st3.theta)["chol_r"])
+    if not cache_err3 <= CHOL_TOL:
+        raise AssertionError(f"config 3 carried factor off by "
+                             f"{cache_err3:.3e}")
+    step3 = SAMPLERS["aux_slice"](tgt3)
+    if not step3.stages["ess_u"].uses_sweep:
+        raise AssertionError("config 3: the step did not take the ESS sweep")
+    _, prof3 = profile_steps(step3, st3, par3, 3)
+    emit({"phase": "main_path_config3", "card": smi, "args": CONFIG3_CLI_ARGS,
+          "B": B3, "S": S, "n": N3, "launches": cnt3,
+          "summary": res3["summary"],
+          # the main run is traced (--profile-dir): the host loop runs
+          # slower than untraced, see "profile" for the untraced wall
+          "chain_steps_per_sec": res3["summary"]["chain_steps_per_sec"],
+          "chain_steps_per_sec_is_under_trace": True,
+          "cache_max_abs_err": cache_err3, **health3,
+          "trace_mb": trace_mb, "trace_names_kernels": traced,
+          "profile": {k_: prof3[k_] for k_ in (
+              "wall_ms_per_step", "device_busy_ms_per_step",
+              "device_idle_share", "kernel_launches_per_step",
+              "host_syncs_per_step")},
+          "device_ms_per_step_by_kernel":
+              prof3["device_ms_per_step_by_kernel"]})
+    end_phase()
+
+    # ---------------------------------------------- config 3 path parity
+    # One step from the config-3 state on the same rows, the estimator and
+    # the ESS sweep through their kernels and through their plain versions.
+    # As in path_parity_ard, both sides factor every probe's Gram with the
+    # panel kernel (the same factor bit for bit, so the comparison sees the
+    # estimator and the sweep); the factor itself is held to the plain
+    # panel below, at n = 1024 through the blocked factorisation.
+    def step_parity(phase, step_, tgt_, state, par_, y_, mask_):
+        """One ``aux_slice`` step from ``state`` on the same rows through the
+        kernels and through the plain estimator and ESS sweep; records
+        failures and returns the comparison.  The ESS stage's u' and log
+        L-hat (same theta, same factor on both sides) are held at the
+        kernels' bars, the whole step's at the path bars, and the kernel
+        step's log L-hat at the plain estimate of its own state at the
+        estimator's bar."""
+        b_ = state.theta.shape[0]
+        ess_, sl_ = step_.stages["ess_u"], step_.stages["slice_theta"]
+        rows_e = ess_.draw(state.generator, state)
+        rows_s = sl_.draw(state.generator, state)
+
+        def one_step(probe_log=None):
+            extra = {} if probe_log is None else {"probe_log": probe_log}
+            mid, info_e = ess_.apply(state, rows_e, {**par_["ess_u"], **extra})
+            out, info_s = sl_.apply(mid, rows_s,
+                                    {**par_["slice_theta"], **extra})
+            return mid, out, {**info_e, **info_s}
+
+        mid_k, out_k, i_k = one_step()
+        probe_log = []
+        with contextlib.ExitStack() as stack:
+            for mod, cuda_fn, plain_fn in (
+                    (fe, "_cuda_estimate", fe._ref_estimate),
+                    (ess, "_cuda_ess_sweep", ess._ref_ess_sweep)):
+                stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
+            before = read_counts()
+            mid_p, out_p, i_p = one_step(probe_log)
+            after = read_counts()
+            if any(after[k_] != before[k_] for k_ in after
+                   if k_ != "chol_panel"):
+                raise AssertionError(f"{phase}: the plain path launched a "
+                                     "patched kernel")
+        torch.cuda.synchronize()
+        amb_ = torch.zeros(b_, dtype=torch.bool, device=dev)
+        for counted, margin in probe_log:
+            amb_ |= counted & (margin.abs() <= ARD_DECISION_TOL)
+        agree = torch.ones(b_, dtype=torch.bool, device=dev)
+        for k_ in i_k:
+            agree &= i_k[k_] == i_p[k_]
+        n_amb_, n_bad = int(amb_.sum()), int((~agree & ~amb_).sum())
+        if n_amb_ > CONFIG3_MAX_AMBIGUOUS:
+            failures.append(f"{phase}: {n_amb_} of {b_} chains had a decision "
+                            "inside the tolerance")
+        if n_bad:
+            failures.append(f"{phase}: decisions differ on {n_bad} chains "
+                            "whose margins were all outside the tolerance")
+        if not bool(agree.any()):
+            raise AssertionError(f"{phase}: no chain's decisions agree")
+        parity = {
+            "ess_u": check_close(phase, "u after the ESS sweep", mid_k.u,
+                                 mid_p.u, U_TOL, agree),
+            "ess_ll": check_close(phase, "ll after the ESS sweep",
+                                  mid_k.log_lik_hat, mid_p.log_lik_hat,
+                                  LL_TOL, agree, LL_RTOL),
+            "theta": check_close(phase, "theta", out_k.theta, out_p.theta,
+                                 SIGMA_TOL, agree),
+            "u": check_close(phase, "u", out_k.u, out_p.u, U_TOL, agree),
+            "chol_r": check_close(phase, "chol_r",
+                                  out_k.extras["target_cache"]["chol_r"],
+                                  out_p.extras["target_cache"]["chol_r"],
+                                  PATH_CHOL_TOL, agree),
+            "ll": check_close(phase, "ll", out_k.log_lik_hat,
+                              out_p.log_lik_hat, ARD_PATH_LL_TOL, agree),
+            "ll_vs_plain_estimate_of_own_state": check_close(
+                phase, "ll of own state", out_k.log_lik_hat,
+                fe._ref_estimate(
+                    tgt_.prepare_c(out_k.theta,
+                                   out_k.extras["target_cache"]),
+                    out_k.u, y_, mask_, "logistic", 8),
+                LL_TOL, None, LL_RTOL),
+        }
+        stats = {"decisions_logged": len(probe_log),
+                 "chains_with_a_decision_inside_tolerance": n_amb_,
+                 "decision_tol": ARD_DECISION_TOL,
+                 "chains_with_a_differing_decision": int((~agree).sum()),
+                 "of_those_outside_tolerance": n_bad,
+                 "chains_compared": int(agree.sum()),
+                 "probes": {k_: float(v_.sum()) for k_, v_ in i_k.items()}}
+        return parity, stats
+
+    def padded_labels(y_np, n_pad):
+        return (t(np.concatenate([y_np, np.ones(n_pad - len(y_np))])),
+                t(np.arange(n_pad) < len(y_np)))
+
+    log("path parity (config 3)")
+    # the target's data, padded labels and mask, for the plain estimate and
+    # the factor below
+    x3, y3_np = load("abalone", subsample=1024, seed=0)
+    y3, mask3 = padded_labels(y3_np, N3)
+    parity3, stats3 = step_parity("path_parity_config3", step3, tgt3, st3,
+                                  par3, y3, mask3)
+    # the factor at n = 1024 as the target computes it (robust_cholesky of
+    # R(ell) + 1e-5 I at the chains' lengthscales: the blocked loop, the
+    # jitter raised per matrix where a factorisation fails) over the panel
+    # kernel and over the plain panel; held where both sides settled on the
+    # same jitter (near-singular Grams may fail on one side only), which
+    # must be all but CONFIG3_MAX_AMBIGUOUS chains, and the kernel may not
+    # raise the jitter on more chains than the plain panel by more than that
+    gram3 = se_gram_iso(t(_pima_sqdist(np, x3, N3)), st3.theta[:, 0], 0.0,
+                        1e-5)
+    l3_k, boost_k = cholesky._robust_cholesky_impl(gram3, jitter0=1e-5)
+    with mock.patch.object(chol_hopper, "_cuda_chol_panel",
+                           chol_hopper._ref_chol_panel):
+        l3_p, boost_p = cholesky._robust_cholesky_impl(gram3, jitter0=1e-5)
+    same_boost3 = boost_k == boost_p
+    chains_boosted3 = {"kernel": int((boost_k > 0).sum()),
+                       "plain": int((boost_p > 0).sum())}
+    if int(same_boost3.sum()) < B3 - CONFIG3_MAX_AMBIGUOUS:
+        raise AssertionError(f"path_parity_config3: only "
+                             f"{int(same_boost3.sum())} of {B3} chains "
+                             "settled on the same jitter")
+    if (chains_boosted3["kernel"] - chains_boosted3["plain"]
+            > CONFIG3_MAX_AMBIGUOUS):
+        failures.append(f"path_parity_config3: the panel kernel raised the "
+                        f"jitter on more chains: {chains_boosted3}")
+    parity3["chol_n1024_kernel_vs_plain_panel"] = check_close(
+        "path_parity_config3", "factor n=1024", l3_k, l3_p, PATH_CHOL_TOL,
+        same_boost3)
+    del gram3, l3_k, l3_p
+    emit({"phase": "path_parity_config3", "B": B3, "n": N3, **stats3,
+          "chains_with_a_raised_jitter": chains_boosted3,
+          "chains_with_the_same_jitter": int(same_boost3.sum()),
+          "max_abs_err": parity3})
+    end_phase()
+
+    # --------------------------------------------- full-n Abalone, one step
+    # abalone_aux with --subsample 0: 4177 points padded to 4224, C of 71 MB
+    # per chain (B n^2 4 bytes = 2.3 GB, past 2^31: every offset the kernels
+    # form must be 64-bit, and the ESS sweep's item list holds 66 tiles);
+    # one profiled step for its wall and busy time, the carried factor
+    # against a fresh factorisation, then one more step from there through
+    # the kernels and through the plain estimator and ESS sweep on the same
+    # rows, held as path_parity_config3 holds n = 1024.
+    log(f"one abalone_aux step at n={N_FULL}")
+    from auxpm_tpu_torch.utils.config import (
+        PRESETS,
+        build_target,
+        initial_params,
+    )
+
+    cfg_full = PRESETS["abalone_aux"].replace(subsample=0)
+    t0 = time.time()
+    tgt_full = build_target(cfg_full)
+    if tgt_full.u_shape != (S, N_FULL):
+        raise AssertionError(f"full-n Abalone: u {tgt_full.u_shape}")
+    torch.cuda.reset_peak_memory_stats()
+    st_full = init_chain_states(cfg_full.seed, tgt_full, cfg_full.chains,
+                                jitter_scale=cfg_full.jitter_scale,
+                                with_cache=True)
+    torch.cuda.synchronize()
+    setup_full_s = time.time() - t0
+    step_full = SAMPLERS["aux_slice"](tgt_full)
+    par_full = initial_params(cfg_full, tgt_full)
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    out_full, prof_full = profile_steps(step_full, st_full, par_full, 1)
+    torch.cuda.synchronize()
+    cnt_full = read_counts()
+    for name in path3:
+        if cnt_full[name] <= 0:
+            failures.append(f"full-n Abalone: never launched {name}")
+    for name in not_path3:
+        if cnt_full[name] != 0:
+            failures.append(f"full-n Abalone: launched {name}")
+    if not (bool(torch.isfinite(out_full.theta).all())
+            and bool(torch.isfinite(out_full.log_lik_hat).all())
+            and out_full.u.shape == (cfg_full.chains, S, N_FULL)):
+        failures.append("full-n Abalone: non-finite or misshapen state")
+    cache_full = max_err(out_full.extras["target_cache"]["chol_r"],
+                         tgt_full.cache_init(out_full.theta)["chol_r"])
+    if not cache_full <= CHOL_TOL:
+        failures.append(f"full-n Abalone: carried factor off by "
+                        f"{cache_full:.3e}")
+    y_full, mask_full = padded_labels(
+        load("abalone", subsample=None, seed=cfg_full.seed)[1], N_FULL)
+    parity_full, stats_full = step_parity(
+        "abalone_full_n_step", step_full, tgt_full, out_full, par_full,
+        y_full, mask_full)
+    emit({"phase": "abalone_full_n_step", "card": smi,
+          "B": cfg_full.chains, "S": S, "n": N_FULL,
+          "setup_seconds": setup_full_s,
+          "step_wall_ms": prof_full["wall_ms_per_step"],
+          "step_device_busy_ms": prof_full["device_busy_ms_per_step"],
+          "device_idle_share": prof_full["device_idle_share"],
+          "kernel_launches_per_step": prof_full["kernel_launches_per_step"],
+          "host_syncs_per_step": prof_full["host_syncs_per_step"],
+          "launches_in_two_steps": cnt_full,
+          "cache_max_abs_err": cache_full,
+          "parity": stats_full, "max_abs_err": parity_full,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "device_ms_per_step_by_kernel":
+              prof_full["device_ms_per_step_by_kernel"]})
+    del tgt_full, st_full, out_full
+    torch.cuda.empty_cache()
+    end_phase()
+
+    # ----------------------------------------------- PM-MH and aux_mh paths
+    # The GP target at config 2's width with --sampler pm_mh (the proposal's
+    # estimate at a fresh theta' and u': one factorisation and one estimate
+    # per step, no carried factor), then --sampler aux_mh (adds the ESS
+    # sweep), then the preset toy_pm_mh (the toy has no kernel).
+    mh = {}
+    for sampler, must in (("pm_mh", ("fused_estimator", "chol_panel")),
+                          ("aux_mh", ("fused_estimator", "chol_panel",
+                                      "ess_sweep"))):
+        args = MH_CLI_ARGS + ["--sampler", sampler]
+        log(f"main path ({sampler}):", " ".join(args))
+        res_m, cnt_m = run_cli(args, must,
+                               [k_ for k_ in counters if k_ not in must])
+        st_m = res_m["states"]
+        if st_m.u.shape != (B, S, N) or not st_m.u.is_cuda:
+            raise AssertionError(f"{sampler} did not run at full width on "
+                                 "the GPU")
+        if "target_cache" in st_m.extras:
+            raise AssertionError(f"{sampler} carried a factor")
+        if not np.isfinite(res_m["theta"]).all() or \
+                not bool(torch.isfinite(st_m.log_lik_hat).all()):
+            raise AssertionError(f"{sampler}: non-finite theta or log L-hat")
+        acc_key = "accept" if sampler == "pm_mh" else "mh_theta/accept"
+        acc = [w_[acc_key] for w_ in res_m["windows"]]
+        if not 0 < float(np.mean(acc)) < 1:
+            raise AssertionError(f"{sampler}: acceptance {acc}")
+        _, prof_m = profile_steps(res_m["step"], st_m, res_m["params"], 3)
+        mh[sampler] = {
+            "launches": cnt_m, "summary": res_m["summary"],
+            "chain_steps_per_sec": res_m["summary"]["chain_steps_per_sec"],
+            "acceptance_per_window": acc, "params": {
+                k_: (v_ if not isinstance(v_, dict) else
+                     {kk: float(vv) for kk, vv in v_.items()})
+                for k_, v_ in res_m["params"].items()},
+            **{k_: prof_m[k_] for k_ in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "kernel_launches_per_step",
+                "host_syncs_per_step")}}
+    log("main path (toy_pm_mh):", " ".join(TOY_CLI_ARGS))
+    res_toy, _ = run_cli(TOY_CLI_ARGS, (), tuple(counters))
+    acc_toy = [w_["accept"] for w_ in res_toy["windows"]]
+    if not (res_toy["states"].theta.is_cuda
+            and np.isfinite(res_toy["theta"]).all()
+            and 0 < float(np.mean(acc_toy)) < 1):
+        raise AssertionError(f"toy_pm_mh: {res_toy['summary']}, acceptance "
+                             f"{acc_toy}")
+    mh["toy_pm_mh"] = {
+        "summary": res_toy["summary"],
+        "chain_steps_per_sec": res_toy["summary"]["chain_steps_per_sec"],
+        "acceptance_per_window": acc_toy,
+        "posterior_mean_exact":
+            res_toy["target"].posterior_mean.cpu().tolist()}
+    emit({"phase": "main_path_pm_mh", "card": smi, "args": MH_CLI_ARGS,
+          "toy_args": TOY_CLI_ARGS, **mh})
+    end_phase()
+
+    # ----------------------------------------------- bitwise resume, config 2
+    # 2K steps without a break against K steps, a checkpoint saved and
+    # loaded into a fresh state, and K more: theta, u, log L-hat and the
+    # carried factor bitwise equal.  The same kernels on the same inputs
+    # must give the same bits on every repeat for this to hold.
+    log("resume bitwise (config 2)")
+    from auxpm_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+
+    def fresh2():
+        return init_chain_states(11, tgt, B, jitter_scale=0.3,
+                                 with_cache=True)
+
+    whole, _, _ = run_chains(step, fresh2(), params, 2 * K_RESUME)
+    half, _, _ = run_chains(step, fresh2(), params, K_RESUME)
+    ckpt_cfg = {"phase": "resume_bitwise", "args": CLI_ARGS}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.time()
+        save_checkpoint(ckpt_dir, half, step=K_RESUME, config=ckpt_cfg,
+                        params=params)
+        save_s = time.time() - t0
+        ckpt_mb = sum(os.path.getsize(os.path.join(ckpt_dir, f_))
+                      for f_ in os.listdir(ckpt_dir)) / 2**20
+        del half
+        t0 = time.time()
+        loaded, at, params_l = load_checkpoint(ckpt_dir, fresh2(),
+                                               config=ckpt_cfg)
+        load_s = time.time() - t0
+    rest, _, _ = run_chains(step, loaded, params_l, K_RESUME)
+    torch.cuda.synchronize()
+    bitwise = {
+        "theta": bool(torch.equal(rest.theta, whole.theta)),
+        "u": bool(torch.equal(rest.u, whole.u)),
+        "log_lik_hat": bool(torch.equal(rest.log_lik_hat,
+                                        whole.log_lik_hat)),
+        "chol_r": bool(torch.equal(rest.extras["target_cache"]["chol_r"],
+                                   whole.extras["target_cache"]["chol_r"])),
+    }
+    moved = not bool(torch.equal(whole.theta, fresh2().theta))
+    if not all(bitwise.values()) or not moved or at != K_RESUME:
+        failures.append(f"resume_bitwise: {bitwise}, moved {moved}, step "
+                        f"{at}")
+    emit({"phase": "resume_bitwise", "B": B, "steps": 2 * K_RESUME,
+          "bitwise_equal": bitwise, "checkpoint_mb": ckpt_mb,
+          "save_seconds": save_s, "load_seconds": load_s})
+    del whole, rest, loaded
     end_phase()
 
     # ---------------------------------------------------------------- result

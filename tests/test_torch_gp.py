@@ -53,8 +53,8 @@ def targets():
 
 def test_dataset_copy_is_bit_identical_and_unknown_names_raise():
     _data()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tload("breast_cancer")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        tload("no_such_dataset")
 
 
 @pytest.mark.parametrize("likelihood", ["logistic", "probit"])
