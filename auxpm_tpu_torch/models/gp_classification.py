@@ -1,7 +1,7 @@
 """Latent-GP binary classification posterior over kernel hyperparameters.
 
 Counterpart of ``auxpm_tpu/models/gp_classification.py`` (isotropic and ARD
-kernels, prior proposal).  Binary labels y_i in {-1, +1}, latent
+kernels, the prior and the Laplace proposal).  Binary labels y_i in {-1, +1}, latent
 f ~ GP(0, K_theta) with a squared-exponential kernel, Bernoulli likelihood
 (logistic or probit), and a pseudo-marginal target over theta =
 ``[log_ell, log_sigma]`` (isotropic) or ``[log_ell_1..log_ell_d, log_sigma]``
@@ -47,6 +47,16 @@ target (the coordinate factories included) goes through that one function.
 It has no whole-sweep factories: a sweep kernel folds each estimate inside
 its launch, where no collective can reach.
 
+``proposal="laplace"`` draws the importance samples from the Laplace
+approximation N(f̂, Σ_q) fitted per theta by Newton (``models/laplace.py``):
+``prepare`` returns ``(chol_k, f_hat, chol_q, half_logdet_q)`` and the
+log-weights add log N(f; 0, K) - log N(f; f̂, Σ_q) to the likelihood (plain
+PyTorch; no estimator kernel takes a tuple).  The mode depends on sigma, so
+there is no carried factor, no sigma-separable probe and no sweep: every
+sampler takes its generic path, each probe paying ``1 + newton_iters + 2``
+factorisations.  A particle-sharded Laplace target is not ported yet
+(ROADMAP.md).
+
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  The reference's memory gates on its sweeps belong to the TPU; the
 port's factories return None where the sweep body refuses the shapes
@@ -63,6 +73,7 @@ import torch
 
 from auxpm_tpu_torch._device import resolve_device
 from auxpm_tpu_torch.models.base import Target, full_coord_probes, set_coord
+from auxpm_tpu_torch.models.likelihoods import LIKELIHOODS
 from auxpm_tpu_torch.ops.cholesky import robust_cholesky
 from auxpm_tpu_torch.ops.ess_sweep import make_fused_ess_sweep
 from auxpm_tpu_torch.ops.fused_estimator import (
@@ -74,17 +85,11 @@ from auxpm_tpu_torch.ops.fused_estimator import (
     make_fused_weights,
 )
 from auxpm_tpu_torch.ops.gram import se_gram_ard_hopper, se_gram_iso
+from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 from auxpm_tpu_torch.ops.sigma_sweep import make_fused_sigma_sweep
 
 _TILE = 128
 _N_WEIGHT_BLOCKS = 8  # canonical reduction-tree width
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"{what} is not ported to auxpm_tpu_torch yet; see ROADMAP.md "
-        "(modules still to port)"
-    )
 
 
 def make_gp_classification(
@@ -102,6 +107,7 @@ def make_gp_classification(
     particle_axis=None,
     whiten_dtype="float32",
     device="cuda",
+    newton_iters=6,
 ):
     """Build the GP-classification pseudo-marginal ``Target``.
 
@@ -122,16 +128,26 @@ def make_gp_classification(
       particle_axis: this rank's ``parallel.mesh.Mesh`` for a target whose
         u is split over the mesh's particle group (see the module note);
         ``Target.make_sharded`` is the usual way to get one.
-      proposal="laplace": not ported yet.
+      proposal: "prior" (the density ratio cancels) or "laplace" (see the
+        module note; unsharded only).
+      newton_iters: the Laplace fit's fixed Newton iteration count.
     """
-    if proposal == "laplace":
-        _not_ported("the Laplace proposal")
-    if proposal != "prior":
+    if proposal not in ("prior", "laplace"):
         raise ValueError(f"unknown proposal {proposal!r}")
+    if proposal == "laplace" and whiten_dtype != "float32":
+        raise ValueError(
+            "whiten_dtype != float32 needs the fused tile-aligned path "
+            "(pad_to_tiles=True) with the prior proposal"
+        )
     if particle_axis is not None:
         from auxpm_tpu_torch.parallel.mesh import require_mesh
 
         require_mesh(particle_axis)
+        if proposal == "laplace":
+            raise NotImplementedError(
+                "the Laplace proposal on a particle-sharded target is not "
+                "ported to auxpm_tpu_torch yet; see ROADMAP.md (modules still "
+                "to port)")
     if likelihood not in ("logistic", "probit"):
         raise ValueError(f"unknown likelihood {likelihood!r}")
     if whiten_dtype not in WHITEN_DTYPES:
@@ -370,9 +386,51 @@ def make_gp_classification(
             x, y, n_importance=n_importance, likelihood=likelihood, ard=ard,
             jitter=jitter, prior_mean=prior_mean, prior_std=prior_std,
             name=name, pad_to_tiles=pad_to_tiles, proposal=proposal,
-            particle_axis=mesh, whiten_dtype=whiten_dtype, device=device)
+            particle_axis=mesh, whiten_dtype=whiten_dtype, device=device,
+            newton_iters=newton_iters)
 
     sharded = particle_axis is not None
+    fast_paths = {
+        "log_lik_est_rot": log_lik_est_rot,
+        # a sweep kernel reduces over S inside its block: unsharded only
+        "ess_sweep_factory": None if sharded else _ess_sweep_factory,
+        "sigma_sweep_factory": None if sharded else _sigma_sweep_factory,
+        "coord_estimators": coord_estimators,
+        "cache_init": cache_init,
+        "prepare_c": prepare_c,
+        "coord_estimators_c": coord_estimators_c,
+    }
+    if proposal == "laplace":
+        from auxpm_tpu_torch.models.laplace import (
+            laplace_fit,
+            laplace_log_weight_terms,
+        )
+
+        log_lik_fn = LIKELIHOODS[likelihood]
+
+        def prepare(theta):
+            log_ell, log_sigma = split_theta(theta)
+            r = r_matrix(log_ell)
+            chol_k = _scale(log_sigma, robust_cholesky(r, jitter0=jitter))
+            k = torch.exp(2.0 * log_sigma)[:, None, None] * r
+            f_hat, chol_q, half_logdet_q = laplace_fit(
+                k, y_dev, mask, likelihood, newton_iters)
+            return (chol_k, f_hat, chol_q, half_logdet_q)
+
+        def log_weights_u(prepared, u):
+            f, extra = laplace_log_weight_terms(*prepared, u)
+            return log_lik_fn(f, y_dev, mask) + extra
+
+        def log_lik_est_u(prepared, u):
+            return blocked_logsumexp(log_weights_u(prepared, u),
+                                     nb_global) - log_s_fac
+
+        def log_lik_est(theta, u):
+            return log_lik_est_u(prepare(theta), u)
+
+        # the mode depends on both coordinates: no sigma-separable factor,
+        # no structure-aware probes, no kernel that takes the tuple
+        fast_paths = dict.fromkeys(fast_paths)
     return Target(
         d=n_theta,
         u_shape=(n_importance, n),
@@ -381,21 +439,15 @@ def make_gp_classification(
         theta_init=torch.zeros((n_theta,), dtype=dtype, device=device),
         device=device,
         name=name or f"gp_{likelihood}_n{n_raw}"
+        + ("_laplace" if proposal == "laplace" else "")
         + (f"@{particle_axis.name}" if sharded else ""),
         prepare=prepare,
         log_lik_est_u=log_lik_est_u,
-        log_lik_est_rot=log_lik_est_rot,
-        # a sweep kernel reduces over S inside its block: unsharded only
-        ess_sweep_factory=None if sharded else _ess_sweep_factory,
         log_weights_u=log_weights_u,
         make_sharded=None if sharded else make_sharded,
-        coord_estimators=coord_estimators,
         sample_prior=lambda generator, n_draws: prior_mean
         + prior_std * torch.randn((n_draws, n_theta), generator=generator,
                                   dtype=dtype, device=device),
         n_weight_blocks=nb_global,
-        cache_init=cache_init,
-        prepare_c=prepare_c,
-        coord_estimators_c=coord_estimators_c,
-        sigma_sweep_factory=None if sharded else _sigma_sweep_factory,
+        **fast_paths,
     )

@@ -1,11 +1,11 @@
 """Bernoulli classification likelihoods on latent GP values.
 
-Counterpart of ``auxpm_tpu/models/likelihoods.py`` (the value functions; the
-gradient/Hessian helpers of the Laplace proposal are not ported yet).  Labels
-are +-1; a ``mask`` lets padded datasets contribute zero.  Both are
-elementwise-stable and spelled exactly as the CUDA probe body spells them
-(``csrc/probe.cuh``), so the estimator is one fixed function of (theta, u) on
-either path.
+Counterpart of ``auxpm_tpu/models/likelihoods.py``: the value functions and
+the gradient / negative-Hessian helpers of the Laplace proposal
+(``models/laplace.py``).  Labels are +-1; a ``mask`` lets padded datasets
+contribute zero.  The value functions are elementwise-stable and spelled
+exactly as the CUDA probe body spells them (``csrc/probe.cuh``), so the
+estimator is one fixed function of (theta, u) on either path.
 """
 
 from __future__ import annotations
@@ -65,3 +65,41 @@ def probit_log_lik(f, y, mask=None):
 
 
 LIKELIHOODS = {"logistic": logistic_log_lik, "probit": probit_log_lik}
+
+
+# Gradient and NEGATIVE Hessian diagonal of log p(y|f) w.r.t. f, for the
+# Newton iteration of the Laplace proposal; both elementwise because the
+# likelihood factorises over points.  Closed forms (stable):
+#   logistic: g = y sigma(-y f);           w = sigma(f) sigma(-f)
+#   probit:   r = phi(z)/Phi(z), z = y f;  g = y r;  w = r (r + z)
+# with the probit ratio computed from the stable log Phi, which stays finite
+# in the far-left tail where phi and Phi both underflow.  Shapes follow
+# ``f`` (any leading batch axes); mask 0 gives g = w = 0.
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
+
+
+def logistic_grad_hess(f, y, mask=None):
+    """(g, w) for the logistic likelihood."""
+    g = y * torch.sigmoid(-y * f)
+    w = torch.sigmoid(f) * torch.sigmoid(-f)
+    if mask is not None:
+        g, w = g * mask, w * mask
+    return g, w
+
+
+def probit_grad_hess(f, y, mask=None):
+    """(g, w) for the probit likelihood via the stable phi/Phi ratio."""
+    z = y * f
+    r = torch.exp(-0.5 * z * z - _HALF_LOG_2PI - log_ndtr(z))
+    g = y * r
+    w = r * (r + z)
+    if mask is not None:
+        g, w = g * mask, w * mask
+    return g, torch.clamp(w, min=0.0)
+
+
+LIKELIHOOD_GRAD_HESS = {
+    "logistic": logistic_grad_hess,
+    "probit": probit_grad_hess,
+}

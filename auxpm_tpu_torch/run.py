@@ -7,6 +7,9 @@
     python -m auxpm_tpu_torch.run --preset toy_pm_mh --device cpu
     python -m auxpm_tpu_torch.run --preset abalone_aux [--subsample 0]
     python -m auxpm_tpu_torch.run --sampler pm_mh       # or aux_mh, on Pima
+    python -m auxpm_tpu_torch.run --sampler aux_slice_pcrd  # or aux_slice_rd,
+        # aux_slice_joint, joint_slice, joint_mh
+    python -m auxpm_tpu_torch.run --proposal laplace --n-importance 16
     python -m auxpm_tpu_torch.run --preset pima_aux_slice \
         --checkpoint-dir ckpt --checkpoint-every 2 --profile-dir prof \
         --plots fig --metrics-path metrics.jsonl
@@ -80,7 +83,12 @@ def main(argv=None, result=None):
     this rank's ``mesh`` (states and target are then the rank's share), for
     a caller that drives the CLI from Python."""
     args = parse_args(argv)
-    from auxpm_tpu_torch.utils.config import PRESETS, build_target, initial_params
+    from auxpm_tpu_torch.utils.config import (
+        PRESETS,
+        build_target,
+        initial_params,
+        unsupported,
+    )
 
     if args.list_presets:
         for name, cfg in sorted(PRESETS.items()):
@@ -94,6 +102,7 @@ def main(argv=None, result=None):
         if k not in ("preset", "list_presets") and v is not None
     }
     cfg = cfg.replace(**overrides)
+    unsupported(cfg)   # before a world is joined or a target built
 
     import torch
 
@@ -160,8 +169,11 @@ def main(argv=None, result=None):
         cfg.seed, target, n_chains, jitter_scale=cfg.jitter_scale,
         with_cache=cfg.chol_cache and aux_slice, mesh=mesh,
     )
-    slice_kw = ({"n_ess": cfg.n_ess, "n_sigma_extra": cfg.n_sigma_extra}
-                if aux_slice else {})
+    slice_kw = {}
+    if aux_slice:   # aux_slice_rd has no per-coordinate sweep to repeat
+        slice_kw = {"n_ess": cfg.n_ess,
+                    **({"n_sigma_extra": cfg.n_sigma_extra}
+                       if cfg.sampler != "aux_slice_rd" else {})}
     step = SAMPLERS[cfg.sampler](target, particle_axis=particle_axis,
                                  **slice_kw)
 

@@ -4,7 +4,9 @@ Counterpart of ``auxpm_tpu/samplers/adaptation.py`` (the slice-width rule,
 the random-walk step-size rule and the warm-up loop; the dual averaging of
 HMC/NUTS comes with those samplers).  Slice widths are set to
 ``width_scale`` x the global per-coordinate posterior std of the window's
-samples over ALL chains, clamped to a sane range.  A random-walk step size
+samples over ALL chains, clamped to a sane range (the ``slice_theta`` and
+``slice_theta_rd`` groups per coordinate; ``joint_slice``'s scalar
+``width`` from the mean std).  A random-walk step size
 (``pm_mh``'s un-namespaced ``step_size``, ``mh_theta``'s group) is scaled
 by ``exp(lr (acceptance - target_accept))`` with the window's global mean
 acceptance.  Warm-up only: params are frozen afterwards, so the main chain
@@ -72,12 +74,21 @@ def adapt_params(params, recs, infos, target_accept=0.234, lr=1.0,
             g.get("step_size", 0.5),
             _global_mean(infos["mh_theta/accept"], mesh), lr, target_accept)
         new["mh_theta"] = g
-    if any(k.startswith("slice_theta/") for k in infos):
-        stds = _global_std(recs["theta"], mesh)
-        g = dict(new.get("slice_theta", {}))
-        g["widths"] = torch.clamp(width_scale * stds, *width_bounds).to(
-            torch.float32)
-        new["slice_theta"] = g
+    stds = None
+    for group, key in (("slice_theta", "widths"),
+                       ("slice_theta_rd", "widths"), ("joint_slice", "width")):
+        if not any(k.startswith(f"{group}/") for k in infos):
+            continue
+        if stds is None:
+            stds = _global_std(recs["theta"], mesh)
+        g = dict(new.get(group, {}))
+        if key == "width":   # a scalar bracket along a random direction
+            g[key] = float(torch.clamp(width_scale * stds.mean(),
+                                       *width_bounds))
+        else:
+            g[key] = torch.clamp(width_scale * stds, *width_bounds).to(
+                torch.float32)
+        new[group] = g
     return new
 
 

@@ -1,6 +1,7 @@
 """Linear slice sampling of theta | u (Neal 2003): stepping out + shrinkage.
 
-Counterpart of ``auxpm_tpu/samplers/slice_theta.py`` (``make_slice_theta``).
+Counterpart of ``auxpm_tpu/samplers/slice_theta.py`` (``make_slice_theta``
+and ``make_slice_theta_rd``).
 With u part of the chain state,
 
     f(theta') = log p(theta') + log L̂(theta', u)
@@ -49,7 +50,10 @@ still expanding / shrinking) to stop early, so a coordinate costs up to
 ``max_step_out + max_shrink`` reads and usually a handful; a later change can
 drop the early exits or move the loops into device code.
 
-The random-direction variant of the reference is not ported yet.
+``make_slice_theta_rd`` makes one 1-D update along a random unit direction
+e per chain: x is the step t along e from theta, every probe (and both ends
+of the step-out probe, one batch of 2B) goes through ``target.log_lik_est``
+at theta + t e, and a carried factor is refreshed once at the new theta.
 
 Params:
   widths: scalar or (d,) bracket widths w.
@@ -264,6 +268,79 @@ def make_slice_theta(target, n_sigma_extra=0):
                                   extras=new_extras)
         info = {"n_probe": n_probe_total, "n_probe_chol": n_probe_chol}
         return new_state, info
+
+    def step(state: ChainState, params: dict):
+        return apply(state, draw(state.generator, state), params)
+
+    step.draw = draw
+    step.apply = apply
+    return step
+
+
+def unit_directions(generator, theta):
+    """One N(0, I) direction per chain, normalised: ``(B, d)``."""
+    e = torch.randn(theta.shape, generator=generator, dtype=torch.float32,
+                    device=theta.device)
+    return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+
+
+def draw_rep(generator, theta):
+    """One ``_slice_1d`` row per chain: ``(B, 2 + 32)`` = [log U, U1, 32
+    shrink uniforms]."""
+    rep = torch.rand((theta.shape[0], REP_COLS), generator=generator,
+                     dtype=torch.float32, device=theta.device)
+    rep[:, 0] = torch.log(rep[:, 0])
+    return rep
+
+
+def make_slice_theta_rd(target):
+    """Random-direction slice sampling of theta | u (one 1-D update per
+    step).  The bracket is the scalar ``mean(widths)``.  Info: ``n_probe``
+    and ``moved`` (the update was accepted)."""
+
+    def draw(generator, state: ChainState):
+        """``direction (B, d)`` unit vectors and ``rep (B, 2 + 32)``."""
+        return {"direction": unit_directions(generator, state.theta),
+                "rep": draw_rep(generator, state.theta)}
+
+    def apply(state: ChainState, rows: dict, params: dict):
+        max_step_out = int(params.get("max_step_out", 8))
+        max_shrink = int(params.get("max_shrink", MAX_SHRINK))
+        if max_shrink > MAX_SHRINK:
+            raise ValueError(f"max_shrink={max_shrink}: a row carries "
+                             f"{MAX_SHRINK} shrink uniforms")
+        theta0, e = state.theta, rows["direction"]
+        width = torch.as_tensor(
+            params.get("widths", 1.0), dtype=theta0.dtype,
+            device=theta0.device).expand(target.d).mean()
+        log_post0 = target.log_prior(theta0) + state.log_lik_hat
+
+        def f(t):
+            th = theta0 + t[:, None] * e
+            ll = target.log_lik_est(th, state.u)
+            return target.log_prior(th) + ll, ll
+
+        u2 = []
+
+        def f2(ts):
+            if not u2:
+                u2.append(torch.cat([state.u, state.u]))
+            th = (theta0[None] + ts[:, :, None] * e[None]).reshape(
+                -1, target.d)
+            ll = target.log_lik_est(th, u2[0])
+            return (target.log_prior(th) + ll).view(2, -1), ll.view(2, -1)
+
+        t_new, _lp, ll_new, done, n_probe = _slice_1d(
+            rows["rep"], torch.zeros_like(log_post0), log_post0, f, f2,
+            width, max_step_out, max_shrink, params.get("probe_log"))
+        theta_new = theta0 + t_new[:, None] * e
+        new_state = state.replace(
+            theta=theta_new,
+            log_lik_hat=torch.where(done, ll_new, state.log_lik_hat),
+            extras=refresh_target_cache(target, state.extras, theta_new),
+        )
+        return new_state, {"n_probe": n_probe,
+                           "moved": done.to(torch.float32)}
 
     def step(state: ChainState, params: dict):
         return apply(state, draw(state.generator, state), params)

@@ -3,10 +3,11 @@
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
 same here.  Fields that select a part of the system not ported yet (samplers
-outside ``samplers.composite.SAMPLERS``, the Laplace proposal, SMC, multi-host
-runs) are accepted by the parser and refused with ``NotImplementedError``
-when used (``unsupported``).  ``PRESETS`` holds the presets the port can run,
-each field for field the reference's preset of the same name.
+outside ``samplers.composite.SAMPLERS``, SMC, multi-host runs, the Laplace
+proposal on a particle-sharded target) are accepted by the parser and refused
+with ``NotImplementedError`` when used (``unsupported``).  ``PRESETS`` holds
+the presets the port can run, each field for field the reference's preset of
+the same name.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class RunConfig:
     dataset: str = "pima"  # pima | breast_cancer | abalone
     n_importance: int = 16
     likelihood: str = "logistic"
-    proposal: str = "prior"  # prior (laplace: not ported yet)
+    proposal: str = "prior"  # importance proposal: prior | laplace
     whiten_dtype: str = "float32"  # whiten product precision: float32 | bfloat16
     ard: bool = False
     subsample: Optional[int] = None
@@ -145,8 +146,9 @@ def unsupported(cfg: RunConfig):
         raise ValueError(f"unknown target {cfg.target!r}")
     if cfg.sampler not in SAMPLERS:
         asked.append(f"sampler={cfg.sampler!r}")
-    if cfg.target == "gp" and cfg.proposal == "laplace":
-        asked.append("proposal='laplace'")
+    if (cfg.target == "gp" and cfg.proposal == "laplace" and cfg.sharded
+            and cfg.particle_shards > 1):
+        asked.append("proposal='laplace' with --particle-shards > 1")
     if cfg.multihost:
         asked.append("multihost")
     if cfg.particle_shards > 1 and not cfg.sharded:
@@ -184,17 +186,27 @@ def build_target(cfg: RunConfig):
 
 
 def initial_params(cfg: RunConfig, target):
-    """Initial sampler params of the composite, from the config."""
+    """Initial sampler params of the composite, from the config: each group
+    the reference's ``initial_params`` builds, with the same knobs."""
     import torch
 
     if cfg.sampler == "pm_mh":
         return {"step_size": cfg.step_size}
+    slice_g = {"widths": torch.full((target.d,), cfg.widths,
+                                    dtype=torch.float32, device=target.device),
+               "max_step_out": cfg.max_step_out,
+               "max_shrink_chol": cfg.max_shrink_chol}
+    params = {}
+    if cfg.sampler.startswith("aux_slice"):
+        params["slice_theta"] = dict(slice_g)
+        params["ess_u"] = {}
+    if cfg.sampler == "aux_slice_pcrd":
+        params["slice_theta_rd"] = dict(slice_g)
+    if cfg.sampler in ("aux_slice_joint", "joint_slice"):
+        params["joint_slice"] = {"width": cfg.widths,
+                                 "max_step_out": cfg.max_step_out}
+    if cfg.sampler == "joint_mh":
+        params["joint_mh"] = {"step_size": cfg.step_size}
     if cfg.sampler == "aux_mh":
-        return {"ess_u": {}, "mh_theta": {"step_size": cfg.step_size}}
-    widths = torch.full((target.d,), cfg.widths, dtype=torch.float32,
-                        device=target.device)
-    return {
-        "slice_theta": {"widths": widths, "max_step_out": cfg.max_step_out,
-                        "max_shrink_chol": cfg.max_shrink_chol},
-        "ess_u": {},
-    }
+        params["mh_theta"] = {"step_size": cfg.step_size}
+    return params

@@ -196,6 +196,23 @@ TOY_CLI_ARGS = [
     "--steps", "200",
 ]
 K_RESUME = 3                   # resume_bitwise: 2K steps vs K + load + K
+THETA_SAMPLERS = {             # sampler -> the info key of its theta move
+    "aux_slice_rd": "slice_theta/moved",
+    "aux_slice_pcrd": "slice_theta_rd/moved",
+    "aux_slice_joint": "joint_slice/moved",
+    "joint_slice": "joint_slice/moved",
+    "joint_mh": "joint_mh/accept",
+}
+THETA_CLI_ARGS = CLI_ARGS[:-6] + [
+    "--warmup-windows", "1", "--window-steps", "5", "--steps", "10"]
+THETA_MAX_AMBIGUOUS = 16       # of 128 chains, CONFIG3_MAX_AMBIGUOUS's share
+S_LAPLACE, LAPLACE_JITTER = 16, 1e-3
+LAPLACE_CLI_ARGS = [
+    "--preset", "pima_aux_slice", "--proposal", "laplace", "--n-importance",
+    str(S_LAPLACE), "--chains", str(B), "--warmup-windows", "1",
+    "--window-steps", "3", "--steps", "6",
+]
+LAPLACE_F_TOL, LAPLACE_CHOL_TOL, LAPLACE_LOGDET_TOL = 1e-3, 5e-3, 1e-2
 
 
 def log(*a):
@@ -1868,32 +1885,38 @@ def main():
     # panel kernel (the same factor bit for bit, so the comparison sees the
     # estimator and the sweep); the factor itself is held to the plain
     # panel below, at n = 1024 through the blocked factorisation.
-    def step_parity(phase, step_, tgt_, state, par_, y_, mask_):
-        """One ``aux_slice`` step from ``state`` on the same rows through the
-        kernels and through the plain estimator and ESS sweep; records
-        failures and returns the comparison.  The ESS stage's u' and log
-        L-hat (same theta, same factor on both sides) are held at the
-        kernels' bars, the whole step's at the path bars, and the kernel
-        step's log L-hat at the plain estimate of its own state at the
-        estimator's bar."""
+    def step_parity(phase, step_, tgt_, state, par_, y_, mask_,
+                    plain_sigma=False, max_ambiguous=CONFIG3_MAX_AMBIGUOUS):
+        """One step of an ``aux_slice``-family composite from ``state`` on the
+        same rows (every stage's, drawn up front) through the kernels and
+        through the plain estimator and ESS sweep (and the plain sigma sweep
+        with ``plain_sigma``); records failures and returns the comparison.
+        The ESS stage's u' and log L-hat (same theta, same factor on both
+        sides) are held at the kernels' bars, the whole step's at the path
+        bars, and the kernel step's log L-hat at the plain estimate of its
+        own state at the estimator's bar."""
         b_ = state.theta.shape[0]
-        ess_, sl_ = step_.stages["ess_u"], step_.stages["slice_theta"]
-        rows_e = ess_.draw(state.generator, state)
-        rows_s = sl_.draw(state.generator, state)
+        stages = list(step_.stages.items())
+        rows_ = {name: st_.draw(state.generator, state)
+                 for name, st_ in stages}
 
         def one_step(probe_log=None):
             extra = {} if probe_log is None else {"probe_log": probe_log}
-            mid, info_e = ess_.apply(state, rows_e, {**par_["ess_u"], **extra})
-            out, info_s = sl_.apply(mid, rows_s,
-                                    {**par_["slice_theta"], **extra})
-            return mid, out, {**info_e, **info_s}
+            s_, mid, info = state, None, {}
+            for name, st_ in stages:
+                s_, i_ = st_.apply(s_, rows_[name], {**par_[name], **extra})
+                mid = s_ if name == "ess_u" else mid
+                info.update({f"{name}/{k_}": v_ for k_, v_ in i_.items()})
+            return mid, s_, info
 
         mid_k, out_k, i_k = one_step()
         probe_log = []
+        patches = [(fe, "_cuda_estimate", fe._ref_estimate),
+                   (ess, "_cuda_ess_sweep", ess._ref_ess_sweep)]
+        if plain_sigma:
+            patches.append((sig, "_cuda_sigma_sweep", sig._ref_sigma_sweep))
         with contextlib.ExitStack() as stack:
-            for mod, cuda_fn, plain_fn in (
-                    (fe, "_cuda_estimate", fe._ref_estimate),
-                    (ess, "_cuda_ess_sweep", ess._ref_ess_sweep)):
+            for mod, cuda_fn, plain_fn in patches:
                 stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
             before = read_counts()
             mid_p, out_p, i_p = one_step(probe_log)
@@ -1910,7 +1933,7 @@ def main():
         for k_ in i_k:
             agree &= i_k[k_] == i_p[k_]
         n_amb_, n_bad = int(amb_.sum()), int((~agree & ~amb_).sum())
-        if n_amb_ > CONFIG3_MAX_AMBIGUOUS:
+        if n_amb_ > max_ambiguous:
             failures.append(f"{phase}: {n_amb_} of {b_} chains had a decision "
                             "inside the tolerance")
         if n_bad:
@@ -2170,6 +2193,203 @@ def main():
           "bitwise_equal": bitwise, "checkpoint_mb": ckpt_mb,
           "save_seconds": save_s, "load_seconds": load_s})
     del whole, rest, loaded
+    end_phase()
+
+    # -------------------------------------------- the remaining theta samplers
+    # Each new sampler through the CLI on config 2's target at full width
+    # (CLI_ARGS: 128 chains, shrinkage-only slices, four ESS repeats, one
+    # extra log_sigma update, max_shrink_chol 3; 1 x 5 warm-up + 10 steps),
+    # then a 3-step profile from its final state: wall and busy time, and
+    # the launches of each kernel per step (profile_steps runs its steps
+    # twice, untraced for the wall time, then traced).
+    n_prof = 3
+    theta_runs, finals = {}, {}
+    for sampler, move_key in THETA_SAMPLERS.items():
+        aux = sampler.startswith("aux_slice")
+        must = (("fused_estimator", "chol_panel")
+                + (("ess_sweep",) if aux else ())
+                + (("sigma_sweep",) if aux and sampler != "aux_slice_rd"
+                   else ()))
+        args = THETA_CLI_ARGS + ["--sampler", sampler]
+        log(f"main path ({sampler}):", " ".join(args))
+        res_s, cnt_s = run_cli(args, must,
+                               [k_ for k_ in counters if k_ not in must])
+        st_s = res_s["states"]
+        if st_s.u.shape != (B, S, N) or not st_s.u.is_cuda:
+            raise AssertionError(f"{sampler} did not run at full width on "
+                                 "the GPU")
+        if ("target_cache" in st_s.extras) != aux:
+            raise AssertionError(f"{sampler}: carried factor "
+                                 f"{'missing' if aux else 'carried'}")
+        if not np.isfinite(res_s["theta"]).all() or \
+                not bool(torch.isfinite(st_s.log_lik_hat).all()):
+            raise AssertionError(f"{sampler}: non-finite theta or log L-hat")
+        moved = [w_[move_key] for w_ in res_s["windows"]]
+        if not max(moved) > 0:
+            raise AssertionError(f"{sampler} never moved: {move_key} "
+                                 f"{moved}")
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        st_p, prof_s = profile_steps(res_s["step"], st_s, res_s["params"],
+                                     n_prof)
+        torch.cuda.synchronize()
+        per_step = {k_: v_ / (2 * n_prof) for k_, v_ in read_counts().items()
+                    if k_ in first_path}
+        theta_runs[sampler] = {
+            "launches": cnt_s,
+            "chain_steps_per_sec": res_s["summary"]["chain_steps_per_sec"],
+            f"{move_key}_per_window": moved,
+            **({"ess_u/moved": res_s["windows"][-1]["ess_u/moved"]}
+               if aux else {}),
+            "theta_finite": True,
+            "kernel_launches_per_step_by_kernel": per_step,
+            **{k_: prof_s[k_] for k_ in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "kernel_launches_per_step",
+                "host_syncs_per_step", "device_ms_per_step_by_kernel")}}
+        if sampler in ("aux_slice_pcrd", "aux_slice_joint"):
+            finals[sampler] = (st_p, res_s["step"], res_s["target"],
+                               res_s["params"])
+        del res_s, st_s
+    emit({"phase": "main_path_theta_samplers", "card": smi,
+          "args": THETA_CLI_ARGS, **theta_runs})
+    end_phase()
+
+    # ------------------------------------- theta samplers: path parity
+    # One step of aux_slice_pcrd and of aux_slice_joint from the phase's
+    # final states on the same rows, through the kernels and through the
+    # plain estimator, ESS sweep and sigma sweep (the panel kernel shared, as
+    # in path_parity_config3); then the factor at each state's theta through
+    # robust_cholesky over the panel kernel and over the plain panel, held
+    # where both sides settled on the same jitter.
+    log("path parity (theta samplers)")
+    parity_theta = {}
+    for sampler, (st_, step_, tgt_, par_) in finals.items():
+        phase_ = f"path_parity_theta_samplers/{sampler}"
+        parity_, stats_ = step_parity(phase_, step_, tgt_, st_, par_, y, mask,
+                                      plain_sigma=True,
+                                      max_ambiguous=THETA_MAX_AMBIGUOUS)
+        gram_ = se_gram_iso(sqdist, st_.theta[:, 0], 0.0, 1e-5)
+        l_k, boost_k = cholesky._robust_cholesky_impl(gram_, jitter0=1e-5)
+        with mock.patch.object(chol_hopper, "_cuda_chol_panel",
+                               chol_hopper._ref_chol_panel):
+            l_p, boost_p = cholesky._robust_cholesky_impl(gram_,
+                                                          jitter0=1e-5)
+        same_ = boost_k == boost_p
+        if int(same_.sum()) < B - THETA_MAX_AMBIGUOUS:
+            raise AssertionError(f"{phase_}: only {int(same_.sum())} of {B} "
+                                 "chains settled on the same jitter")
+        parity_["chol_kernel_vs_plain_panel"] = check_close(
+            phase_, "factor", l_k, l_p, PATH_CHOL_TOL, same_)
+        parity_theta[sampler] = {
+            **stats_, "chains_with_the_same_jitter": int(same_.sum()),
+            "max_abs_err": parity_}
+        del gram_, l_k, l_p
+    del finals
+    emit({"phase": "path_parity_theta_samplers", "B": B, **parity_theta})
+    end_phase()
+
+    # ------------------------------------------------ the Laplace proposal
+    # aux_slice on config 2's target with the Laplace proposal (S = 16): every
+    # probe's prepare is 1 + 6 + 2 factorisations through the panel kernel
+    # and two cholesky_solve calls; the log-weights are plain PyTorch (no
+    # estimator kernel takes the proposal's tuple), so the panel is the one
+    # kernel this path launches.  Then one prepare at the fixed theta batch
+    # of the kernels phase, jitter 1e-3, with the panel kernel and with the
+    # plain panel: f-hat, chol_q and half log|Sigma_q| held on the chains
+    # where every factorisation of both sides settled on the same jitter.
+    log("main path (laplace):", " ".join(LAPLACE_CLI_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    res_l, cnt_l = run_cli(LAPLACE_CLI_ARGS, ("chol_panel",),
+                           [k_ for k_ in counters if k_ != "chol_panel"])
+    st_l = res_l["states"]
+    if st_l.u.shape != (B, S_LAPLACE, N) or not st_l.u.is_cuda:
+        raise AssertionError("laplace did not run at full width on the GPU")
+    if not res_l["target"].name.endswith("_laplace") or st_l.extras:
+        raise AssertionError(f"laplace: target {res_l['target'].name}, "
+                             f"extras {sorted(st_l.extras)}")
+    if not np.isfinite(res_l["theta"]).all() or \
+            not bool(torch.isfinite(st_l.log_lik_hat).all()):
+        raise AssertionError("laplace: non-finite theta or log L-hat")
+    win_l = res_l["windows"][-1]
+    if not (win_l["ess_u/moved"] > 0.5 and win_l["slice_theta/n_probe"] > 0):
+        raise AssertionError(f"laplace: sampler health {win_l}")
+    n_prof_l = 2
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    _, prof_l = profile_steps(res_l["step"], st_l, res_l["params"], n_prof_l)
+    torch.cuda.synchronize()
+    panel_per_step_l = read_counts()["chol_panel"] / (2 * n_prof_l)
+    peak_l = torch.cuda.max_memory_allocated() / 1e9
+    summary_l = res_l["summary"]
+    del res_l, st_l
+    tgt_l3 = make_gp_classification(x, y_np, n_importance=S_LAPLACE,
+                                    proposal="laplace",
+                                    jitter=LAPLACE_JITTER, device="cuda")
+    impl = cholesky._robust_cholesky_impl
+    boosts = []
+
+    def recording_impl(gram_, *a_, **kw_):
+        l_, extra_ = impl(gram_, *a_, **kw_)
+        boosts.append(extra_)
+        return l_, extra_
+
+    with mock.patch.object(cholesky, "_robust_cholesky_impl",
+                           recording_impl):
+        prep_k = tgt_l3.prepare(theta)
+        boosts_k, boosts[:] = list(boosts), []
+        with mock.patch.object(chol_hopper, "_cuda_chol_panel",
+                               chol_hopper._ref_chol_panel):
+            before = read_counts()
+            prep_p = tgt_l3.prepare(theta)
+            if read_counts() != before:
+                raise AssertionError("laplace prepare: the plain path "
+                                     "launched a kernel")
+        boosts_p = list(boosts)
+    torch.cuda.synchronize()
+    if len(boosts_k) != 9 or len(boosts_p) != 9:
+        raise AssertionError(f"laplace prepare: {len(boosts_k)} and "
+                             f"{len(boosts_p)} factorisations, not 1 + 6 + 2")
+    same_l = torch.ones(B, dtype=torch.bool, device=dev)
+    for bk, bp in zip(boosts_k, boosts_p):
+        same_l &= bk == bp
+    if int(same_l.sum()) < B - THETA_MAX_AMBIGUOUS:
+        raise AssertionError(f"laplace prepare: only {int(same_l.sum())} of "
+                             f"{B} chains settled on the same jitters")
+    prep_parity = {
+        "f_hat": check_close("laplace prepare", "f_hat", prep_k[1],
+                             prep_p[1], LAPLACE_F_TOL, same_l),
+        "chol_q": check_close("laplace prepare", "chol_q", prep_k[2],
+                              prep_p[2], LAPLACE_CHOL_TOL, same_l),
+        "half_logdet_q": check_close("laplace prepare", "half_logdet_q",
+                                     prep_k[3], prep_p[3],
+                                     LAPLACE_LOGDET_TOL, same_l),
+        "chol_k": check_close("laplace prepare", "chol_k", prep_k[0],
+                              prep_p[0], PATH_CHOL_TOL, same_l),
+    }
+    emit({"phase": "main_path_laplace", "card": smi, "args": LAPLACE_CLI_ARGS,
+          "launches": cnt_l,
+          "chain_steps_per_sec": summary_l["chain_steps_per_sec"],
+          "ess_u/moved": win_l["ess_u/moved"],
+          "slice_theta/n_probe": win_l["slice_theta/n_probe"],
+          "chol_panel_launches_per_step": panel_per_step_l,
+          "peak_memory_gb": peak_l,
+          **{k_: prof_l[k_] for k_ in (
+              "wall_ms_per_step", "device_busy_ms_per_step",
+              "device_idle_share", "kernel_launches_per_step",
+              "host_syncs_per_step", "device_ms_per_step_by_kernel")},
+          "prepare_parity": {
+              "jitter": LAPLACE_JITTER,
+              "chains_with_the_same_jitters": int(same_l.sum()),
+              "chains_with_a_raised_jitter": {
+                  "kernel": int(sum((b_ > 0) for b_ in boosts_k).gt(0).sum()),
+                  "plain": int(sum((b_ > 0) for b_ in boosts_p).gt(0).sum())},
+              "tol": {"f_hat": LAPLACE_F_TOL, "chol_q": LAPLACE_CHOL_TOL,
+                      "half_logdet_q": LAPLACE_LOGDET_TOL,
+                      "chol_k": PATH_CHOL_TOL},
+              "max_abs_err": prep_parity}})
+    del prep_k, prep_p, tgt_l3
+    torch.cuda.empty_cache()
     end_phase()
 
     # ---------------------------------------------------------------- result

@@ -173,19 +173,33 @@ def test_init_chain_states_holds_the_cache_invariant(targets):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"ard": True, "proposal": "laplace"}, {"proposal": "laplace"},
+    {"proposal": "laplace", "whiten_dtype": "bfloat16"},
+    {"proposal": "laplace", "particle_axis": "mesh"},
     {"particle_axis": "particles"},
 ])
 def test_unported_options_stop_loudly(kwargs):
     x, y = _data()
-    if "particle_axis" in kwargs:
+    if kwargs.get("particle_axis") == "particles":
         # particle sharding is ported: the axis is a parallel.mesh.Mesh (it
         # carries the process group); the reference's axis NAME is refused
         with pytest.raises(TypeError, match="Mesh"):
             tmake(x, y, n_importance=S, device="cpu", **kwargs)
         return
+    if "whiten_dtype" in kwargs:
+        # the reference's refusal: bf16 whitening is a prior-proposal option
+        with pytest.raises(ValueError, match="prior proposal"):
+            tmake(x, y, n_importance=S, device="cpu", **kwargs)
+        return
+    # the Laplace proposal is ported unsharded (tests/test_torch_laplace.py);
+    # on a particle-sharded target it is not yet
+    from auxpm_tpu_torch.parallel.mesh import Mesh
+
+    mesh = Mesh(rank=0, world=2, n_chain_shards=1, n_particle_shards=2,
+                chain_index=0, particle_index=0, particle_group=None,
+                chain_group=None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake(x, y, n_importance=S, device="cpu", **kwargs)
+        tmake(x, y, n_importance=S, device="cpu",
+              **{**kwargs, "particle_axis": mesh})
 
 
 def test_cuda_device_without_a_gpu_raises(monkeypatch):

@@ -300,38 +300,48 @@ def test_cache_gate_follows_the_sampler_family(sampler, cached):
                     "--max-step-out", "0"], result=out)
     assert rc == 0
     assert ("target_cache" in out["states"].extras) == cached
-    groups = {"pm_mh": {"step_size"}, "aux_mh": {"ess_u", "mh_theta"},
+    groups = {"pm_mh": {"step_size"}, "aux_mh": {"mh_theta"},
               "aux_slice": {"ess_u", "slice_theta"}}[sampler]
     assert set(out["params"]) == groups
     assert np.isfinite(out["theta"]).all()
 
 
-@pytest.mark.parametrize("sampler", ["pm_mh", "aux_mh"])
+SHARDED_DECISIONS = {"pm_mh": ("accept",), "aux_mh": ("mh_theta/accept",),
+                     "joint_mh": ("joint_mh/accept",),
+                     "aux_slice_joint": ("ess_u/moved", "slice_theta/n_probe",
+                                         "joint_slice/moved",
+                                         "joint_slice/n_probe")}
+
+
+@pytest.mark.parametrize("sampler", sorted(SHARDED_DECISIONS))
 def test_particle_sharded_run_matches_the_unsharded_run(sampler):
     """``--sharded true --particle-shards 2`` on two gloo ranks: the ranks
     hold 8 of every chain's 16 rows, draw the rows the unsharded state
-    draws there (block generators) and fold the estimate with a collective;
-    both ranks end bitwise equal, and the run follows the unsharded run's
-    chains to rounding (the collective folds in another order than the
-    estimator), with the same accepts."""
+    draws there (block generators; the joint kernels' v too) and fold the
+    estimate with a collective; both ranks end bitwise equal, and the run
+    follows the unsharded run's chains to rounding (the collective folds in
+    another order than the estimator), with the same decisions (window means
+    of the accepts, moves and probe counts)."""
     from auxpm_tpu_torch.parallel import rank_jobs
     from auxpm_tpu_torch.parallel.launch import spawn
 
     argv = ["--device", "cpu", "--sampler", sampler, "--chains", "3",
             "--subsample", "60", "--n-importance", "16", "--warmup-windows",
-            "1", "--window-steps", "3", "--steps", "6", "--step-size", "0.3"]
+            "1", "--window-steps", "3", "--steps", "6", "--step-size", "0.3",
+            "--max-step-out", "0"]
     ranks = spawn(rank_jobs.cli, 2, ["--sharded", "true", "--particle-shards",
                                      "2", *argv], timeout_s=180)
     whole = {}
     assert trun.main(argv, result=whole) == 0
     for r in ranks:
-        assert r["u_shape"] == (3, 8, 128) and r["widths"] is None
+        assert r["u_shape"] == (3, 8, 128)
+        assert (r["widths"] is None) == (sampler != "aux_slice_joint")
         np.testing.assert_array_equal(r["theta"], ranks[0]["theta"])
         np.testing.assert_array_equal(r["log_lik_hat"],
                                       ranks[0]["log_lik_hat"])
-    acc = "accept" if sampler == "pm_mh" else "mh_theta/accept"
-    assert [w[acc] for w in ranks[0]["windows"]] == [
-        w[acc] for w in whole["windows"]]
+    for key in SHARDED_DECISIONS[sampler]:
+        assert [w[key] for w in ranks[0]["windows"]] == [
+            w[key] for w in whole["windows"]], key
     np.testing.assert_allclose(ranks[0]["recorded_theta"], whole["theta"],
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(ranks[0]["log_lik_hat"],

@@ -275,7 +275,9 @@ def test_unported_paths_stop_loudly(slice_run):
     with pytest.raises(ValueError, match="unknown param group"):
         step_t(st, {"slice_thet": {}})
     assert compose([]).stage_names == ()
-    assert sorted(SAMPLERS) == ["aux_mh", "aux_slice", "pm_mh"]
+    assert sorted(SAMPLERS) == [
+        "aux_mh", "aux_slice", "aux_slice_joint", "aux_slice_pcrd",
+        "aux_slice_rd", "joint_mh", "joint_slice", "pm_mh"]
     # what used to stop here now runs (held against the reference in
     # test_torch_stepout.py): stepping out with the per-probe log_sigma
     # coordinate, and the uncached path
@@ -379,8 +381,9 @@ def test_cli_lists_presets(capsys):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"proposal": "laplace"}, {"sampler": "aux_nuts"}, {"multihost": True},
-    {"sampler": "joint_slice"}, {"sampler": "aux_slice_rd"},
+    {"sampler": "aux_hmc"}, {"sampler": "aux_nuts"}, {"multihost": True},
+    {"sampler": "smc"},
+    {"proposal": "laplace", "sharded": True, "particle_shards": 2},
 ])
 def test_config_refuses_unported_parts(overrides):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
