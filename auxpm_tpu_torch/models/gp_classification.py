@@ -57,6 +57,14 @@ sampler takes its generic path, each probe paying ``1 + newton_iters + 2``
 factorisations.  A particle-sharded Laplace target is not ported yet
 (ROADMAP.md).
 
+``log_lik_est(theta, u)`` and ``log_prior`` are differentiable in theta on
+both devices, isotropic and ARD (what HMC and NUTS need): ``prepare`` ->
+``robust_cholesky`` -> the estimator go through the ``torch.autograd.
+Function``s of ``ops/`` (``SeGramArd``, ``RobustCholesky``,
+``FusedEstimate``), whose forwards are the kernels on the card and whose
+backwards are plain PyTorch.  A particle-sharded target's estimate folds
+through collectives, which have no reverse mode here.
+
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  The reference's memory gates on its sweeps belong to the TPU; the
 port's factories return None where the sweep body refuses the shapes
@@ -84,7 +92,7 @@ from auxpm_tpu_torch.ops.fused_estimator import (
     make_fused_rot_weights,
     make_fused_weights,
 )
-from auxpm_tpu_torch.ops.gram import se_gram_ard_hopper, se_gram_iso
+from auxpm_tpu_torch.ops.gram import SeGramArd, se_gram_iso
 from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 from auxpm_tpu_torch.ops.sigma_sweep import make_fused_sigma_sweep
 
@@ -117,7 +125,8 @@ def make_gp_classification(
       n_importance: S, importance samples per estimate.
       likelihood: "logistic" or "probit".
       ard: per-dimension lengthscales if True (theta is (d+1)-dimensional;
-        every ell probe builds its Gram with ``ops/gram.se_gram_ard_hopper``).
+        every ell probe builds its Gram with ``ops/gram.se_gram_ard_hopper``,
+        through ``SeGramArd``).
       jitter: relative diagonal nugget (see the module docstring).
       pad_to_tiles: pad the dataset axis to a multiple of 128.  The CUDA
         kernels need the padded layout; unpadded targets run on the CPU only.
@@ -194,8 +203,8 @@ def make_gp_classification(
         """R(ell) + jitter I: the sigma-independent correlation matrix."""
         if ard:
             # zero covariance to/from pad rows, pad diagonal exactly 1
-            return se_gram_ard_hopper(x_pad, log_ell, jitter,
-                                      mask if pad else None)
+            return SeGramArd.apply(x_pad, log_ell, jitter,
+                                   mask if pad else None)
         # sqdist padding already zeroes the off-diagonal pad entries
         return se_gram_iso(sqdist, log_ell, 0.0, jitter)
 

@@ -30,8 +30,18 @@ the block that completes a chain's last tile folds it.
 
 A row's weight has the same bits whichever rows share its call (the K ranks
 of a particle group rest on it), and a chain's result the same bits whichever
-chains share its call.  No backward kernel: nothing on the ported paths
-differentiates through them.
+chains share its call.
+
+Reverse mode (the reference's ``custom_vjp`` on the estimate and the
+weights): ``FusedEstimate`` and ``FusedWeights`` are ``torch.autograd.
+Function``s whose forward is the dispatch above (the kernel for a CUDA
+tensor, the plain version for a CPU tensor, the same on both devices) and
+whose backward is ``torch.autograd.grad`` of the plain version
+(``_ref_estimate`` / ``_ref_weights``) recomputed from the saved ``(chol,
+u)`` in exact f32; there is no backward kernel, as the reference has none.
+``make_fused_estimator`` and ``make_fused_weights`` return callables through
+them.  The rotated entries and the sweeps have no reverse mode: no gradient
+path reaches them.
 
 The wrappers whose kernel keeps a list of active chains (the rotated
 estimate and the rotated weights here, both sweeps) split a call of more
@@ -429,15 +439,68 @@ def fused_rot_weights(chol, u, v, angle, y, mask, likelihood="logistic",
                              whiten_dtype, active)
 
 
+def _plain_vjp(plain, chol, u, g, needs):
+    """Gradients of ``plain(chol, u)`` with respect to the inputs in
+    ``needs`` for the cotangent ``g``, recomputed in exact f32."""
+    with torch.enable_grad():
+        c = chol.detach().requires_grad_(needs[0])
+        uu = u.detach().requires_grad_(needs[1])
+        wrt = [a for a, need in zip((c, uu), needs) if need]
+        grads = iter(torch.autograd.grad(plain(c, uu), wrt, g))
+    return tuple(next(grads) if need else None for need in needs)
+
+
+class FusedEstimate(torch.autograd.Function):
+    """``fused_estimate`` with the reference's reverse-mode rule: the
+    backward is the gradient of ``_ref_estimate`` at the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, chol, u, y, mask, likelihood, n_blocks, log_s,
+                whiten_dtype):
+        ctx.save_for_backward(chol, u, y, mask)
+        ctx.args = (likelihood, n_blocks, log_s, whiten_dtype)
+        return fused_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
+                              whiten_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        chol, u, y, mask = ctx.saved_tensors
+        gc, gu = _plain_vjp(
+            lambda c, uu: _ref_estimate(c, uu, y, mask, *ctx.args), chol, u,
+            g, ctx.needs_input_grad[:2])
+        return gc, gu, None, None, None, None, None, None
+
+
+class FusedWeights(torch.autograd.Function):
+    """``fused_weights`` with the reference's reverse-mode rule: the backward
+    is the vector-Jacobian product of ``_ref_weights`` at the saved
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, chol, u, y, mask, likelihood, whiten_dtype):
+        ctx.save_for_backward(chol, u, y, mask)
+        ctx.args = (likelihood, whiten_dtype)
+        return fused_weights(chol, u, y, mask, likelihood, whiten_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        chol, u, y, mask = ctx.saved_tensors
+        gc, gu = _plain_vjp(
+            lambda c, uu: _ref_weights(c, uu, y, mask, *ctx.args), chol, u,
+            g, ctx.needs_input_grad[:2])
+        return gc, gu, None, None, None, None
+
+
 def make_fused_estimator(y, mask, likelihood="logistic", n_blocks=1,
                          whiten_dtype="float32"):
-    """Returns ``est(chol (B,n,n), u (B,S,n)) -> (B,)``; ``n_blocks`` fixes
+    """Returns ``est(chol (B,n,n), u (B,S,n)) -> (B,)`` through
+    ``FusedEstimate`` (differentiable in both arguments); ``n_blocks`` fixes
     the reduction tree and ``whiten_dtype`` the product's precision, both
     part of the estimator's definition."""
     y = y.to(torch.float32).contiguous()
     mask = mask.to(torch.float32).contiguous()
-    return lambda chol, u: fused_estimate(chol, u, y, mask, likelihood,
-                                          n_blocks, None, whiten_dtype)
+    return lambda chol, u: FusedEstimate.apply(chol, u, y, mask, likelihood,
+                                               n_blocks, None, whiten_dtype)
 
 
 def make_fused_rot_estimator(y, mask, likelihood="logistic", n_blocks=1,
@@ -452,11 +515,12 @@ def make_fused_rot_estimator(y, mask, likelihood="logistic", n_blocks=1,
 
 
 def make_fused_weights(y, mask, likelihood="logistic", whiten_dtype="float32"):
-    """Returns ``lw(chol (B,n,n), u (B,S_local,n)) -> (B, S_local)``."""
+    """Returns ``lw(chol (B,n,n), u (B,S_local,n)) -> (B, S_local)`` through
+    ``FusedWeights`` (differentiable in both arguments)."""
     y = y.to(torch.float32).contiguous()
     mask = mask.to(torch.float32).contiguous()
-    return lambda chol, u: fused_weights(chol, u, y, mask, likelihood,
-                                         whiten_dtype)
+    return lambda chol, u: FusedWeights.apply(chol, u, y, mask, likelihood,
+                                              whiten_dtype)
 
 
 def make_fused_rot_weights(y, mask, likelihood="logistic",

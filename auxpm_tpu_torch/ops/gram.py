@@ -19,7 +19,10 @@ raises): a persistent grid over the (chain, 64-tile pair i >= j) items, each
 tile computed once and written with its mirror, bitwise symmetric; x is
 scaled by exp(-log_ell) inside the kernel, as ``_scaled`` forms it.  On a CPU
 tensor it takes ``se_gram_ard_masked``, the plain version of the same
-function.
+function.  ``SeGramArd`` makes it differentiable in ``log_ells`` on both
+devices: the backward is autograd through ``se_gram_ard_masked`` recomputed
+at the saved lengthscales, the semantics of the reference's plain ARD Gram,
+which its CPU path differentiates.
 """
 
 from __future__ import annotations
@@ -149,3 +152,25 @@ def se_gram_ard_hopper(x, log_ells, jitter=1e-6, mask=None):
     if x.device.type == "cpu":
         return se_gram_ard_masked(x, log_ells, jitter, mask)
     return _cuda_se_gram_ard(x, log_ells, jitter, mask)
+
+
+class SeGramArd(torch.autograd.Function):
+    """``se_gram_ard_hopper`` differentiable in ``log_ells``: forward the
+    kernel (card) or the plain version (CPU), backward autograd through
+    ``se_gram_ard_masked``.  ``SeGramArd.apply(x, log_ells, jitter, mask)``
+    is what the GP target calls."""
+
+    @staticmethod
+    def forward(ctx, x, log_ells, jitter, mask):
+        ctx.save_for_backward(x, log_ells, mask)
+        ctx.jitter = jitter
+        return se_gram_ard_hopper(x, log_ells, jitter, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, log_ells, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            le = log_ells.detach().requires_grad_(True)
+            (gl,) = torch.autograd.grad(
+                se_gram_ard_masked(x, le, ctx.jitter, mask), le, g)
+        return None, gl, None, None

@@ -10,6 +10,10 @@
     python -m auxpm_tpu_torch.run --sampler aux_slice_pcrd  # or aux_slice_rd,
         # aux_slice_joint, joint_slice, joint_mh
     python -m auxpm_tpu_torch.run --proposal laplace --n-importance 16
+    python -m auxpm_tpu_torch.run --sampler aux_nuts --chains 128  # aux_hmc
+    python -m auxpm_tpu_torch.run --sampler smc --particles 1024 \
+        --smc-rejuvenation aux_nuts          # aux_slice, aux_hmc
+    python -m auxpm_tpu_torch.run --preset smc_toy --device cpu
     python -m auxpm_tpu_torch.run --preset pima_aux_slice \
         --checkpoint-dir ckpt --checkpoint-every 2 --profile-dir prof \
         --plots fig --metrics-path metrics.jsonl
@@ -35,8 +39,13 @@ resumes from it bit for bit), posterior summaries and ESS/sec on exit as one
 JSON line, and with ``--plots PREFIX`` the trace, density and autocorrelation
 figures (matplotlib).  The carried Cholesky factor is used by the
 ``aux_slice`` family only, as in the reference: the other samplers would
-only refresh it, one more factorisation per step.  Runs on the GPU unless
-``--device cpu`` is given; without a GPU and without that flag it raises.
+only refresh it, one more factorisation per step.  ``aux_hmc`` and
+``aux_nuts`` warm up with per-chain dual averaging of the step size and a
+diagonal mass per window (``samplers/adaptation.warmup``).  ``--sampler
+smc`` runs the single-device tempering SMC (``samplers/smc.py``) with the
+rejuvenation ``--smc-rejuvenation`` and prints one ``smc_summary`` line.
+Runs on the GPU unless ``--device cpu`` is given; without a GPU and without
+that flag it raises.
 """
 
 from __future__ import annotations
@@ -78,7 +87,8 @@ def main(argv=None, result=None):
 
     ``result``: optional dict that is filled with the final ``states``,
     ``params``, the ``target``, the ``step``, the recorded ``theta``, the
-    per-window metrics (``windows``), the ``summary``, the checkpoint's
+    per-window metrics (``windows``) and the warm-up's (``history``), the
+    ``summary``, the checkpoint's
     ``config`` (what ``load_checkpoint`` hashes) and, for a sharded run,
     this rank's ``mesh`` (states and target are then the rank's share), for
     a caller that drives the CLI from Python."""
@@ -148,6 +158,8 @@ def main(argv=None, result=None):
     target = build_target(cfg)
     metrics = MetricsWriter(cfg.metrics_path if lead else None,
                             quiet=not lead)
+    if cfg.sampler == "smc":
+        return _run_smc(cfg, target, metrics, device_name, sync, result)
     params = initial_params(cfg, target)
     n_chains, particle_axis = cfg.chains, None
     if mesh is not None:
@@ -264,7 +276,43 @@ def main(argv=None, result=None):
     if result is not None:
         result.update(states=states, params=params, target=target,
                       theta=theta, windows=windows, summary=summary,
-                      mesh=mesh, step=step, config=ckpt_cfg)
+                      mesh=mesh, step=step, config=ckpt_cfg, history=history)
+    return 0
+
+
+def _run_smc(cfg, target, metrics, device_name, sync, result):
+    """The single-device SMC run: one ``smc_summary`` line, as the
+    reference's ``_run_smc`` prints it (plus the device and the seconds of
+    each stage)."""
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+    from auxpm_tpu_torch.samplers.smc import make_smc
+
+    run = make_smc(target, SAMPLERS[cfg.smc_rejuvenation], cfg.particles,
+                   n_mcmc=cfg.smc_n_mcmc, ess_frac=cfg.smc_ess_frac)
+    t0 = time.time()
+    states, diag = run(cfg.seed)
+    sync()
+    wall = time.time() - t0
+    theta = states.theta.cpu().numpy().astype(np.float64)
+    summary = {
+        "phase": "smc_summary",
+        "device": device_name,
+        "wall": round(wall, 2),
+        "n_stages": diag["n_stages"],
+        "log_z": round(diag["log_z"], 4),
+        "betas": [round(b, 4) for b in diag["betas"]],
+        "stage_seconds": [round(x, 3) for x in diag["stage_seconds"]],
+        "posterior_mean": np.round(theta.mean(0), 4).tolist(),
+        "posterior_std": np.round(theta.std(0), 4).tolist(),
+    }
+    metrics.write(summary)
+    metrics.close()
+    print(json.dumps(summary))
+    if cfg.out:
+        np.savez(cfg.out, theta=theta)
+    if result is not None:
+        result.update(states=states, target=target, diag=diag,
+                      summary=summary)
     return 0
 
 

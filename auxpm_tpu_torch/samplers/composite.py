@@ -12,19 +12,22 @@ pseudo-marginal slice sampling" is the composition (ESS on u | theta) then
 - ``pm_mh``:           plain pseudo-marginal MH baseline
 - ``joint_slice``:     joint (theta, u) slice updates alone
 - ``joint_mh``:        joint random-walk MH on theta with a pCN move on u
+- ``aux_hmc``:         ESS(u) then HMC(theta)
+- ``aux_nuts``:        ESS(u) then NUTS(theta)
 
 ``THETA_ONLY`` holds the theta | u kernels without a u-update (the
-rejuvenation kernels of the reference's sharded SMC).  ``aux_hmc``,
-``aux_nuts``, the gradient-based theta-only kernels and SMC are listed in
-ROADMAP.md.
+rejuvenation kernels of the reference's sharded SMC): ``slice_theta``,
+``mh_theta``, ``nuts`` and ``hmc``.
 """
 
 from __future__ import annotations
 
 from auxpm_tpu_torch.core.transition import compose
 from auxpm_tpu_torch.samplers.ess_u import make_ess_u
+from auxpm_tpu_torch.samplers.hmc import make_hmc
 from auxpm_tpu_torch.samplers.joint_slice import make_joint_mh, make_joint_slice
 from auxpm_tpu_torch.samplers.mh_theta import make_mh_theta
+from auxpm_tpu_torch.samplers.nuts import make_nuts
 from auxpm_tpu_torch.samplers.pm_mh import make_pm_mh
 from auxpm_tpu_torch.samplers.slice_theta import (
     make_slice_theta,
@@ -110,17 +113,26 @@ def make_joint_mh_kernel(target, particle_axis=None):
     return compose([("joint_mh", make_joint_mh(target, particle_axis))])
 
 
+def make_aux_hmc(target, particle_axis=None):
+    """ESS(u) then HMC(theta), one elliptical-slice update per step."""
+    return compose([("ess_u", make_ess_u(target, particle_axis)),
+                    ("hmc", make_hmc(target))])
+
+
+def make_aux_nuts(target, particle_axis=None):
+    """ESS(u) then NUTS(theta), one elliptical-slice update per step."""
+    return compose([("ess_u", make_ess_u(target, particle_axis)),
+                    ("nuts", make_nuts(target))])
+
+
 def _make_theta_only(kind):
     """theta | u kernels with NO u-update; ``particle_axis`` is accepted and
     unused (a theta probe pays the whole estimator either way)."""
-    makers = {"slice_theta": make_slice_theta, "mh_theta": make_mh_theta}
+    makers = {"slice_theta": make_slice_theta, "mh_theta": make_mh_theta,
+              "nuts": make_nuts, "hmc": make_hmc}
 
     def factory(target, particle_axis=None):
         del particle_axis
-        if kind not in makers:
-            raise NotImplementedError(
-                f"the theta-only {kind!r} kernel is not ported to "
-                "auxpm_tpu_torch yet; see ROADMAP.md (item 6, HMC and NUTS)")
         return compose([(kind, makers[kind](target))])
 
     return factory
@@ -137,6 +149,8 @@ SAMPLERS = {
     "aux_slice_pcrd": make_aux_slice_pcrd,
     "aux_slice_joint": make_aux_slice_joint,
     "aux_mh": make_aux_mh,
+    "aux_hmc": make_aux_hmc,
+    "aux_nuts": make_aux_nuts,
     "joint_slice": make_joint_slice_kernel,
     "joint_mh": make_joint_mh_kernel,
 }

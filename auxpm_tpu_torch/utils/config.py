@@ -2,12 +2,13 @@
 
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
-same here.  Fields that select a part of the system not ported yet (samplers
-outside ``samplers.composite.SAMPLERS``, SMC, multi-host runs, the Laplace
-proposal on a particle-sharded target) are accepted by the parser and refused
-with ``NotImplementedError`` when used (``unsupported``).  ``PRESETS`` holds
-the presets the port can run, each field for field the reference's preset of
-the same name.
+same here.  Fields that select a part of the system not ported yet (the
+sharded SMC and its key-as-u mode, multi-host runs, the Laplace proposal on a
+particle-sharded target, HMC / NUTS on a particle-sharded or Laplace target)
+are accepted by the parser and refused with ``NotImplementedError`` naming
+the ROADMAP item when used (``unsupported``).  ``PRESETS`` holds the
+reference's presets, each field for field the reference's preset of the same
+name; ``smc_gp_nuts`` is sharded SMC with u kept as keys and is refused.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ class RunConfig:
     subsample: Optional[int] = None
     noise_frac: float = 0.3  # toy only
     # sampler
-    sampler: str = "aux_slice"  # key into samplers.composite.SAMPLERS
+    sampler: str = "aux_slice"  # key into samplers.composite.SAMPLERS, or "smc"
     chains: int = 4
     steps: int = 1000
     thin: int = 1
@@ -47,7 +48,7 @@ class RunConfig:
     nuts_step_size: float = 0.3
     # SMC
     particles: int = 4096
-    smc_rejuvenation: str = "aux_slice"
+    smc_rejuvenation: str = "aux_slice"  # aux_slice | aux_hmc | aux_nuts
     smc_n_mcmc: int = 2
     smc_ess_frac: float = 0.5
     smc_carry_u: bool = True
@@ -133,7 +134,33 @@ PRESETS = {
         steps=1000,
         ard=True,
     ),
+    # BASELINE config 5: SMC with distributed resampling and NUTS
+    # rejuvenation, u kept as its generating key (refused: ROADMAP queue 1,
+    # items 7b and 7c)
+    "smc_gp_nuts": RunConfig(
+        preset="smc_gp_nuts",
+        target="gp",
+        dataset="pima",
+        n_importance=32,
+        sampler="smc",
+        smc_rejuvenation="aux_nuts",
+        particles=4096,
+        sharded=True,
+        smc_carry_u=False,
+    ),
+    # single-device SMC on the Gaussian toy (closed-form evidence)
+    "smc_toy": RunConfig(
+        preset="smc_toy",
+        target="gaussian_toy",
+        n_importance=16,
+        sampler="smc",
+        smc_rejuvenation="aux_slice",
+        particles=2048,
+    ),
 }
+
+SMC_REJUVENATION = ("aux_slice", "aux_hmc", "aux_nuts")
+GRADIENT_SAMPLERS = ("aux_hmc", "aux_nuts")
 
 
 def unsupported(cfg: RunConfig):
@@ -141,21 +168,38 @@ def unsupported(cfg: RunConfig):
     that is not ported yet."""
     from auxpm_tpu_torch.samplers.composite import SAMPLERS
 
-    asked = []
+    asked = []   # (what, ROADMAP queue 1 item)
     if cfg.target not in ("gp", "gaussian_toy"):
         raise ValueError(f"unknown target {cfg.target!r}")
-    if cfg.sampler not in SAMPLERS:
-        asked.append(f"sampler={cfg.sampler!r}")
-    if (cfg.target == "gp" and cfg.proposal == "laplace" and cfg.sharded
-            and cfg.particle_shards > 1):
-        asked.append("proposal='laplace' with --particle-shards > 1")
+    smc = cfg.sampler == "smc"
+    if not smc and cfg.sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+    if smc and cfg.smc_rejuvenation not in SMC_REJUVENATION:
+        raise ValueError(f"smc_rejuvenation must be one of {SMC_REJUVENATION}"
+                         f", got {cfg.smc_rejuvenation!r}")
+    if smc and cfg.sharded:
+        asked.append(("--sharded true with --sampler smc", "7c"))
+    if smc and not cfg.smc_carry_u:
+        asked.append(("smc_carry_u=False (u kept as keys)", "7b and 7c"))
+    sharded_particles = cfg.sharded and cfg.particle_shards > 1
+    gradient = (cfg.sampler in GRADIENT_SAMPLERS
+                or (smc and cfg.smc_rejuvenation in GRADIENT_SAMPLERS))
+    if cfg.target == "gp" and cfg.proposal == "laplace" and sharded_particles:
+        asked.append(("proposal='laplace' with --particle-shards > 1", "8"))
+    if gradient and sharded_particles:
+        # the collective estimate has no reverse mode
+        asked.append(("HMC / NUTS with --particle-shards > 1", "8"))
+    if gradient and cfg.target == "gp" and cfg.proposal == "laplace":
+        asked.append(("HMC / NUTS with proposal='laplace'", "6"))
     if cfg.multihost:
-        asked.append("multihost")
+        asked.append(("multihost", "8"))
     if cfg.particle_shards > 1 and not cfg.sharded:
         raise ValueError("--particle-shards > 1 needs --sharded true")
     if asked:
         raise NotImplementedError(
-            "not ported to auxpm_tpu_torch yet: " + ", ".join(asked)
+            "not ported to auxpm_tpu_torch yet: "
+            + ", ".join(f"{what} (ROADMAP.md queue 1, item {item})"
+                        for what, item in asked)
             + "; see ROADMAP.md (modules still to port)"
         )
 
@@ -209,4 +253,8 @@ def initial_params(cfg: RunConfig, target):
         params["joint_mh"] = {"step_size": cfg.step_size}
     if cfg.sampler == "aux_mh":
         params["mh_theta"] = {"step_size": cfg.step_size}
+    if cfg.sampler == "aux_hmc":
+        params["hmc"] = {"step_size": cfg.nuts_step_size}
+    if cfg.sampler == "aux_nuts":
+        params["nuts"] = {"step_size": cfg.nuts_step_size}
     return params

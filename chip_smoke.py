@@ -101,7 +101,26 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 14. ``resume_bitwise`` config 2 at 128 chains: 2K steps against K, a
                   checkpoint (``utils/checkpoint``) saved and loaded, and K
                   more: theta, u, log L-hat and the carried factor bitwise
-                  equal.
+                  equal;
+15. ``main_path_theta_samplers``, ``path_parity_theta_samplers``,
+                  ``main_path_laplace`` the samplers of the tenth slice and
+                  the Laplace proposal on config 2's target;
+16. ``grad_parity`` the gradient of log L-hat at a state's theta (B=128
+                  isotropic, B=64 ARD) through the kernel forwards under the
+                  autograd Functions against the same Functions over the
+                  plain forwards (5 % of max(|g|, 1)), the reference's
+                  finite-difference check on the kernel path, and the
+                  forward and backward ms of each Function;
+17. ``main_path_hmc_nuts`` ``--sampler aux_hmc`` and ``aux_nuts`` (128
+                  chains, dual averaging and the mass over 2 x 10 warm-up
+                  steps, 20 steps); ``path_parity_hmc_nuts`` one theta move
+                  of each on the same draws through the estimator kernel and
+                  its plain version: accept bits (HMC), depth, n_leapfrog
+                  and the chosen point (NUTS) equal outside the margins;
+18. ``main_path_smc`` ``--sampler smc`` with ``aux_slice`` rejuvenation at
+                  1024 particles and ``aux_nuts`` at 256: logZ finite, the
+                  last beta 1, no sweep kernel on the tempered target, the
+                  launches of kernels 1 and 2 per stage.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -213,6 +232,22 @@ LAPLACE_CLI_ARGS = [
     "--window-steps", "3", "--steps", "6",
 ]
 LAPLACE_F_TOL, LAPLACE_CHOL_TOL, LAPLACE_LOGDET_TOL = 1e-3, 5e-3, 1e-2
+GRAD_RTOL = 5e-2               # kernel vs plain forwards, of max(|g|, 1)
+FD_STEP, FD_RTOL = 1e-2, 5e-2  # the reference's finite-difference check
+FD_N, FD_S = 32, 8             # ... at the reference's size (n=32 -> 128)
+FD_STEP_F64, FD_F64_RTOL = 1e-4, 1e-3  # float64 differences at full width
+HMC_WINDOW = 10
+HMC_CLI_ARGS = [               # aux_hmc / aux_nuts on config 2's target
+    "--preset", "pima_aux_slice", "--chains", str(B), "--warmup-windows", "2",
+    "--window-steps", str(HMC_WINDOW), "--steps", str(2 * HMC_WINDOW),
+]
+HMC_DECISION_TOL = 5e-3        # accept margin |delta H - log u|, and the
+                               # takes' |u - p|: twice the estimator's bar
+UTURN_DECISION_TOL = 1e-6      # U-turn dot over its norms
+GRAD_PATH_THETA_TOL = 1e-6     # theta after a trajectory, same gradients
+SMC_RUNS = (("aux_slice", 1024), ("aux_nuts", 256))   # rejuvenation, particles
+SMC_CLI_ARGS = ["--preset", "pima_aux_slice", "--sampler", "smc",
+                "--smc-n-mcmc", "2"]
 
 
 def log(*a):
@@ -2390,6 +2425,472 @@ def main():
               "max_abs_err": prep_parity}})
     del prep_k, prep_p, tgt_l3
     torch.cuda.empty_cache()
+    end_phase()
+
+    # ------------------------------------------------------- gradient parity
+    # grad of log L-hat at a state's theta (B = 128 isotropic, 64 ARD at the
+    # pima_ard_aux widths) through the kernel forwards of the estimator, the
+    # panel and the ARD Gram, against the same autograd Functions with their
+    # plain forwards, on the card; held on the chains where both sides chose
+    # the same jitter; then against the float64 gradient of the plain path
+    # and against its float64 central differences at step 1e-4 (5 % of
+    # max(|fd|, 1)); then the reference's finite-difference check (step
+    # 1e-2, 5 %) on the kernel path at the reference's size; then the
+    # forward and backward ms of each Function.
+    log("gradient parity")
+    from auxpm_tpu_torch.core.state import init_chain_states as init_states
+    from auxpm_tpu_torch.samplers import hmc as hmc_mod
+
+    def plain_forwards():
+        stack = contextlib.ExitStack()
+        for mod, cuda_fn, plain_fn in (
+                (fe, "_cuda_estimate", fe._ref_estimate),
+                (chol_hopper, "_cuda_chol_panel", chol_hopper._ref_chol_panel),
+                (gr, "_cuda_se_gram_ard", gr.se_gram_ard_masked)):
+            stack.enter_context(mock.patch.object(mod, cuda_fn, plain_fn))
+        return stack
+
+    impl_rc = cholesky._robust_cholesky_impl
+
+    def ll_grad(tgt_, theta_, u_, grad=True):
+        """log L-hat, its gradient (or None) and the jitter each chain's
+        factor settled on."""
+        boosts_ = []
+
+        def recording(gram_, *a_, **kw_):
+            l_, e_ = impl_rc(gram_, *a_, **kw_)
+            boosts_.append(e_)
+            return l_, e_
+
+        with mock.patch.object(cholesky, "_robust_cholesky_impl", recording):
+            th_ = theta_.detach().clone().requires_grad_(grad)
+            with torch.set_grad_enabled(grad):
+                ll_ = tgt_.log_lik_est(th_, u_)
+            g_ = torch.autograd.grad(ll_.sum(), th_)[0] if grad else None
+        torch.cuda.synchronize()
+        return ll_.detach(), g_, boosts_[0]
+
+    tgt_ard = make_gp_classification(x, y_np, n_importance=S, ard=True,
+                                     device="cuda")
+    x_pad64 = torch.as_tensor(np.concatenate(
+        [x, np.zeros((N - len(x), D_ARD), x.dtype)]), dtype=torch.float64,
+        device=dev)
+    sq64 = np.full((N, N), 1e30)
+    sq64[:len(x), :len(x)] = ((np.asarray(x, np.float64)[:, None]
+                               - np.asarray(x, np.float64)[None]) ** 2).sum(-1)
+    np.fill_diagonal(sq64, 0.0)
+    sq64 = torch.as_tensor(sq64, device=dev)
+    y64, mask64 = y.double(), mask.double()
+
+    def ll_f64(gram_fn):
+        """log L-hat in float64 through the plain path (no jitter raise)."""
+        def f(th_, u_):
+            l_, info_ = torch.linalg.cholesky_ex(gram_fn(th_))
+            l_ = torch.where((info_ > 0)[:, None, None],
+                             torch.full_like(l_, float("nan")), l_)
+            chol_ = torch.exp(th_[:, -1])[:, None, None] * l_
+            return fe._ref_estimate(chol_, u_, y64, mask64, "logistic", 8)
+        return f
+
+    gram_f64 = {
+        "iso": ll_f64(lambda th_: se_gram_iso(sq64, th_[:, 0], 0.0, 1e-5)),
+        "ard": ll_f64(lambda th_: gr.se_gram_ard_masked(
+            x_pad64, th_[:, :-1], 1e-5, mask64)),
+    }
+    grad_parity = {}
+    for label, tgt_, b_ in (("iso", target, B), ("ard", tgt_ard, B_ARD)):
+        st_g = init_states(21, tgt_, b_, jitter_scale=0.3)
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        ll_k, g_k, boost_k = ll_grad(tgt_, st_g.theta, st_g.u)
+        cnt_g = read_counts()
+        must = ("fused_estimator", "chol_panel") + (
+            ("se_gram_ard",) if label == "ard" else ())
+        for name in must:
+            if cnt_g[name] <= 0:
+                raise AssertionError(f"grad_parity/{label}: the gradient "
+                                     f"never launched {name}")
+        with plain_forwards():
+            before = read_counts()
+            ll_p, g_p, boost_p = ll_grad(tgt_, st_g.theta, st_g.u)
+            if read_counts() != before:
+                raise AssertionError(f"grad_parity/{label}: the plain "
+                                     "forwards launched a kernel")
+        same = boost_k == boost_p
+        if int(same.sum()) < b_ - THETA_MAX_AMBIGUOUS:
+            raise AssertionError(f"grad_parity/{label}: only "
+                                 f"{int(same.sum())} of {b_} chains settled "
+                                 "on the same jitter")
+        scale = torch.clamp(g_p.abs(), min=1.0)
+        rel_k = ((g_k - g_p).abs() / scale)[same]
+        if not bool(torch.isfinite(g_k).all()) or float(rel_k.max()) > \
+                GRAD_RTOL:
+            failures.append(f"grad_parity/{label}: |g_kernel - g_plain| / "
+                            f"max(|g|, 1) = {float(rel_k.max()):.3e} > "
+                            f"{GRAD_RTOL}")
+        # the same gradient in float64 through the plain path (the Gram, the
+        # library's factor and the plain estimate, autograd), held to its own
+        # central differences at FD_STEP_F64 (converged: second order); the
+        # kernel path's gradient is held to that float64 gradient and to
+        # those differences at the reference's 5 % bar, on the chains whose
+        # factor took no extra jitter.  Central differences at the
+        # reference's step 1e-2 are too coarse at this width, in float64 too
+        # (tests/test_torch_grad.py::
+        # test_fd_step_of_the_reference_is_too_coarse_at_full_width), and on
+        # the kernel path f32 noise of log L-hat (up to ~1e-2 where the Gram
+        # is near singular) is ~1 in a difference over 2e-2: both reported,
+        # not held; the step-1e-2 check is held at the reference's size.
+        f64 = gram_f64[label]
+
+        def ll64(th_):
+            return f64(th_, st_g.u.double())
+
+        th64 = st_g.theta.double().requires_grad_(True)
+        (g64,) = torch.autograd.grad(ll64(th64).sum(), th64)
+        keep64 = (boost_k == 0) & torch.isfinite(g64).all(-1)
+        rel64 = ((g_k.double() - g64).abs()
+                 / torch.clamp(g64.abs(), min=1.0))[keep64]
+        if int(keep64.sum()) < b_ // 2 or float(rel64.max()) > GRAD_RTOL:
+            failures.append(f"grad_parity/{label}: kernel vs float64 "
+                            f"gradient {float(rel64.max()):.3e} on "
+                            f"{int(keep64.sum())} of {b_} chains")
+
+        def fd_rel(fd_, g_):
+            return (fd_ - g_).abs() / torch.clamp(fd_.abs(), min=1.0)
+
+        err = {k_: torch.zeros_like(g64) for k_ in (
+            "f64_fine", "kernel_fine", "f64_coarse", "kernel_coarse",
+            "kernel_f32_coarse")}
+        with torch.no_grad():
+            for i_ in range(tgt_.d):
+                for h_, tag in ((FD_STEP_F64, "fine"), (FD_STEP, "coarse")):
+                    step_ = torch.zeros_like(g64)
+                    step_[:, i_] = h_
+                    th0 = st_g.theta.double()
+                    fd64 = (ll64(th0 + step_) - ll64(th0 - step_)) / (2 * h_)
+                    err[f"f64_{tag}"][:, i_] = fd_rel(fd64, g64[:, i_])
+                    err[f"kernel_{tag}"][:, i_] = fd_rel(
+                        fd64, g_k[:, i_].double())
+                step_ = torch.zeros_like(st_g.theta)
+                step_[:, i_] = FD_STEP
+                fd32 = (ll_grad(tgt_, st_g.theta + step_, st_g.u, False)[0]
+                        - ll_grad(tgt_, st_g.theta - step_, st_g.u, False)[0]
+                        ) / (2 * FD_STEP)
+                err["kernel_f32_coarse"][:, i_] = fd_rel(
+                    fd32.double(), g_k[:, i_].double())
+        fd_max = {k_: float(v_[keep64].max()) for k_, v_ in err.items()}
+        if not fd_max["f64_fine"] < FD_F64_RTOL:
+            failures.append(f"grad_parity/{label}: float64 gradient vs its "
+                            f"differences at {FD_STEP_F64}: "
+                            f"{fd_max['f64_fine']:.3e}")
+        if not fd_max["kernel_fine"] < FD_RTOL:
+            failures.append(f"grad_parity/{label}: kernel gradient vs "
+                            f"float64 differences at {FD_STEP_F64}: "
+                            f"{fd_max['kernel_fine']:.3e}")
+        grad_parity[label] = {
+            "B": b_, "d": tgt_.d, "launches_under_the_gradient": cnt_g,
+            "chains_with_the_same_jitter": int(same.sum()),
+            "chains_with_a_raised_jitter": {
+                "kernel": int((boost_k > 0).sum()),
+                "plain": int((boost_p > 0).sum())},
+            "grad_max_rel_err": float(rel_k.max()), "grad_rtol": GRAD_RTOL,
+            "ll_max_abs_err": max_err(ll_k[same], ll_p[same]),
+            "grad_abs_max": float(g_k.abs().max()),
+            "chains_vs_float64": int(keep64.sum()),
+            "grad_vs_float64_max_rel_err": float(rel64.max()),
+            "grad_vs_float64_median_rel_err": float(rel64.median()),
+            "fd_max_rel_err": fd_max,
+            "fd_chains_over_5_percent": {
+                k_: int((v_[keep64] >= FD_RTOL).any(-1).sum())
+                for k_, v_ in err.items()},
+            "fd_steps": {"fine": FD_STEP_F64, "coarse": FD_STEP},
+            "fd_rtol": FD_RTOL, "fd_f64_rtol": FD_F64_RTOL}
+        del st_g
+    # the reference's own check (tests/test_hmc_nuts.py:
+    # test_gp_estimator_gradient_matches_fd) on the kernel path: Pima
+    # subsampled to 32 points (padded to 128), S = 8, theta = [0.2, -0.1],
+    # step 1e-2, |fd - g| < 5 % of max(|fd|, 1) in each coordinate
+    x32, y32 = load("pima", subsample=FD_N)
+    tgt32 = make_gp_classification(x32, y32, n_importance=FD_S,
+                                   device="cuda")
+    u32 = t(np.random.default_rng(4).standard_normal((1, *tgt32.u_shape)))
+    th32 = t([[0.2, -0.1]])
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    _, g32, _ = ll_grad(tgt32, th32, u32)
+    if read_counts()["fused_estimator"] <= 0:
+        raise AssertionError("grad_parity: the reference's check did not "
+                             "launch the estimator")
+    fd_ref = []
+    for i_ in range(2):
+        step_ = torch.zeros_like(th32)
+        step_[0, i_] = FD_STEP
+        fd_ = float((ll_grad(tgt32, th32 + step_, u32, False)[0]
+                     - ll_grad(tgt32, th32 - step_, u32, False)[0])
+                    / (2 * FD_STEP))
+        fd_ref.append({"fd": fd_, "grad": float(g32[0, i_]),
+                       "rel_err": abs(fd_ - float(g32[0, i_]))
+                       / max(abs(fd_), 1.0)})
+        if not fd_ref[-1]["rel_err"] < FD_RTOL:
+            failures.append(f"grad_parity: the reference's finite-difference "
+                            f"check, coordinate {i_}: {fd_ref[-1]}")
+    grad_parity["reference_fd_check"] = {
+        "n": FD_N, "n_padded": tgt32.u_shape[1], "S": FD_S,
+        "theta": [0.2, -0.1], "step": FD_STEP, "rtol": FD_RTOL,
+        "coordinates": fd_ref}
+    # forward and backward ms of each Function at the main paths' shapes
+    th_t = init_states(21, target, B, jitter_scale=0.3).theta
+    gram_t = se_gram_iso(sqdist, th_t[:, 0], 0.0, 1e-5).requires_grad_(True)
+    l_t, _ = cholesky.RobustCholesky.apply(gram_t, 1e-5, 10.0, 3)
+    lbar_t = torch.randn_like(l_t)
+    chol_g = chol.detach().clone().requires_grad_(True)
+    u_g = u.detach().clone().requires_grad_(True)
+    est_t = fe.FusedEstimate.apply(chol_g, u_g, y, mask, "logistic", 8, None,
+                                   "float32")
+    u_w = u[:, :S_LOCAL].contiguous().requires_grad_(True)
+    w_t = fe.FusedWeights.apply(chol_g, u_w, y, mask, "logistic", "float32")
+    x_pad_g = t(np.concatenate([x, np.zeros((N - len(x), D_ARD), x.dtype)]))
+    le_g = t(rng.normal(size=(B_ARD, D_ARD)) * 0.3 + 1.5).requires_grad_(
+        True)
+    r_t = gr.SeGramArd.apply(x_pad_g, le_g, 1e-5, mask)
+    rbar_t = torch.randn_like(r_t)
+    g_est, g_w = torch.randn_like(est_t), torch.randn_like(w_t)
+    function_ms = {
+        "robust_cholesky": {
+            "forward_ms": time_ms(lambda: cholesky.RobustCholesky.apply(
+                gram_t.detach(), 1e-5, 10.0, 3)),
+            "backward_ms": time_ms(lambda: torch.autograd.grad(
+                l_t, gram_t, lbar_t, retain_graph=True))},
+        "fused_estimator": {
+            "forward_ms": time_ms(lambda: fe.FusedEstimate.apply(
+                chol, u, y, mask, "logistic", 8, None, "float32")),
+            "backward_ms": time_ms(lambda: torch.autograd.grad(
+                est_t, (chol_g, u_g), g_est, retain_graph=True))},
+        "fused_weights": {
+            "forward_ms": time_ms(lambda: fe.FusedWeights.apply(
+                chol, u_w.detach(), y, mask, "logistic", "float32")),
+            "backward_ms": time_ms(lambda: torch.autograd.grad(
+                w_t, (chol_g, u_w), g_w, retain_graph=True))},
+        "se_gram_ard": {
+            "forward_ms": time_ms(lambda: gr.SeGramArd.apply(
+                x_pad_g, le_g.detach(), 1e-5, mask)),
+            "backward_ms": time_ms(lambda: torch.autograd.grad(
+                r_t, le_g, rbar_t, retain_graph=True))},
+    }
+    shapes = {"robust_cholesky": [B, N, N], "fused_estimator": [B, S, N],
+              "fused_weights": [B, S_LOCAL, N], "se_gram_ard": [B_ARD, N, D_ARD]}
+    for k_, v_ in function_ms.items():
+        v_["shape"] = shapes[k_]
+    del gram_t, l_t, lbar_t, chol_g, u_g, est_t, u_w, w_t, r_t, rbar_t
+    torch.cuda.empty_cache()
+    emit({"phase": "grad_parity", "card": smi, **grad_parity,
+          "function_ms": function_ms})
+    end_phase()
+
+    # ---------------------------------------------- HMC and NUTS, main path
+    # --sampler aux_hmc, then aux_nuts, through the CLI on config 2's target
+    # at 128 chains (2 warm-up windows of 10 steps with dual averaging and
+    # the mass, then 20 steps): the estimator, the panel and the ESS sweep
+    # must launch, no other kernel; then a 3-step profile from the final
+    # state (profile_steps runs its steps twice).
+    hmc_runs, finals_h = {}, {}
+    for sampler, group in (("aux_hmc", "hmc"), ("aux_nuts", "nuts")):
+        args = HMC_CLI_ARGS + ["--sampler", sampler]
+        log(f"main path ({sampler}):", " ".join(args))
+        must = ("fused_estimator", "chol_panel", "ess_sweep")
+        res_h, cnt_h = run_cli(args, must,
+                               [k_ for k_ in counters if k_ not in must])
+        st_h = res_h["states"]
+        if st_h.u.shape != (B, S, N) or not st_h.u.is_cuda:
+            raise AssertionError(f"{sampler} did not run at full width on "
+                                 "the GPU")
+        if not np.isfinite(res_h["theta"]).all() or \
+                not bool(torch.isfinite(st_h.log_lik_hat).all()):
+            raise AssertionError(f"{sampler}: non-finite theta or log L-hat")
+        par_h = res_h["params"][group]
+        inv_mass = par_h["inv_mass"]
+        if not (isinstance(par_h["step_size"], float)
+                and 0 < par_h["step_size"] < 10
+                and bool(torch.isfinite(inv_mass).all())
+                and bool((inv_mass > 0).all())):
+            raise AssertionError(f"{sampler}: frozen params {par_h}")
+        if any(k_.startswith("da_") for k_ in st_h.extras):
+            raise AssertionError(f"{sampler}: dual averaging left in extras")
+        win = res_h["windows"]
+        stats = {k_: float(np.mean([w_[f"{group}/{k_}"] for w_ in win]))
+                 for k_ in (("accept", "accept_prob", "diverged")
+                            if group == "hmc" else
+                            ("depth", "n_leapfrog", "accept_prob",
+                             "diverged"))}
+        if not stats["accept_prob"] > 0.2:
+            raise AssertionError(f"{sampler}: mean accept statistic "
+                                 f"{stats['accept_prob']}")
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        hmc_mod.grad_calls = hmc_mod.grad_rows = hmc_mod.host_syncs = 0
+        syncs0 = cholesky.host_syncs
+        st_p, prof_h = profile_steps(res_h["step"], st_h, res_h["params"],
+                                     n_prof)
+        torch.cuda.synchronize()
+        n_run = 2 * n_prof
+        cnt_p = read_counts()
+        hmc_runs[sampler] = {
+            "launches": cnt_h,
+            "chain_steps_per_sec": res_h["summary"]["chain_steps_per_sec"],
+            "frozen_step_size": par_h["step_size"],
+            "frozen_inv_mass": inv_mass.tolist(),
+            "warmup": [{k_: v_ for k_, v_ in h_.items()
+                        if k_.startswith(group)} for h_ in res_h["history"]],
+            "main_run_means": stats,
+            "divergences_in_main_run": round(float(np.sum(
+                [w_[f"{group}/diverged"] for w_ in win])) * B * HMC_WINDOW),
+            "gradient_calls_per_step": hmc_mod.grad_calls / n_run,
+            "chain_gradients_per_chain_step":
+                hmc_mod.grad_rows / (n_run * B),
+            "chol_panel_launches_per_step": cnt_p["chol_panel"] / n_run,
+            "fused_estimator_launches_per_step":
+                cnt_p["fused_estimator"] / n_run,
+            "robust_cholesky_host_syncs_per_step":
+                (cholesky.host_syncs - syncs0) / n_run,
+            "sampler_host_syncs_per_step": hmc_mod.host_syncs / n_run,
+            **{k_: prof_h[k_] for k_ in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "kernel_launches_per_step",
+                "host_syncs_per_step", "device_ms_per_step_by_kernel")}}
+        finals_h[group] = (st_p, res_h["step"].stages[group],
+                           res_h["params"][group])
+        del res_h, st_h
+    emit({"phase": "main_path_hmc_nuts", "card": smi, "args": HMC_CLI_ARGS,
+          **hmc_runs})
+    end_phase()
+
+    # ---------------------------------------------- HMC and NUTS, path parity
+    # One theta move of each from its run's final state on the same draws,
+    # through the estimator kernel and through its plain version (the panel
+    # kernel shared, as in path_parity_theta_samplers).  Both sides then
+    # compute bitwise the same gradients (the same factor, the same plain
+    # backward), so theta follows the same trajectory; the energies differ
+    # by the estimator's rounding, and a decision whose margin sat inside
+    # HMC_DECISION_TOL may fall either way: such chains are excused and
+    # counted.  HMC: the accept bits equal; NUTS: depth, n_leapfrog and the
+    # chosen point equal; theta within GRAD_PATH_THETA_TOL and log L-hat
+    # within the estimator's bar on the others.
+    log("path parity (HMC, NUTS)")
+    path_h = {}
+    for group, (st_, stage_, par_) in finals_h.items():
+        rows_ = stage_.draw(st_.generator, st_, par_)
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        out_k, i_k = stage_.apply(st_, rows_, par_)
+        if read_counts()["fused_estimator"] <= 0:
+            raise AssertionError(f"path_parity_hmc_nuts/{group}: the kernel "
+                                 "path never launched the estimator")
+        plog = []
+        with mock.patch.object(fe, "_cuda_estimate", fe._ref_estimate):
+            before = read_counts()
+            out_p, i_p = stage_.apply(st_, rows_, {**par_, "probe_log": plog})
+            if read_counts()["fused_estimator"] != before["fused_estimator"]:
+                raise AssertionError(f"path_parity_hmc_nuts/{group}: the "
+                                     "plain path launched the estimator")
+        torch.cuda.synchronize()
+        amb = torch.zeros(B, dtype=torch.bool, device=dev)
+        for kind, counted, margin in plog:
+            tol_ = UTURN_DECISION_TOL if kind == "uturn" else HMC_DECISION_TOL
+            amb |= counted & (margin.abs() <= tol_)
+        keys = ("accept", "diverged") if group == "hmc" else (
+            "depth", "n_leapfrog", "diverged")
+        agree = torch.ones(B, dtype=torch.bool, device=dev)
+        for k_ in keys:
+            agree &= i_k[k_] == i_p[k_]
+        point = (out_k.theta - out_p.theta).abs().max(-1).values \
+            <= GRAD_PATH_THETA_TOL
+        n_amb, n_bad = int(amb.sum()), int((~(agree & point) & ~amb).sum())
+        if n_amb > THETA_MAX_AMBIGUOUS:
+            failures.append(f"path_parity_hmc_nuts/{group}: {n_amb} chains "
+                            "had a decision inside the tolerance")
+        if n_bad:
+            failures.append(f"path_parity_hmc_nuts/{group}: decisions or the "
+                            f"chosen point differ on {n_bad} chains whose "
+                            "margins were all outside the tolerance")
+        keep = agree & point
+        path_h[group] = {
+            "decisions_logged": len(plog),
+            "chains_with_a_decision_inside_tolerance": n_amb,
+            "decision_tol": HMC_DECISION_TOL,
+            "chains_with_a_differing_decision": int((~agree).sum()),
+            "of_those_outside_tolerance": n_bad,
+            "chains_compared": int(keep.sum()),
+            "max_abs_err": {
+                "theta": check_close(f"path_parity_hmc_nuts/{group}",
+                                     "theta", out_k.theta, out_p.theta,
+                                     GRAD_PATH_THETA_TOL, keep),
+                "ll": check_close(f"path_parity_hmc_nuts/{group}", "ll",
+                                  out_k.log_lik_hat, out_p.log_lik_hat,
+                                  LL_TOL, keep, LL_RTOL)},
+            "means": {k_: float(v_.mean()) for k_, v_ in i_k.items()}}
+    del finals_h
+    emit({"phase": "path_parity_hmc_nuts", "B": B, **path_h})
+    end_phase()
+
+    # --------------------------------------------------------- SMC, one card
+    # --sampler smc on config 2's target: aux_slice rejuvenation at 1024
+    # particles, then aux_nuts at 256, two MCMC steps per stage.  The
+    # tempered target has no sweep factory, so neither sweep kernel may
+    # launch; the estimator and the panel must.  A stage hook counts the
+    # launches of kernels 1 and 2 in each stage.
+    from auxpm_tpu_torch.samplers import smc as smc_mod
+
+    make_smc_real = smc_mod.make_smc
+    smc_runs = {}
+    for rejuv, n_part in SMC_RUNS:
+        args = SMC_CLI_ARGS + ["--smc-rejuvenation", rejuv, "--particles",
+                               str(n_part)]
+        log(f"main path (smc, {rejuv}):", " ".join(args))
+        per_stage = []
+
+        def make_smc_counting(*a_, **kw_):
+            run_ = make_smc_real(*a_, **kw_)
+
+            def run_counting(seed, **kw2):
+                last = [read_counts()]
+
+                def on_stage(s_, b_, st_, info_):
+                    now = read_counts()
+                    per_stage.append({k_: now[k_] - last[0][k_] for k_ in
+                                      ("fused_estimator", "chol_panel")})
+                    last[0] = now
+
+                return run_(seed, on_stage=on_stage, **kw2)
+
+            return run_counting
+
+        must = ("fused_estimator", "chol_panel")
+        with mock.patch.object(smc_mod, "make_smc", make_smc_counting):
+            res_s, cnt_s = run_cli(args, must,
+                                   [k_ for k_ in counters if k_ not in must])
+        diag = res_s["diag"]
+        st_s = res_s["states"]
+        if st_s.u.shape != (n_part, S, N) or not st_s.u.is_cuda:
+            raise AssertionError(f"smc/{rejuv} did not run at full width on "
+                                 "the GPU")
+        if not math.isfinite(diag["log_z"]) or diag["betas"][-1] < 1.0:
+            raise AssertionError(f"smc/{rejuv}: logZ {diag['log_z']}, final "
+                                 f"beta {diag['betas'][-1]}")
+        if not bool(torch.isfinite(st_s.theta).all()):
+            raise AssertionError(f"smc/{rejuv}: non-finite particles")
+        smc_runs[rejuv] = {
+            "particles": n_part, "n_stages": diag["n_stages"],
+            "betas": diag["betas"], "log_z": diag["log_z"],
+            "stage_seconds": diag["stage_seconds"],
+            "wall_s": res_s["summary"]["wall"],
+            "launches_per_stage": per_stage, "launches": cnt_s,
+            "sweep_kernel_launches": cnt_s["ess_sweep"] + cnt_s["sigma_sweep"],
+            "posterior_mean": res_s["summary"]["posterior_mean"],
+            "posterior_std": res_s["summary"]["posterior_std"]}
+        del res_s, st_s
+        torch.cuda.empty_cache()
+    emit({"phase": "main_path_smc", "card": smi, "args": SMC_CLI_ARGS,
+          **smc_runs})
     end_phase()
 
     # ---------------------------------------------------------------- result

@@ -45,6 +45,8 @@ PARAMS = {
     "aux_mh": {"mh_theta": {"step_size": 0.8}},
     "joint_slice": {"joint_slice": {"width": 2.0, "angle_scale": 1.2}},
     "joint_mh": {"joint_mh": {"step_size": 0.8, "rho": 0.5}},
+    "aux_hmc": {"hmc": {"step_size": 0.5, "n_leapfrog": 4}},
+    "aux_nuts": {"nuts": {"step_size": 0.6}},
 }
 
 

@@ -276,8 +276,8 @@ def test_unported_paths_stop_loudly(slice_run):
         step_t(st, {"slice_thet": {}})
     assert compose([]).stage_names == ()
     assert sorted(SAMPLERS) == [
-        "aux_mh", "aux_slice", "aux_slice_joint", "aux_slice_pcrd",
-        "aux_slice_rd", "joint_mh", "joint_slice", "pm_mh"]
+        "aux_hmc", "aux_mh", "aux_nuts", "aux_slice", "aux_slice_joint",
+        "aux_slice_pcrd", "aux_slice_rd", "joint_mh", "joint_slice", "pm_mh"]
     # what used to stop here now runs (held against the reference in
     # test_torch_stepout.py): stepping out with the per-probe log_sigma
     # coordinate, and the uncached path
@@ -381,8 +381,9 @@ def test_cli_lists_presets(capsys):
 
 
 @pytest.mark.parametrize("overrides", [
-    {"sampler": "aux_hmc"}, {"sampler": "aux_nuts"}, {"multihost": True},
-    {"sampler": "smc"},
+    {"sampler": "aux_hmc", "sharded": True, "particle_shards": 2},
+    {"sampler": "aux_nuts", "proposal": "laplace"}, {"multihost": True},
+    {"sampler": "smc", "sharded": True},
     {"proposal": "laplace", "sharded": True, "particle_shards": 2},
 ])
 def test_config_refuses_unported_parts(overrides):

@@ -343,9 +343,12 @@ def test_theta_only_factories(targets):
         st = t_init(2, tt, 3, jitter_scale=0.3)
         out, _ = step(st, {})
         assert torch.equal(out.u, st.u)   # no u-update
-    for kind in ("nuts", "hmc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            THETA_ONLY[kind](tt)
+    for kind in ("nuts", "hmc"):   # ported: tests/test_torch_hmc_nuts.py
+        step = THETA_ONLY[kind](tt)
+        assert step.stage_names == (kind,)
+        st = t_init(2, tt, 3, jitter_scale=0.3)
+        out, _ = step(st, {kind: {"step_size": 0.3}})
+        assert torch.equal(out.u, st.u)   # no u-update
     assert sorted(THETA_ONLY) == sorted(j_composite.THETA_ONLY)
 
 
