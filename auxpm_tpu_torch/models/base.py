@@ -67,6 +67,9 @@ class Target:
         holds this rank's ``S / K`` rows); None on a target that is already
         sharded or has no such rebuild.
       sample_prior: ``(generator, n) -> theta (n, d)`` exact prior draws.
+      sample_prior_key: ``keys (N, 2) -> theta (N, d)``, the prior draw of
+        each key by the reference's own formula (``core/prng.py``), so that
+        a keyed run draws the reference's population.
       exact_log_post / posterior_mean / posterior_cov: closed forms, for
         targets that have them (the Gaussian toy).
     """
@@ -84,6 +87,7 @@ class Target:
     ess_sweep_factory: Optional[Callable] = None
     coord_estimators: Optional[tuple] = None
     sample_prior: Optional[Callable] = None
+    sample_prior_key: Optional[Callable] = None
     n_weight_blocks: int = 1
     cache_init: Optional[Callable] = None
     prepare_c: Optional[Callable] = None

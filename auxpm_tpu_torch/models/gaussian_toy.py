@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from auxpm_tpu_torch._device import resolve_device
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.models.base import Target
 from auxpm_tpu_torch.ops.logsumexp import logsumexp
 
@@ -107,6 +108,9 @@ def make_gaussian_toy(
         sample_prior=lambda generator, n_draws: math.sqrt(prior_var)
         * torch.randn((n_draws, d), generator=generator, dtype=dtype,
                       device=device),
+        sample_prior_key=lambda keys: torch.sqrt(
+            torch.tensor(prior_var, dtype=dtype, device=keys.device))
+        * prng.normal(keys, (d,)),
         prepare=lambda theta: theta,  # no theta-only precomputation to cache
         log_lik_est_u=lambda theta, u: log_lik_est(theta, u),
         log_weights_u=log_weights_u,

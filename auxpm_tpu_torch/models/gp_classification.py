@@ -80,6 +80,7 @@ import numpy as np
 import torch
 
 from auxpm_tpu_torch._device import resolve_device
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.models.base import Target, full_coord_probes, set_coord
 from auxpm_tpu_torch.models.likelihoods import LIKELIHOODS
 from auxpm_tpu_torch.ops.cholesky import robust_cholesky
@@ -457,6 +458,10 @@ def make_gp_classification(
         sample_prior=lambda generator, n_draws: prior_mean
         + prior_std * torch.randn((n_draws, n_theta), generator=generator,
                                   dtype=dtype, device=device),
+        sample_prior_key=lambda keys: prng.fma32(
+            prng.normal(keys, (n_theta,)),
+            torch.tensor(prior_std, dtype=dtype, device=keys.device),
+            torch.tensor(prior_mean, dtype=dtype, device=keys.device)),
         n_weight_blocks=nb_global,
         **fast_paths,
     )

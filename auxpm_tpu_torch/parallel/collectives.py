@@ -15,10 +15,18 @@ tells apart), the rows come back in rank order by construction, and
 tensors (gloo has no ``all_gather`` for them), so one code path serves one
 card per rank, ranks sharing a card, and the CPU.
 
-``calls`` counts the collectives this rank has entered.
+The population reductions of the sharded SMC (``pmax``,
+``population_logsumexp``, ``population_ess``, ``pmean``) run over the CHAIN
+group, which the particles of a population are sharded over.
+
+``calls`` counts the collectives this rank has entered; ``seconds`` adds up
+their wall time (host clock, each call waited for; a caller that wants their
+time reads it).
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.distributed as dist
@@ -30,12 +38,15 @@ from auxpm_tpu_torch.ops.logsumexp import (
 )
 
 calls = 0
+seconds = 0.0
 
 
 def _all_reduce(x, op, group):
-    global calls
+    global calls, seconds
+    t0 = time.perf_counter()
     dist.all_reduce(x, op=op, group=group)
     calls += 1
+    seconds += time.perf_counter() - t0
     return x
 
 
@@ -101,3 +112,40 @@ def allgather_chains(x, mesh):
     buf[ci] = x
     _all_reduce(buf, dist.ReduceOp.SUM, mesh.chain_group)
     return buf.reshape(-1, *x.shape[1:])
+
+
+def pmax(x, mesh):
+    """Elementwise max of ``x`` over the chain group (a copy)."""
+    if mesh.n_chain_shards == 1:
+        return x.clone()
+    return _all_reduce(x.detach().clone().contiguous(), dist.ReduceOp.MAX,
+                       mesh.chain_group)
+
+
+def population_logsumexp(log_w_local, mesh):
+    """Log-sum-exp over the last axis of a population sharded over the chain
+    group: ``(..., N_local)`` on every rank -> the same ``(...)`` on every
+    rank.  Global max, then the sum of the shifted exponential sums (two
+    collectives, whatever the leading axes)."""
+    m = _finite_or_zero(pmax(log_w_local.max(dim=-1).values, mesh))
+    s = torch.exp(log_w_local - m[..., None]).sum(-1)
+    if mesh.n_chain_shards > 1:
+        s = _all_reduce(s.contiguous(), dist.ReduceOp.SUM, mesh.chain_group)
+    return torch.log(s) + m
+
+
+def population_ess(log_w_local, mesh):
+    """Kish effective sample size of the sharded population's weights
+    ``(N_local,)``: the log-sum-exps of w and of w^2, both in the same two
+    collectives."""
+    lse = population_logsumexp(torch.stack([log_w_local, 2.0 * log_w_local]),
+                               mesh)
+    return torch.exp(2.0 * lse[0] - lse[1])
+
+
+def pmean(x, mesh):
+    """Mean of ``x`` over the ranks of the chain group."""
+    if mesh.n_chain_shards == 1:
+        return x
+    return _all_reduce(x.detach().clone().contiguous(), dist.ReduceOp.SUM,
+                       mesh.chain_group) / mesh.n_chain_shards

@@ -62,7 +62,9 @@ def _np(t):
 
 
 def _counts():
-    """Launches of the estimator kernels and collectives entered, so far."""
+    """Launches of the estimator kernels, collectives entered (and their
+    ms) and threefry calls, so far."""
+    from auxpm_tpu_torch.core import prng
     from auxpm_tpu_torch.ops import chol_hopper, ess_sweep, sigma_sweep
     from auxpm_tpu_torch.ops import fused_estimator as fe
     from auxpm_tpu_torch.parallel import collectives
@@ -74,7 +76,9 @@ def _counts():
             "ess_sweep": ess_sweep.launches,
             "sigma_sweep": sigma_sweep.launches,
             "chol_panel": chol_hopper.launches,
-            "collectives": collectives.calls}
+            "collectives": collectives.calls,
+            "collective_ms": 1e3 * collectives.seconds,
+            "threefry_calls": prng.draws}
 
 
 def run_all(jobs, n_particle_shards, device="cuda"):
@@ -174,21 +178,37 @@ def cli(argv, profile_steps=0):
     run, and the mean share of active chains per rotated-weights launch.
     ``profile_steps > 0``: then that many more steps under
     ``utils/profiling.profile_run`` (every rank runs them, each reports its
-    own view of the card)."""
+    own view of the card).  A ``--sampler smc`` run returns ``_smc_out``."""
     import torch.distributed as dist
 
     from auxpm_tpu_torch import run as port_run
-
+    from auxpm_tpu_torch.core import prng
     from auxpm_tpu_torch.ops import fused_estimator as fe
 
-    result = {}
+    stages = []
+
+    def on_stage(stage, beta):
+        """Launches, collectives and threefry time of the init (stage -1)
+        and of each stage, on this rank."""
+        now = _counts()
+        prev = stages[-1]["_at"] if stages else before
+        stages.append({"stage": stage, "beta": beta,
+                       "threefry_ms": prng.stop_timing(),
+                       **{k: now[k] - prev[k] for k in now}, "_at": now})
+        prng.start_timing()
+
+    result = {"on_stage": on_stage}
     before = _counts()
+    prng.start_timing()
     for count in fe.active_counts.values():
         count.reset()
     with contextlib.redirect_stdout(sys.stderr):   # rank 0's summary line
         rc = port_run.main(list(argv), result=result)
+    prng.stop_timing()
     if rc != 0:
         raise RuntimeError(f"run.main returned {rc}")
+    if "diag" in result:
+        return _smc_out(result, stages, before, dist.get_backend())
     states, mesh = result["states"], result["mesh"]
     if states.u.is_cuda:
         torch.cuda.synchronize(states.u.device)
@@ -219,4 +239,41 @@ def cli(argv, profile_steps=0):
         from auxpm_tpu_torch.utils.profiling import profile_run
 
         out["profile"] = profile_run(result, profile_steps)
+    return out
+
+
+def _smc_out(result, stages, before, backend):
+    """What ``cli`` returns for a sharded SMC run: the rank's final
+    population (u as key words, or its shape where u is carried), the
+    summary and diag, per-stage accounting (``stages``: init first), the
+    totals and the rank's peak card memory; for the key-as-u mode also the largest |log L-hat - log_lik_est
+    (theta, u of the keys)| over the rank's first 8 particles."""
+    from auxpm_tpu_torch.samplers.smc_sharded import u_of_keys
+
+    states, mesh, target = result["states"], result["mesh"], result["target"]
+    if states.u.is_cuda:
+        torch.cuda.synchronize(states.u.device)
+    after = _counts()
+    out = {
+        "rank": mesh.rank, "target": target.name,
+        "device": str(states.u.device), "backend": backend,
+        "u_shape": tuple(states.u.shape), "theta": _np(states.theta),
+        "log_lik_hat": _np(states.log_lik_hat),
+        "summary": result["summary"], "diag": result["diag"],
+        "stages": [{k: v for k, v in st.items() if k != "_at"}
+                   for st in stages],
+        "counts": {k: after[k] - before[k] for k in after},
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(states.u.device)
+                        / 2**30 if states.u.is_cuda else None),
+    }
+    if states.u.dtype == torch.int64:   # key-as-u
+        out["u_keys"] = _np(states.u)
+        n_check = min(8, states.u.shape[0])
+        ub = states.u.shape[1] if states.u.dim() == 3 else 1
+        with torch.no_grad():
+            ll = target.log_lik_est(
+                states.theta[:n_check],
+                u_of_keys(states.u[:n_check], target.u_shape, ub))
+        out["key_u_invariant_max_abs_err"] = float(
+            (ll - states.log_lik_hat[:n_check]).abs().max())
     return out

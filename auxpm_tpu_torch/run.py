@@ -14,6 +14,9 @@
     python -m auxpm_tpu_torch.run --sampler smc --particles 1024 \
         --smc-rejuvenation aux_nuts          # aux_slice, aux_hmc
     python -m auxpm_tpu_torch.run --preset smc_toy --device cpu
+    torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --preset smc_gp_nuts
+    torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sampler smc \
+        --sharded true --smc-rejuvenation aux_slice     # u carried
     python -m auxpm_tpu_torch.run --preset pima_aux_slice \
         --checkpoint-dir ckpt --checkpoint-every 2 --profile-dir prof \
         --plots fig --metrics-path metrics.jsonl
@@ -43,7 +46,13 @@ only refresh it, one more factorisation per step.  ``aux_hmc`` and
 ``aux_nuts`` warm up with per-chain dual averaging of the step size and a
 diagonal mass per window (``samplers/adaptation.warmup``).  ``--sampler
 smc`` runs the single-device tempering SMC (``samplers/smc.py``) with the
-rejuvenation ``--smc-rejuvenation`` and prints one ``smc_summary`` line.
+rejuvenation ``--smc-rejuvenation`` and prints one ``smc_summary`` line;
+with ``--sharded true`` the population is sharded over the ranks
+(``samplers/smc_sharded.py``), with u carried or, under ``--smc-carry-u
+false`` (the preset ``smc_gp_nuts``), kept as its generating keys and the
+rejuvenation mapped to its theta-only kernel (``aux_nuts`` -> ``nuts``,
+``aux_hmc`` -> ``hmc``, ``aux_mh`` -> ``mh_theta``, ``aux_slice`` and
+``aux_slice_rd`` -> ``slice_theta``); ``--particle-shards`` must then be 1.
 Runs on the GPU unless ``--device cpu`` is given; without a GPU and without
 that flag it raises.
 """
@@ -159,7 +168,7 @@ def main(argv=None, result=None):
     metrics = MetricsWriter(cfg.metrics_path if lead else None,
                             quiet=not lead)
     if cfg.sampler == "smc":
-        return _run_smc(cfg, target, metrics, device_name, sync, result)
+        return _run_smc(cfg, target, metrics, device_name, sync, result, mesh)
     params = initial_params(cfg, target)
     n_chains, particle_axis = cfg.chains, None
     if mesh is not None:
@@ -280,20 +289,43 @@ def main(argv=None, result=None):
     return 0
 
 
-def _run_smc(cfg, target, metrics, device_name, sync, result):
-    """The single-device SMC run: one ``smc_summary`` line, as the
-    reference's ``_run_smc`` prints it (plus the device and the seconds of
-    each stage)."""
-    from auxpm_tpu_torch.samplers.composite import SAMPLERS
-    from auxpm_tpu_torch.samplers.smc import make_smc
+def _run_smc(cfg, target, metrics, device_name, sync, result, mesh=None):
+    """The SMC run, single device or (``mesh``) sharded: one ``smc_summary``
+    line, as the reference's ``_run_smc`` prints it (plus the device and the
+    seconds of each stage), from rank 0.  ``result["on_stage"]``, where a
+    caller set it, is called after each stage of a sharded run."""
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS, THETA_ONLY
 
-    run = make_smc(target, SAMPLERS[cfg.smc_rejuvenation], cfg.particles,
-                   n_mcmc=cfg.smc_n_mcmc, ess_frac=cfg.smc_ess_frac)
+    if mesh is None:
+        from auxpm_tpu_torch.samplers.smc import make_smc
+
+        run = make_smc(target, SAMPLERS[cfg.smc_rejuvenation], cfg.particles,
+                       n_mcmc=cfg.smc_n_mcmc, ess_frac=cfg.smc_ess_frac)
+        kwargs = {}
+    else:
+        from auxpm_tpu_torch.samplers.smc_sharded import make_smc_sharded
+        from auxpm_tpu_torch.utils.config import KEYED_REJUVENATION
+
+        rejuv = (SAMPLERS[cfg.smc_rejuvenation] if cfg.smc_carry_u else
+                 THETA_ONLY[KEYED_REJUVENATION[cfg.smc_rejuvenation]])
+        run = make_smc_sharded(
+            target, rejuv, cfg.particles, mesh, n_mcmc=cfg.smc_n_mcmc,
+            ess_frac=cfg.smc_ess_frac, carry_u=cfg.smc_carry_u,
+            n_u_mh=cfg.smc_n_u_mh, rejuv_batch=cfg.smc_rejuv_batch,
+            rejuv_dispatches=cfg.smc_rejuv_dispatches,
+            u_blocks=cfg.smc_u_blocks,
+            checkpoint_dir=cfg.smc_checkpoint_dir or None)
+        kwargs = {"on_stage": (result or {}).get("on_stage")}
     t0 = time.time()
-    states, diag = run(cfg.seed)
+    states, diag = run(cfg.seed, **kwargs)
     sync()
     wall = time.time() - t0
-    theta = states.theta.cpu().numpy().astype(np.float64)
+    theta = states.theta
+    if mesh is not None:   # the whole population, for the summary
+        from auxpm_tpu_torch.parallel.collectives import allgather_chains
+
+        theta = allgather_chains(theta, mesh)
+    theta = theta.cpu().numpy().astype(np.float64)
     summary = {
         "phase": "smc_summary",
         "device": device_name,
@@ -305,14 +337,18 @@ def _run_smc(cfg, target, metrics, device_name, sync, result):
         "posterior_mean": np.round(theta.mean(0), 4).tolist(),
         "posterior_std": np.round(theta.std(0), 4).tolist(),
     }
+    if "u_mh_accept" in diag:
+        summary["u_mh_accept"] = [round(a, 3) for a in diag["u_mh_accept"]]
+    lead = mesh is None or mesh.rank == 0
     metrics.write(summary)
     metrics.close()
-    print(json.dumps(summary))
-    if cfg.out:
+    if lead:
+        print(json.dumps(summary))
+    if cfg.out and lead:
         np.savez(cfg.out, theta=theta)
     if result is not None:
         result.update(states=states, target=target, diag=diag,
-                      summary=summary)
+                      summary=summary, mesh=mesh)
     return 0
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
 
 _DIVERGENCE = 1000.0
@@ -114,6 +115,17 @@ def make_hmc(target):
                           device=dev)
         return {"n_steps": n_steps, "r0": r0, "log_u": torch.log(unif)}
 
+    def draw_keyed(keys, state: ChainState, params=None):
+        """The same rows from each chain's key ``(B, 2)``, as the reference
+        draws them (``key, k_mom, k_acc, k_traj = split(key, 4)``); returns
+        the advanced keys too."""
+        n_leapfrog = int((params or {}).get("n_leapfrog", 8))
+        k = prng.split(keys, 4)
+        return k[:, 0], {
+            "n_steps": prng.randint(k[:, 3], (), 1, n_leapfrog + 1),
+            "r0": prng.normal(k[:, 1], (state.theta.shape[1],)),
+            "log_u": torch.log(prng.uniform(k[:, 2]))}
+
     def apply(state: ChainState, rows: dict, params: dict):
         global host_syncs
         theta = state.theta
@@ -164,5 +176,6 @@ def make_hmc(target):
         return apply(state, draw(state.generator, state, params), params)
 
     step.draw = draw
+    step.draw_keyed = draw_keyed
     step.apply = apply
     return step

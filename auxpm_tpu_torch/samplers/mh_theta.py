@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState
 from auxpm_tpu_torch.samplers.pm_mh import random_walk_move
 
@@ -33,6 +34,16 @@ def make_mh_theta(target):
                           device=dev)
         return {"eps": eps, "log_unif": torch.log(unif)}
 
+    def draw_keyed(keys, state: ChainState, params=None):
+        """The same rows from each chain's key ``(B, 2)``, as the reference
+        draws them (``key, k_prop, k_acc = split(key, 3)``); returns the
+        advanced keys too."""
+        del params
+        k = prng.split(keys, 3)
+        return k[:, 0], {
+            "eps": prng.normal(k[:, 1], (state.theta.shape[1],)),
+            "log_unif": torch.log(prng.uniform(k[:, 2]))}
+
     def apply(state: ChainState, rows: dict, params: dict):
         new_state, accept, _ = random_walk_move(
             target, state, rows["eps"], rows["log_unif"],
@@ -43,5 +54,6 @@ def make_mh_theta(target):
         return apply(state, draw(state.generator, state), params)
 
     step.draw = draw
+    step.draw_keyed = draw_keyed
     step.apply = apply
     return step

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
 from auxpm_tpu_torch.samplers import hmc
 from auxpm_tpu_torch.samplers.hmc import (
@@ -99,6 +100,27 @@ def make_nuts(target, max_depth=8):
         direction = torch.where(u_dir < 0.5, 1.0, -1.0)
         return {"r0": r0, "direction": direction, "u_biased": u_biased,
                 "u_leaf": u_leaf}
+
+    def draw_keyed(keys, state: ChainState, params=None):
+        """The same table from each chain's key ``(B, 2)``, as the reference
+        draws it: ``key, k_mom, k_loop = split(key, 3)``, then per depth
+        ``kd, kb, ks, k_loop = split(k_loop, 4)``, the direction
+        ``bernoulli(kd)``, ``uniform(kb)`` and per leaf s
+        ``uniform(fold_in(ks, s))``.  Returns the advanced keys too."""
+        del params
+        k = prng.split(keys, 3)
+        k_loop, per_depth = k[:, 2], []
+        for _ in range(max_depth):
+            kk = prng.split(k_loop, 4)
+            per_depth.append(kk[:, :3])
+            k_loop = kk[:, 3]
+        kd = torch.stack(per_depth, dim=1)        # (B, max_depth, 3, 2)
+        leaves = torch.arange(n_leaf_cols, device=keys.device)
+        return k[:, 0], {
+            "r0": prng.normal(k[:, 1], (state.theta.shape[1],)),
+            "direction": torch.where(prng.bernoulli(kd[:, :, 0]), 1.0, -1.0),
+            "u_biased": prng.uniform(kd[:, :, 1]),
+            "u_leaf": prng.uniform(prng.fold_in(kd[:, :, 2, None], leaves))}
 
     def apply(state: ChainState, rows: dict, params: dict):
         theta = state.theta
@@ -255,5 +277,6 @@ def make_nuts(target, max_depth=8):
         return apply(state, draw(state.generator, state, params), params)
 
     step.draw = draw
+    step.draw_keyed = draw_keyed
     step.apply = apply
     return step

@@ -73,6 +73,7 @@ import warnings
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
 from auxpm_tpu_torch.models.base import full_coord_probes, set_coord
 from auxpm_tpu_torch.ops.sigma_sweep import MAX_SHRINK
@@ -188,6 +189,22 @@ def make_slice_theta(target, n_sigma_extra=0):
             rows.append(rep)
         return tuple(rows)
 
+    def draw_keyed(keys, state: ChainState, params=None):
+        """The same rows from each chain's key ``(B, 2)``, as the reference
+        draws them: ``key, *coord_keys = split(key, d + 1)``, a repeat r > 0
+        of the last coordinate from ``fold_in(coord_key, r)``, and each row
+        from ``keyed_rep``.  Returns the advanced keys too."""
+        del params
+        k = prng.split(keys, n_coords + 1)
+        rows = []
+        for i in range(n_coords):
+            reps = sigma_reps if i == n_coords - 1 else 1
+            kc = k[:, i + 1]
+            rows.append(torch.stack(
+                [keyed_rep(kc if r == 0 else prng.fold_in(kc, r))
+                 for r in range(reps)], dim=1))
+        return k[:, 0], tuple(rows)
+
     def apply(state: ChainState, rows: tuple, params: dict):
         max_step_out = int(params.get("max_step_out", 8))
         max_shrink = int(params.get("max_shrink", MAX_SHRINK))
@@ -273,8 +290,20 @@ def make_slice_theta(target, n_sigma_extra=0):
         return apply(state, draw(state.generator, state), params)
 
     step.draw = draw
+    step.draw_keyed = draw_keyed
     step.apply = apply
     return step
+
+
+def keyed_rep(keys):
+    """``draw_rep``'s row from each key ``(B, 2)`` as the reference's
+    ``_slice_1d`` draws it: ``k_h, k_init, k_loop = split(key, 3)``, [log
+    uniform(k_h), uniform(k_init), uniform(fold_in(k_loop, j)) for j < 32]."""
+    k = prng.split(keys, 3)
+    shrink = prng.uniform(prng.fold_in(
+        k[:, 2, None], torch.arange(MAX_SHRINK, device=keys.device)))
+    return torch.cat([torch.log(prng.uniform(k[:, 0]))[:, None],
+                      prng.uniform(k[:, 1])[:, None], shrink], dim=1)
 
 
 def unit_directions(generator, theta):

@@ -35,8 +35,9 @@ Known differences from the reference:
   estimate, or is None, so rejuvenation takes the per-probe paths.
 - After resampling the duplicated particles decorrelate through the next
   draws of the state's generators (one per state, not one per particle);
-  the reference gives each particle a fresh key.  Per-particle keys wait for
-  the counter-based PRNG of ROADMAP.md queue 1, item 7b.
+  the reference gives each particle a fresh key.  The sharded SMC
+  (``samplers/smc_sharded.py``) does give each particle a fresh
+  counter-based key (``core/prng.py``).
 """
 
 from __future__ import annotations

@@ -2,13 +2,14 @@
 
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
-same here.  Fields that select a part of the system not ported yet (the
-sharded SMC and its key-as-u mode, multi-host runs, the Laplace proposal on a
-particle-sharded target, HMC / NUTS on a particle-sharded or Laplace target)
-are accepted by the parser and refused with ``NotImplementedError`` naming
-the ROADMAP item when used (``unsupported``).  ``PRESETS`` holds the
-reference's presets, each field for field the reference's preset of the same
-name; ``smc_gp_nuts`` is sharded SMC with u kept as keys and is refused.
+same here.  Fields that select a part of the system not ported yet
+(multi-host runs, the Laplace proposal on a particle-sharded target, HMC /
+NUTS on a particle-sharded or Laplace target) are accepted by the parser and
+refused with ``NotImplementedError`` naming the ROADMAP item when used
+(``unsupported``).  ``PRESETS`` holds the reference's presets, each field for
+field the reference's preset of the same name; ``smc_gp_nuts`` is the
+sharded SMC with u kept as keys (``samplers/smc_sharded.py``), run under
+``torchrun``.
 """
 
 from __future__ import annotations
@@ -135,8 +136,7 @@ PRESETS = {
         ard=True,
     ),
     # BASELINE config 5: SMC with distributed resampling and NUTS
-    # rejuvenation, u kept as its generating key (refused: ROADMAP queue 1,
-    # items 7b and 7c)
+    # rejuvenation, u kept as its generating key (samplers/smc_sharded.py)
     "smc_gp_nuts": RunConfig(
         preset="smc_gp_nuts",
         target="gp",
@@ -160,6 +160,13 @@ PRESETS = {
 }
 
 SMC_REJUVENATION = ("aux_slice", "aux_hmc", "aux_nuts")
+# the key-as-u mode (smc_carry_u=False) rejuvenates with the theta-only
+# kernel of the named composite, as the reference's run.py maps it; the
+# THETA_ONLY names themselves are accepted too
+KEYED_REJUVENATION = {"aux_nuts": "nuts", "aux_hmc": "hmc", "aux_mh": "mh_theta",
+                      "aux_slice": "slice_theta", "aux_slice_rd": "slice_theta",
+                      "nuts": "nuts", "hmc": "hmc", "mh_theta": "mh_theta",
+                      "slice_theta": "slice_theta"}
 GRADIENT_SAMPLERS = ("aux_hmc", "aux_nuts")
 
 
@@ -174,16 +181,25 @@ def unsupported(cfg: RunConfig):
     smc = cfg.sampler == "smc"
     if not smc and cfg.sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
-    if smc and cfg.smc_rejuvenation not in SMC_REJUVENATION:
-        raise ValueError(f"smc_rejuvenation must be one of {SMC_REJUVENATION}"
+    if smc and cfg.particle_shards > 1:
+        # the sharded SMC spreads the particles over every rank already
+        raise ValueError(
+            "--particle-shards > 1 is not supported with --sampler smc: "
+            "the sharded SMC distributes particles over the full device "
+            "mesh already (use --sharded alone)")
+    keyed = smc and not cfg.smc_carry_u
+    if keyed and not cfg.sharded:
+        raise ValueError("smc_carry_u=False (u kept as keys) is the sharded "
+                         "SMC's mode: add --sharded true")
+    names = tuple(KEYED_REJUVENATION) if keyed else SMC_REJUVENATION
+    if smc and cfg.smc_rejuvenation not in names:
+        raise ValueError(f"smc_rejuvenation must be one of {names}"
                          f", got {cfg.smc_rejuvenation!r}")
-    if smc and cfg.sharded:
-        asked.append(("--sharded true with --sampler smc", "7c"))
-    if smc and not cfg.smc_carry_u:
-        asked.append(("smc_carry_u=False (u kept as keys)", "7b and 7c"))
     sharded_particles = cfg.sharded and cfg.particle_shards > 1
     gradient = (cfg.sampler in GRADIENT_SAMPLERS
-                or (smc and cfg.smc_rejuvenation in GRADIENT_SAMPLERS))
+                or (smc and cfg.smc_rejuvenation in GRADIENT_SAMPLERS)
+                or (keyed and KEYED_REJUVENATION[cfg.smc_rejuvenation]
+                    in ("nuts", "hmc")))
     if cfg.target == "gp" and cfg.proposal == "laplace" and sharded_particles:
         asked.append(("proposal='laplace' with --particle-shards > 1", "8"))
     if gradient and sharded_particles:

@@ -120,7 +120,34 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
 18. ``main_path_smc`` ``--sampler smc`` with ``aux_slice`` rejuvenation at
                   1024 particles and ``aux_nuts`` at 256: logZ finite, the
                   last beta 1, no sweep kernel on the tempered target, the
-                  launches of kernels 1 and 2 per stage.
+                  launches of kernels 1 and 2 per stage;
+19. ``prng_card`` ``core/prng.py`` on the card against the golden
+                  ``jax.random`` values of ``core/prng_golden.json`` (words,
+                  bits, uniforms, bernoulli, randint bitwise, normals within
+                  4 ulp) and against the CPU (bitwise on words and
+                  uniforms), and the normals per second of one key-as-u
+                  chunk's u, (256, 32, 640);
+20. ``main_path_smc_sharded`` the sharded SMC on two spawned ranks sharing
+                  the card (gloo) through ``rank_jobs.cli``: (a) ``--preset
+                  smc_gp_nuts`` at 1024 particles (the preset's 4096 cut to
+                  fit the time), (b) the blocked refresh (``--smc-u-blocks
+                  8``, S = 64, ``aux_mh`` -> ``mh_theta``, one proposal per
+                  block) at 512, (c) ``--smc-carry-u true`` with
+                  ``aux_slice`` at 512: logZ finite, the last beta 1,
+                  kernels 1 and 2 launched in (a) and (c), 6 in (b), run
+                  (b)'s last-stage refresh acceptance at least the
+                  reference's floor of 0.2; per stage the launches of
+                  kernels 1, 2 and 6, the collectives and their ms, and the
+                  threefry ms;
+21. ``path_parity_smc_sharded`` one key-as-u stage of (a)'s configuration at
+                  256 particles on a world of one rank, through the kernels
+                  and through the plain estimator (the panel kernel shared):
+                  resampling indices equal, refresh accepts and NUTS depth
+                  and n_leapfrog equal outside the decision margins, theta
+                  and log L-hat within the bars; then two stages of (b)'s
+                  configuration with ``rejuv_dispatches`` 1 and 2 at
+                  ``rejuv_batch`` 512 (chunks of 512 against 256): bitwise
+                  equal.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -248,6 +275,24 @@ GRAD_PATH_THETA_TOL = 1e-6     # theta after a trajectory, same gradients
 SMC_RUNS = (("aux_slice", 1024), ("aux_nuts", 256))   # rejuvenation, particles
 SMC_CLI_ARGS = ["--preset", "pima_aux_slice", "--sampler", "smc",
                 "--smc-n-mcmc", "2"]
+PRNG_CHUNK = (256, 32, 640)    # one key-as-u chunk's u: particles, S, n
+PRNG_ULP = 4                   # normals vs jax.random
+SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch)
+    "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "1024"],
+                      ("fused_estimator", "chol_panel")),
+    "b_u_blocks": (["--preset", "smc_gp_nuts", "--smc-u-blocks", "8",
+                    "--n-importance", "64", "--smc-rejuvenation", "aux_mh",
+                    "--smc-n-u-mh", "1", "--particles", "512"],
+                   ("fused_weights",)),
+    "c_carry_u": (["--sharded", "true", "--sampler", "smc",
+                   "--smc-rejuvenation", "aux_slice", "--particles", "512"],
+                  ("fused_estimator", "chol_panel")),
+}
+U_BLOCKS_ACCEPT_FLOOR = 0.2    # the reference's floor (tests/test_smc.py)
+SMC_PARITY_PARTICLES, SMC_PARITY_S = 256, 32
+SMC_MAX_AMBIGUOUS = 64         # of 256 particles: each takes two refresh
+                               # decisions and two NUTS trees, ~4x the
+                               # decisions of a chain in path_parity_hmc_nuts
 
 
 def log(*a):
@@ -2891,6 +2936,257 @@ def main():
         torch.cuda.empty_cache()
     emit({"phase": "main_path_smc", "card": smi, "args": SMC_CLI_ARGS,
           **smc_runs})
+    end_phase()
+
+    # ------------------------------------------------------ PRNG on the card
+    # core/prng.py against jax.random's values (written once with JAX into
+    # core/prng_golden.json; the card has no JAX) and against the CPU.
+    log("prng on the card")
+    from auxpm_tpu_torch.core import prng
+
+    def ulps(a, b):
+        a = a.to(torch.int64) & 0xFFFFFFFF
+        b = b.to(torch.int64) & 0xFFFFFFFF
+        a = torch.where(a >= 2**31, 2**31 - a, a)   # sign-magnitude order
+        b = torch.where(b >= 2**31, 2**31 - b, b)
+        return int((a - b).abs().max())
+
+    golden = prng.load_golden()
+    worst_ulp, n_values = 0, 0
+    for seed in golden["seeds"]:
+        want = golden["cases"][str(seed)]
+        got_card = prng.golden_cases(seed, dev)
+        got_cpu = prng.golden_cases(seed, "cpu")
+        for name, w in want.items():
+            n_values += len(w)
+            g = torch.tensor(got_card[name], dtype=torch.int64)
+            w = torch.tensor(w, dtype=torch.int64)
+            if name == "normal":
+                worst_ulp = max(worst_ulp, ulps(g, w))
+            elif not torch.equal(g, w):
+                failures.append(f"prng_card: seed {seed} {name} differs "
+                                "from jax.random")
+            if name != "normal" and got_card[name] != got_cpu[name]:
+                failures.append(f"prng_card: seed {seed} {name}: card and "
+                                "CPU differ")
+    if worst_ulp > PRNG_ULP:
+        failures.append(f"prng_card: normals {worst_ulp} ulp from jax.random")
+    # a chunk-shaped draw, card vs CPU (8 particles of it)
+    keys_c = prng.split(prng.key(2026).to(dev), PRNG_CHUNK[0])
+    small = keys_c[:8]
+    u_card = prng.uniform(small, PRNG_CHUNK[1:]).cpu()
+    u_cpu = prng.uniform(small.cpu(), PRNG_CHUNK[1:])
+    z_card = prng.normal(small, PRNG_CHUNK[1:]).cpu()
+    z_cpu = prng.normal(small.cpu(), PRNG_CHUNK[1:])
+    if not torch.equal(u_card, u_cpu):
+        failures.append("prng_card: chunk uniforms, card and CPU differ")
+    chunk_ulp = ulps(z_card.view(torch.int32), z_cpu.view(torch.int32))
+    if chunk_ulp > PRNG_ULP:
+        failures.append(f"prng_card: chunk normals {chunk_ulp} ulp off the "
+                        "CPU")
+    normal_ms = time_ms(lambda: prng.normal(keys_c, PRNG_CHUNK[1:]))
+    n_normals = math.prod(PRNG_CHUNK)
+    emit({"phase": "prng_card", "card": smi, "golden_values": n_values,
+          "golden_jax_version": golden["jax_version"],
+          "normal_max_ulp_vs_jax": worst_ulp,
+          "chunk_normal_max_ulp_card_vs_cpu": chunk_ulp,
+          "chunk_shape": list(PRNG_CHUNK), "chunk_normal_ms": normal_ms,
+          "normals_per_s": n_normals / (normal_ms / 1e3)})
+    del keys_c, small
+    end_phase()
+
+    # ------------------------------------------------- sharded SMC, two ranks
+    # Each run through rank_jobs.cli on two ranks sharing the card (gloo);
+    # the ranks count their own launches per stage (stage -1 is the init).
+    smc_sh = {}
+    for run_name, (args, must) in SMC_SHARDED_RUNS.items():
+        log(f"main path (sharded smc, {run_name}):", " ".join(args))
+        t0 = time.time()
+        ranks_s = spawn(rank_jobs.cli, K_SHARDS, args, timeout_s=600,
+                        threads=0)
+        wall_spawn = time.time() - t0
+        r0 = ranks_s[0]
+        diag = r0["diag"]
+        for r in ranks_s:
+            if r["diag"]["betas"] != diag["betas"] or \
+                    r["diag"]["log_z"] != diag["log_z"]:
+                raise AssertionError(f"{run_name}: the ranks disagree on the "
+                                     "betas or logZ")
+            if not (np.isfinite(r["theta"]).all()
+                    and np.isfinite(r["log_lik_hat"]).all()):
+                raise AssertionError(f"{run_name}: non-finite particles")
+            for name in must:
+                if r["counts"][name] <= 0:
+                    raise AssertionError(f"{run_name}: rank {r['rank']} "
+                                         f"never launched {name}")
+            if r["device"] != "cuda:0" and torch.cuda.device_count() == 1:
+                raise AssertionError(f"{run_name}: ran on {r['device']}")
+            err = r.get("key_u_invariant_max_abs_err")
+            if err is not None and not err <= LL_TOL + LL_RTOL * float(
+                    np.abs(r["log_lik_hat"]).max()):
+                failures.append(f"{run_name}: log L-hat off the estimate "
+                                f"at the keys' u by {err:.3e}")
+        if not math.isfinite(diag["log_z"]) or diag["betas"][-1] < 1.0:
+            raise AssertionError(f"{run_name}: logZ {diag['log_z']}, final "
+                                 f"beta {diag['betas'][-1]}")
+        acc = diag.get("u_mh_accept")
+        if run_name == "b_u_blocks" and not acc[-1] >= U_BLOCKS_ACCEPT_FLOOR:
+            failures.append(f"{run_name}: last-stage refresh acceptance "
+                            f"{acc[-1]} below {U_BLOCKS_ACCEPT_FLOOR}")
+        per_stage = [{k_: (round(v_, 3) if isinstance(v_, float) else v_)
+                      for k_, v_ in st.items() if k_ in (
+                          "stage", "beta", "fused_estimator", "chol_panel",
+                          "fused_weights", "collectives", "collective_ms",
+                          "threefry_ms", "threefry_calls")}
+                     for st in r0["stages"]]
+        smc_sh[run_name] = {
+            "args": args, "n_stages": diag["n_stages"],
+            "betas": diag["betas"], "log_z": diag["log_z"],
+            "u_mh_accept": acc, "stage_seconds": diag["stage_seconds"],
+            "wall_s": r0["summary"]["wall"], "spawn_wall_s": wall_spawn,
+            "u_shape_per_rank": list(r0["u_shape"]),
+            "backend": r0["backend"],
+            "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks_s],
+            "key_u_invariant_max_abs_err": [
+                r.get("key_u_invariant_max_abs_err") for r in ranks_s],
+            "per_stage_rank0": per_stage,
+            "launches": [r["counts"] for r in ranks_s],
+            "posterior_mean": r0["summary"]["posterior_mean"],
+            "posterior_std": r0["summary"]["posterior_std"]}
+    emit({"phase": "main_path_smc_sharded", "card": smi, "ranks": K_SHARDS,
+          **smc_sh})
+    end_phase()
+
+    # ----------------------------------------- sharded SMC, path parity
+    # A world of one rank in this process.  One key-as-u stage of run (a)'s
+    # configuration from the same population, through the estimator kernel
+    # and through its plain version (the panel kernel shared: both sides
+    # factor every Gram with the same jitter); then run (b)'s configuration
+    # twice, rejuv_dispatches 1 and 2.
+    log("path parity (sharded smc)")
+    import tempfile
+
+    import torch.distributed as dist
+
+    from auxpm_tpu_torch.parallel.mesh import (
+        INIT_METHOD_ENV,
+        distributed_init,
+        make_mesh,
+    )
+    from auxpm_tpu_torch.samplers.composite import THETA_ONLY
+    from auxpm_tpu_torch.samplers.smc_sharded import make_smc_sharded
+
+    world_dir = tempfile.mkdtemp(prefix="auxpm_world_")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1",
+           INIT_METHOD_ENV: f"file://{world_dir}/rendezvous"}
+    with mock.patch.dict(os.environ, env):
+        distributed_init("cuda")
+        mesh1 = make_mesh(1)
+    try:
+        tgt_a = make_gp_classification(x, y_np, n_importance=SMC_PARITY_S,
+                                       device="cuda")
+        run_a = make_smc_sharded(tgt_a, THETA_ONLY["nuts"],
+                                 SMC_PARITY_PARTICLES, mesh1, n_mcmc=2,
+                                 carry_u=False, n_u_mh=2, rejuv_batch=256)
+        st0, k_loop = run_a.init_states(0)
+        beta0 = torch.zeros((), dtype=torch.float32, device=dev)
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
+        plog_k = []
+        torch.cuda.synchronize()
+        t0 = time.time()
+        prng.start_timing()          # one process alone on the card
+        out_k = run_a.stage(st0, beta0, k_loop, 0, probe_log=plog_k)
+        threefry_ms_a = prng.stop_timing()
+        stage_s_a = time.time() - t0
+        if read_counts()["fused_estimator"] <= 0:
+            raise AssertionError("path_parity_smc_sharded: the kernel path "
+                                 "never launched the estimator")
+        plog_p = []
+        with mock.patch.object(fe, "_cuda_estimate", fe._ref_estimate):
+            before = read_counts()
+            out_p = run_a.stage(st0, beta0, k_loop, 0, probe_log=plog_p)
+            if read_counts()["fused_estimator"] != before["fused_estimator"]:
+                raise AssertionError("path_parity_smc_sharded: the plain "
+                                     "path launched the estimator")
+        torch.cuda.synchronize()
+        (sk, bk, zk, ak, dk), (sp, bp, zp, ap, dp) = out_k, out_p
+        npart = SMC_PARITY_PARTICLES
+        if not torch.equal(dk["idx"], dp["idx"]) or float(bk) != float(bp):
+            failures.append("path_parity_smc_sharded: resampling or beta "
+                            "differ")
+        amb = torch.zeros(npart, dtype=torch.bool, device=dev)
+        amb |= ((dk["imh_margin"].abs() <= HMC_DECISION_TOL)
+                | (dp["imh_margin"].abs() <= HMC_DECISION_TOL)).any(1)
+        for kind, counted, margin in plog_p:
+            tol_ = UTURN_DECISION_TOL if kind == "uturn" else HMC_DECISION_TOL
+            amb |= counted & (margin.abs() <= tol_)
+        agree = (dk["imh_accept"] == dp["imh_accept"]).all(1)
+        for k_ in ("depth", "n_leapfrog", "diverged"):
+            agree &= dk[f"nuts/{k_}"] == dp[f"nuts/{k_}"]
+        point = (sk.theta - sp.theta).abs().max(-1).values \
+            <= GRAD_PATH_THETA_TOL
+        n_amb, n_bad = int(amb.sum()), int((~(agree & point) & ~amb).sum())
+        if n_amb > SMC_MAX_AMBIGUOUS:
+            failures.append(f"path_parity_smc_sharded: {n_amb} particles "
+                            "had a decision inside the tolerance")
+        if n_bad:
+            failures.append(f"path_parity_smc_sharded: decisions or theta "
+                            f"differ on {n_bad} particles whose margins were "
+                            "all outside the tolerance")
+        keep = agree & point
+        parity_a = {
+            "particles": npart, "S": SMC_PARITY_S,
+            "beta": float(bk), "idx_equal": bool(torch.equal(dk["idx"],
+                                                             dp["idx"])),
+            "imh_accept_rate": float(dk["imh_accept"].float().mean()),
+            "stage_seconds_kernel_path": stage_s_a,
+            "threefry_ms_of_the_stage": threefry_ms_a,
+            "nuts_depth_mean": float(dk["nuts/depth"].mean()),
+            "decisions_logged": len(plog_p),
+            "particles_with_a_decision_inside_tolerance": n_amb,
+            "particles_with_a_differing_decision": int((~agree).sum()),
+            "of_those_outside_tolerance": n_bad,
+            "particles_compared": int(keep.sum()),
+            "max_abs_err": {
+                "theta": check_close("path_parity_smc_sharded", "theta",
+                                     sk.theta, sp.theta, GRAD_PATH_THETA_TOL,
+                                     keep),
+                "ll": check_close("path_parity_smc_sharded", "ll",
+                                  sk.log_lik_hat, sp.log_lik_hat, LL_TOL,
+                                  keep, LL_RTOL),
+                "log_z_inc": abs(float(zk) - float(zp))}}
+        del run_a, st0, out_k, out_p, sk, sp, dk, dp
+
+        # run (b)'s configuration, two stages, one or two groups
+        tgt_b = make_gp_classification(x, y_np, n_importance=S,
+                                       device="cuda")
+        outs_b = []
+        for k_disp in (1, 2):
+            run_b = make_smc_sharded(
+                tgt_b, THETA_ONLY["mh_theta"], 512, mesh1, n_mcmc=2,
+                carry_u=False, n_u_mh=1, u_blocks=8, rejuv_batch=512,
+                rejuv_dispatches=k_disp)
+            outs_b.append(run_b(0, stop_after=2))
+        (sb1, db1), (sb2, db2) = outs_b
+        bitwise_b = (db1["betas"] == db2["betas"]
+                     and db1["log_z"] == db2["log_z"]
+                     and db1["u_mh_accept"] == db2["u_mh_accept"]
+                     and all(torch.equal(getattr(sb1, f), getattr(sb2, f))
+                             for f in ("theta", "u", "log_lik_hat"))
+                     and torch.equal(sb1.extras["key"], sb2.extras["key"]))
+        if not bitwise_b:
+            failures.append("path_parity_smc_sharded: rejuv_dispatches 1 "
+                            "and 2 differ")
+        del outs_b, sb1, sb2
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "path_parity_smc_sharded", "stage_a": parity_a,
+          "dispatches_1_vs_2": {"particles": 512, "stages": 2,
+                                "rejuv_batch": 512, "bitwise_equal":
+                                bitwise_b, "betas": db1["betas"],
+                                "u_mh_accept": db1["u_mh_accept"]}})
     end_phase()
 
     # ---------------------------------------------------------------- result

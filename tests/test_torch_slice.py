@@ -383,7 +383,8 @@ def test_cli_lists_presets(capsys):
 @pytest.mark.parametrize("overrides", [
     {"sampler": "aux_hmc", "sharded": True, "particle_shards": 2},
     {"sampler": "aux_nuts", "proposal": "laplace"}, {"multihost": True},
-    {"sampler": "smc", "sharded": True},
+    {"sampler": "smc", "sharded": True, "smc_rejuvenation": "aux_nuts",
+     "proposal": "laplace"},
     {"proposal": "laplace", "sharded": True, "particle_shards": 2},
 ])
 def test_config_refuses_unported_parts(overrides):
@@ -423,6 +424,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "auxpm_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    for new in ("core/prng.py", "samplers/smc_sharded.py",
+                "parallel/resampling.py", "parallel/collectives.py"):
+        assert REPO / "auxpm_tpu_torch" / new in files
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "auxpm_tpu"}
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

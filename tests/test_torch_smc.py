@@ -13,8 +13,8 @@
   gone (the reference keeps its ESS sweep factory there, which folds
   untempered estimates: a known difference, ``samplers/smc.py``);
 - SMC on a small GP target with ``aux_slice`` and ``aux_nuts``
-  rejuvenation, and the CLI (``--preset smc_toy``, the refused sharded
-  modes).
+  rejuvenation, and the CLI (``--preset smc_toy``; of the sharded modes
+  only the reference's own refusals are left).
 """
 
 import jax.numpy as jnp
@@ -168,7 +168,8 @@ def test_tempered_target_scales_every_estimator_left(gp):
     torch.testing.assert_close(tt.log_prior(theta), gp.log_prior(theta))
     # every callable field left is the prior, a prepare, a draw, or scaled
     left = {f for f in ("log_lik_est", "log_lik_est_u", "prepare",
-                        "log_prior", "sample_prior", "exact_log_post")
+                        "log_prior", "sample_prior", "sample_prior_key",
+                        "exact_log_post")
             if getattr(tt, f) is not None}
     callables = {f for f, v in vars(tt).items() if callable(v)}
     assert callables == left
@@ -212,10 +213,26 @@ def test_cli_smc_toy(capsys):
      "particle_shards": 2},
 ])
 def test_sharded_smc_is_refused(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-        unsupported(RunConfig().replace(**overrides))
-    with pytest.raises(NotImplementedError, match="item 7b and 7c"):
-        unsupported(PRESETS["smc_gp_nuts"])
+    """Since the sharded SMC is ported (``samplers/smc_sharded.py``, tested
+    in ``test_torch_smc_sharded.py``) only the reference's own refusals
+    stay: ``--particle-shards > 1`` with SMC, and the key-as-u mode needs
+    ``--sharded true``; no ``NotImplementedError`` is left for items 7b and
+    7c."""
+    cfg = RunConfig().replace(**overrides)
+    if cfg.particle_shards > 1:
+        with pytest.raises(ValueError, match="not supported with --sampler "
+                                             "smc"):
+            unsupported(cfg)
+    elif not cfg.smc_carry_u:
+        with pytest.raises(ValueError, match="add --sharded true"):
+            unsupported(cfg)
+        unsupported(cfg.replace(sharded=True))
+    else:
+        unsupported(cfg)
+    unsupported(PRESETS["smc_gp_nuts"])
+    for name in ("aux_mh", "aux_slice_rd", "nuts", "slice_theta"):
+        # the key-as-u mode maps a composite to its theta-only kernel
+        unsupported(PRESETS["smc_gp_nuts"].replace(smc_rejuvenation=name))
     with pytest.raises(ValueError, match="smc_rejuvenation"):
         unsupported(RunConfig().replace(sampler="smc",
                                         smc_rejuvenation="aux_mh"))
