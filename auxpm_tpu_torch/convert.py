@@ -2,8 +2,10 @@
 
 The JAX package's ``ChainState`` (already batched over chains by ``vmap``)
 has the same leaves as the port's; this module turns their NumPy copies into
-the port's types.  The JAX PRNG key is not convertible and is dropped: the
-port's state carries a ``torch.Generator`` (seeded here).  Nothing here
+the port's types.  The PRNG key crosses as its two words
+(``jax.random.key_data``), which the port's ``core/prng.py`` reads as the same
+key, so both packages can start from one state and draw the same numbers.
+Nothing here
 depends on theta's length, so an ARD state (theta of d+1, one width per
 coordinate in the params) crosses like an isotropic one.  Targets are built
 on both sides from the same NumPy arrays: ``(x, y)`` for the GP target, from
@@ -22,7 +24,7 @@ import numpy as np
 import torch
 
 from auxpm_tpu_torch._device import resolve_device
-from auxpm_tpu_torch.core.state import ChainState, make_generators
+from auxpm_tpu_torch.core.state import ChainState
 
 _STATIC_PARAM_KEYS = ("max_step_out", "max_shrink", "max_shrink_chol")
 
@@ -47,32 +49,29 @@ def shard_numpy_state(d, n_chain_shards, n_particle_shards):
     return out
 
 
-def chain_states_from_numpy(d, device="cuda", seed=0, target=None, mesh=None):
+def chain_states_from_numpy(d, device="cuda"):
     """``d``: dict with ``theta (B, d)``, ``u (B, S, n)``, ``log_lik_hat
-    (B,)`` and, for the carried-factor path, ``chol_r (B, n, n)`` (the
-    reference's ``extras["target_cache"]["chol_r"]``; absent or None gives a
-    state without a cache, which takes the uncached paths).
-
-    With ``target`` the state gets the generators ``init_chain_states`` would
-    give it (block generators for the u-shaped draws; with ``mesh``, those
-    of the rank's share, ``d`` being one entry of ``shard_numpy_state``)."""
+    (B,)``, ``key (B, 2)`` (the reference's ``jax.random.key_data`` words;
+    absent: zero keys, for a state that only meets ``apply`` with rows fed
+    by the caller) and, for the carried-factor path, ``chol_r (B, n, n)``
+    (the reference's ``extras["target_cache"]["chol_r"]``; absent or None
+    gives a state without a cache, which takes the uncached paths).  A
+    rank's share is one entry of ``shard_numpy_state``."""
     device = resolve_device(device)
 
     def t(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
-    if target is not None:
-        generator, block_generators = make_generators(seed, target, mesh)
-    else:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(seed))
-        block_generators = ()
+    b = np.asarray(d["theta"]).shape[0]
+    key = d.get("key")
+    key = (np.zeros((b, 2), np.int64) if key is None
+           else np.asarray(key).astype(np.uint32).astype(np.int64))
     extras = {}
     if d.get("chol_r") is not None:
         extras = {"target_cache": {"chol_r": t(d["chol_r"])}}
     return ChainState(theta=t(d["theta"]), u=t(d["u"]),
-                      log_lik_hat=t(d["log_lik_hat"]), generator=generator,
-                      extras=extras, block_generators=block_generators)
+                      log_lik_hat=t(d["log_lik_hat"]),
+                      key=torch.as_tensor(key, device=device), extras=extras)
 
 
 def params_from_numpy(params, device="cuda"):

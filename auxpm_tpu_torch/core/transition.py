@@ -6,15 +6,17 @@ Counterpart of ``auxpm_tpu/core/transition.py``.  A *transition* is a function
 
 on a BATCH of chains, split into two halves it also exposes as attributes:
 
-    transition.draw(generator, state) -> rows      (all the randomness)
-    transition.apply(state, rows, params)          (deterministic)
+    transition.draw(state, params) -> (rows, new_key)   (all the randomness)
+    transition.apply(state, rows, params)               (deterministic)
 
-``transition(state, params) == transition.apply(state,
-transition.draw(state.generator, state), params)``.  The split is what lets a
-test feed the reference implementation's own random numbers to ``apply``.
-``params`` holds tunable hyperparameters kept outside the state so the
-adaptation loop can rewrite them between windows; ``info`` holds per-step
-diagnostics, each ``(B,)``.
+``draw`` computes every random row of the step from the chains' keys
+(``state.key``, split as the reference splits them) and returns the advanced
+keys; ``apply`` leaves the key alone, and the transition puts the advanced key
+into the state it returns (``keyed``).  The split is what lets a test feed the
+reference implementation's own random numbers to ``apply``.  ``params`` holds
+tunable hyperparameters kept outside the state so the adaptation loop can
+rewrite them between windows; ``info`` holds per-step diagnostics, each
+``(B,)``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,20 @@ from typing import Callable, Sequence
 from auxpm_tpu_torch.core.state import ChainState
 
 Transition = Callable[[ChainState, dict], tuple[ChainState, dict]]
+
+
+def keyed(draw, apply):
+    """The transition of a ``draw`` / ``apply`` pair, with both halves as
+    attributes."""
+
+    def step(state: ChainState, params: dict):
+        rows, key = draw(state, params)
+        new_state, info = apply(state, rows, params)
+        return new_state.replace(key=key), info
+
+    step.draw = draw
+    step.apply = apply
+    return step
 
 
 def compose(named_transitions: Sequence[tuple[str, Transition]]) -> Transition:

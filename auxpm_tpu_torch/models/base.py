@@ -66,10 +66,10 @@ class Target:
         collective-aware estimator over the mesh's particle group (u then
         holds this rank's ``S / K`` rows); None on a target that is already
         sharded or has no such rebuild.
-      sample_prior: ``(generator, n) -> theta (n, d)`` exact prior draws.
-      sample_prior_key: ``keys (N, 2) -> theta (N, d)``, the prior draw of
-        each key by the reference's own formula (``core/prng.py``), so that
-        a keyed run draws the reference's population.
+      sample_prior_key: ``keys (N, 2) -> theta (N, d)``, the exact prior
+        draw of each key by the reference's own formula (``core/prng.py``,
+        the reference's ``sample_prior``), so that a keyed run draws the
+        reference's population.
       exact_log_post / posterior_mean / posterior_cov: closed forms, for
         targets that have them (the Gaussian toy).
     """
@@ -86,7 +86,6 @@ class Target:
     log_lik_est_rot: Optional[Callable] = None
     ess_sweep_factory: Optional[Callable] = None
     coord_estimators: Optional[tuple] = None
-    sample_prior: Optional[Callable] = None
     sample_prior_key: Optional[Callable] = None
     n_weight_blocks: int = 1
     cache_init: Optional[Callable] = None
@@ -109,13 +108,27 @@ def set_coord(theta, i, x):
     return torch.cat([theta[:, :i], x[:, None], theta[:, i + 1:]], dim=1)
 
 
+# chains of one estimator call in a 2-point probe: above it the two points
+# go as two calls (the Grams of one call at n = 640 are 6.7 GB at 4096).  A
+# chain's Gram, factor and estimate do not depend on the batch it is in, so
+# either way gives it the same numbers.
+MAX_PROBE_BATCH = 4096
+
+
+def two_calls(f, xs):
+    """``f2``'s result from one call of ``f`` per point: ``((2, B), (2,
+    B))``."""
+    return tuple(torch.stack(v) for v in zip(f(xs[0]), f(xs[1])))
+
+
 def full_coord_probes(log_prior, log_lik_est, theta, u, i):
     """Probe functions ``(f, f2)`` of coordinate i through the whole
     estimator (every probe pays ``log_lik_est`` at its own candidate).
 
     ``f(x (B,)) -> (log_post (B,), log_lik (B,))``; ``f2(xs (2, B)) ->
     ((2, B), (2, B))`` evaluates two points per chain as ONE batch of 2B
-    chains (u twice along the chains axis, made when first needed)."""
+    chains (u twice along the chains axis, made when first needed), or as
+    two past ``MAX_PROBE_BATCH``."""
 
     def f(x):
         th = set_coord(theta, i, x)
@@ -125,6 +138,8 @@ def full_coord_probes(log_prior, log_lik_est, theta, u, i):
     u2 = []
 
     def f2(xs):
+        if xs.numel() > MAX_PROBE_BATCH:
+            return two_calls(f, xs)
         if not u2:
             u2.append(torch.cat([u, u]))
         th = set_coord(theta.repeat(2, 1), i, xs.reshape(-1))

@@ -105,9 +105,6 @@ def make_gaussian_toy(
         exact_log_post=exact_log_post,
         posterior_mean=mean_dev,
         posterior_cov=torch.as_tensor(cov, dtype=dtype, device=device),
-        sample_prior=lambda generator, n_draws: math.sqrt(prior_var)
-        * torch.randn((n_draws, d), generator=generator, dtype=dtype,
-                      device=device),
         sample_prior_key=lambda keys: torch.sqrt(
             torch.tensor(prior_var, dtype=dtype, device=keys.device))
         * prng.normal(keys, (d,)),

@@ -32,7 +32,8 @@ ARD: padded rows of x are zero and the Gram is masked after the jitter,
 
 Each coordinate has a probe factory returning ``(f, f2)``: the 1-point probe
 and the 2-point probe of the stepping-out loop, which evaluates both bracket
-ends of every chain as ONE batch of 2B chains.  An ell probe pays Gram +
+ends of every chain as ONE batch of 2B chains (as two batches of B past
+``models/base.MAX_PROBE_BATCH`` chains, to bound the memory of a call).  An ell probe pays Gram +
 factorisation + estimate; a log_sigma probe rescales a factor (the carried
 one, or one factored once per sweep) and pays only the estimate.
 
@@ -81,7 +82,13 @@ import torch
 
 from auxpm_tpu_torch._device import resolve_device
 from auxpm_tpu_torch.core import prng
-from auxpm_tpu_torch.models.base import Target, full_coord_probes, set_coord
+from auxpm_tpu_torch.models.base import (
+    MAX_PROBE_BATCH,
+    Target,
+    full_coord_probes,
+    set_coord,
+    two_calls,
+)
 from auxpm_tpu_torch.models.likelihoods import LIKELIHOODS
 from auxpm_tpu_torch.ops.cholesky import robust_cholesky
 from auxpm_tpu_torch.ops.ess_sweep import make_fused_ess_sweep
@@ -345,6 +352,8 @@ def make_gp_classification(
         u2 = []
 
         def f2(xs):
+            if xs.numel() > MAX_PROBE_BATCH:
+                return two_calls(f, xs)
             if not u2:
                 u2.append(torch.cat([u, u]))
             th = set_coord(theta.repeat(2, 1), last, xs.reshape(-1))
@@ -455,9 +464,6 @@ def make_gp_classification(
         log_lik_est_u=log_lik_est_u,
         log_weights_u=log_weights_u,
         make_sharded=None if sharded else make_sharded,
-        sample_prior=lambda generator, n_draws: prior_mean
-        + prior_std * torch.randn((n_draws, n_theta), generator=generator,
-                                  dtype=dtype, device=device),
         sample_prior_key=lambda keys: prng.fma32(
             prng.normal(keys, (n_theta,)),
             torch.tensor(prior_std, dtype=dtype, device=keys.device),

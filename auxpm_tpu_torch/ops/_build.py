@@ -29,6 +29,7 @@ _NVCC_FLAGS = [
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 # name -> argtypes; every function returns the cudaError_t of its launch
 _SIGNATURES = {
     "auxpm_fused_estimate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
@@ -48,6 +49,7 @@ _SIGNATURES = {
     "auxpm_chol_panel": [_P, _P, _P, _I, _P],
     "auxpm_chol_panel_v1": [_P, _P, _P, _I, _P],
     "auxpm_chol_panel_v2": [_P, _P, _I, _P],
+    "auxpm_threefry": [_P, _P, _L, _L, _L, _I, _F, _F, _F, _P, _P],
 }
 
 _lib = None

@@ -3,7 +3,9 @@
 ``spawn(fn, world, *args)`` starts ``world`` processes with
 ``torch.multiprocessing`` (start method ``spawn``, so it is safe after CUDA
 was initialised), gives each the environment ``torchrun`` would give it
-(``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``) plus a
+(``RANK``, ``WORLD_SIZE``, ``GROUP_RANK``, ``LOCAL_RANK``,
+``LOCAL_WORLD_SIZE``; ``nodes > 1`` emulates ``torchrun --nnodes nodes``, the
+ranks in blocks of ``world / nodes`` per node, on this one machine) plus a
 ``file://`` rendezvous in a temporary directory (no port to collide on, no
 name to resolve), runs ``fn(*args)`` in each and returns the list of their
 return values in rank order.  ``fn`` must be importable by the children (a
@@ -26,12 +28,15 @@ from pathlib import Path
 from auxpm_tpu_torch.parallel.mesh import INIT_METHOD_ENV
 
 
-def _entry(rank, fn, world, init_method, out_dir, threads, args):
+def _entry(rank, fn, world, nodes, init_method, out_dir, threads, args):
     import torch
     import torch.distributed as dist
 
+    per_node = world // nodes
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
-                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+                      GROUP_RANK=str(rank // per_node),
+                      LOCAL_RANK=str(rank % per_node),
+                      LOCAL_WORLD_SIZE=str(per_node))
     os.environ[INIT_METHOD_ENV] = init_method
     if threads:
         torch.set_num_threads(threads)
@@ -44,15 +49,18 @@ def _entry(rank, fn, world, init_method, out_dir, threads, args):
             dist.destroy_process_group()
 
 
-def spawn(fn, world, *args, timeout_s=600, threads=1):
+def spawn(fn, world, *args, timeout_s=600, threads=1, nodes=1):
     """Run ``fn(*args)`` on ``world`` ranks; returns their results in rank
     order.  ``threads``: intra-op CPU threads per rank (0 leaves PyTorch's
-    default)."""
+    default); ``nodes``: emulated nodes (environment only)."""
     import torch.multiprocessing as mp
 
+    if world % nodes:
+        raise ValueError(f"{world} ranks do not split over {nodes} nodes")
     with tempfile.TemporaryDirectory(prefix="auxpm_ranks_") as tmp:
         init_method = f"file://{tmp}/rendezvous"
-        ctx = mp.spawn(_entry, args=(fn, world, init_method, tmp, threads, args),
+        ctx = mp.spawn(_entry, args=(fn, world, nodes, init_method, tmp,
+                                     threads, args),
                        nprocs=world, join=False)
         deadline = time.monotonic() + timeout_s
         try:

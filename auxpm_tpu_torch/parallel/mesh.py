@@ -14,8 +14,12 @@ ranks with its particle index, one per chain shard).  The samplers and the GP
 target take the ``Mesh`` itself as their ``particle_axis``.
 
 One process per rank, started by ``torchrun`` (or ``parallel/launch.spawn``),
-which sets ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``.  With one card per
-rank the backend is NCCL.  When the ranks of a host outnumber its cards they
+which sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``;
+across several nodes (``torchrun --nnodes N --node-rank i --rdzv-endpoint
+host:port``, the CLI's ``--multihost``) also ``GROUP_RANK``, the node.  A
+multi-node world is the same mesh: ranks in global order, chain shards never
+talking, so nothing else changes.  With one card per rank the backend is
+NCCL.  When the ranks of a host outnumber its cards they
 share cards, which NCCL refuses; the backend is then gloo, as it is on the
 CPU, and ``parallel/collectives.py`` keeps to the operations gloo has for CUDA
 tensors.
@@ -51,15 +55,17 @@ class Mesh:
         return "particles"
 
 
-def distributed_init(device="cuda"):
+def distributed_init(device="cuda", multihost=False):
     """Join the world that the launcher described in the environment and
     return this rank's ``torch.device``.  Idempotent.
 
     A missing or failed world is an error, never a quiet world of one: a rank
-    that went on alone would compute on a wrong, local-only mesh.  ``device``
-    "cuda" gives rank r the card ``LOCAL_RANK % device_count``.  The
-    rendezvous is ``$AUXPM_DIST_INIT_METHOD`` where the launcher set it, else
-    ``env://`` (what ``torchrun`` provides)."""
+    that went on alone would compute on a wrong, local-only mesh.  So is,
+    with ``multihost``, a world that does not span several nodes (the
+    reference's ``distributed_init(require=True)``).  ``device`` "cuda" gives
+    rank r the card ``LOCAL_RANK % device_count``.  The rendezvous is
+    ``$AUXPM_DIST_INIT_METHOD`` where the launcher set it, else ``env://``
+    (what ``torchrun`` provides)."""
     missing = [k for k in ("RANK", "WORLD_SIZE") if k not in os.environ]
     if missing:
         raise RuntimeError(
@@ -71,6 +77,14 @@ def distributed_init(device="cuda"):
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local_rank = int(os.environ.get("LOCAL_RANK", rank))
     local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if multihost and ("GROUP_RANK" not in os.environ or local_world >= world):
+        raise RuntimeError(
+            f"--multihost needs a world that spans several nodes; this one "
+            f"has {world} ranks, {local_world} on this node"
+            f"{'' if 'GROUP_RANK' in os.environ else ' and no GROUP_RANK'}: "
+            "start it on every node with `torchrun --nnodes N --node-rank i "
+            "--nproc-per-node M --rdzv-endpoint HOST:PORT -m "
+            "auxpm_tpu_torch.run --multihost true --sharded true ...`")
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

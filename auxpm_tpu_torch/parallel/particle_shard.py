@@ -10,11 +10,11 @@ rank, whose ``u`` holds the local rows:
 
 - the estimate is bitwise the same on every rank of the group (the collective
   leaves one value everywhere), so accept and shrink decisions taken from the
-  replicated generator agree across the group with no other synchronisation:
-  the invariant the scheme rests on;
-- the samplers draw u-shaped randomness per rank, from the state's block
-  generators, and everything else from the replicated generator
-  (``core/state.py``).
+  replicated per-chain keys agree across the group with no other
+  synchronisation: the invariant the scheme rests on;
+- the samplers draw u-shaped randomness per rank, the rows of its own
+  (``core/state.make_u_normal``), and everything else from the replicated
+  keys.
 """
 
 from __future__ import annotations

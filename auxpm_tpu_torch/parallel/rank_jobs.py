@@ -63,9 +63,14 @@ def _np(t):
 
 def _counts():
     """Launches of the estimator kernels, collectives entered (and their
-    ms) and threefry calls, so far."""
+    ms), plain threefry calls and threefry kernel launches, so far."""
     from auxpm_tpu_torch.core import prng
-    from auxpm_tpu_torch.ops import chol_hopper, ess_sweep, sigma_sweep
+    from auxpm_tpu_torch.ops import (
+        chol_hopper,
+        ess_sweep,
+        sigma_sweep,
+        threefry,
+    )
     from auxpm_tpu_torch.ops import fused_estimator as fe
     from auxpm_tpu_torch.parallel import collectives
 
@@ -78,7 +83,8 @@ def _counts():
             "chol_panel": chol_hopper.launches,
             "collectives": collectives.calls,
             "collective_ms": 1e3 * collectives.seconds,
-            "threefry_calls": prng.draws}
+            "threefry_calls": prng.draws,
+            "threefry_launches": threefry.launches}
 
 
 def run_all(jobs, n_particle_shards, device="cuda"):
@@ -128,8 +134,7 @@ def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
     k = mesh.n_particle_shards
     share = convert.shard_numpy_state(state, mesh.n_chain_shards,
                                       k)[mesh.rank]
-    st = convert.chain_states_from_numpy(share, device=str(dev), seed=0,
-                                         target=target, mesh=mesh)
+    st = convert.chain_states_from_numpy(share, device=str(dev))
     par = convert.params_from_numpy(params, device=str(dev))
     step = make_aux_slice(target, mesh if k > 1 else None,
                           **(sampler_kwargs or {}))
@@ -230,6 +235,8 @@ def cli(argv, profile_steps=0):
         # mean share of active chains per rotated-weights launch (None if
         # the kernel never launched: the CPU takes the plain version)
         "rot_weights_active_share": active_share,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated(states.u.device)
+                        / 2**30 if states.u.is_cuda else None),
     }
     cache = states.extras.get("target_cache")
     if cache is not None:

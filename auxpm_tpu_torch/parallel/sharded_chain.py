@@ -8,7 +8,10 @@ talk during a run (the adaptation windows average their statistics, see
 estimator's collective at every probe and otherwise run in lockstep because
 they take the same decisions from the same numbers.
 
-``shard_states`` cuts a whole batched state down to a rank's share;
+Every chain carries its own key, so a chain's draws do not depend on the
+layout: records are bitwise the same on any number of chain shards (with
+fixed params; the adaptation's averages over chain shards are sums in another
+order).  ``shard_states`` cuts a whole batched state down to a rank's share;
 ``run_chains_sharded`` runs a window on that share and, when asked, stacks
 the window's records of ALL chain shards, so that whoever reports (rank 0)
 sees every chain.
@@ -16,7 +19,7 @@ sees every chain.
 
 from __future__ import annotations
 
-from auxpm_tpu_torch.core.state import ChainState, local_rows, make_generators
+from auxpm_tpu_torch.core.state import ChainState, local_rows
 from auxpm_tpu_torch.parallel.collectives import allgather_chains
 from auxpm_tpu_torch.samplers.chain import run_chains
 
@@ -31,10 +34,10 @@ def chain_slice(n_chains, mesh):
     return slice(mesh.chain_index * per, (mesh.chain_index + 1) * per)
 
 
-def shard_states(states: ChainState, target, mesh, seed=0):
-    """A rank's share of a whole batched state (every leaf on the chains
-    axis, u also on its rows) with the rank's generators, seeded from
-    ``seed``: a whole state's own generators cannot be split."""
+def shard_states(states: ChainState, target, mesh):
+    """A rank's share of a whole batched state: every leaf cut on the chains
+    axis, keys included, u also on its rows.  Nothing is re-seeded: the
+    rank's chains are the same chains, with the same keys, on any layout."""
     cs = chain_slice(states.theta.shape[0], mesh)
     rows = local_rows(target, mesh)
     r0 = mesh.particle_index * rows
@@ -46,14 +49,12 @@ def shard_states(states: ChainState, target, mesh, seed=0):
         return {k: cut_tree(v) if isinstance(v, dict) else cut(v)
                 for k, v in tree.items()}
 
-    generator, block_generators = make_generators(seed, target, mesh)
     return ChainState(
         theta=cut(states.theta),
         u=states.u[cs, r0:r0 + rows].contiguous(),
         log_lik_hat=cut(states.log_lik_hat),
-        generator=generator,
+        key=cut(states.key),
         extras=cut_tree(states.extras),
-        block_generators=block_generators,
     )
 
 

@@ -23,13 +23,24 @@
     python -m auxpm_tpu_torch.run --list-presets
     torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sharded true \
         --particle-shards 2 --preset pima_aux_slice --max-step-out 0 ...
+    torchrun --nproc-per-node 4 -m auxpm_tpu_torch.run --preset gp_4096_sharded
+    torchrun --nnodes 2 --node-rank 0 --nproc-per-node 4 \
+        --rdzv-endpoint HOST:PORT -m auxpm_tpu_torch.run --multihost true \
+        --preset gp_4096_sharded      # and --node-rank 1 on the other node
 
 ``--sharded true`` runs on the ``torch.distributed`` world that ``torchrun``
 started: ``world / K`` chain shards by ``--particle-shards K`` particle shards
 (``parallel/mesh.py``).  With K > 1 each chain's S importance samples are
 split over the K ranks of a particle group and the estimator's log-sum-exp is
-a collective; rank 0 alone prints and writes metrics.  One card per rank runs
-on NCCL; ranks that share a card (or the CPU) on gloo.
+a collective; global rank 0 alone prints and writes ``--out`` and the
+metrics, and checkpoint shards land in one shared directory.  Every chain
+draws from its own key, so the records are the same on any number of chain
+shards.  One card per rank runs on NCCL; ranks that share a card (or the CPU)
+on gloo.  ``--multihost true`` (with ``--sharded true``) runs the same path
+over several nodes, each started by ``torchrun --nnodes N --node-rank i
+--nproc-per-node M --rdzv-endpoint HOST:PORT``; it refuses a world that does
+not span several nodes.  ``--preset gp_4096_sharded`` is config 4: 4096
+chains, chain-sharded.
 
 ``AUXPM_ESS_SWEEP=0`` in the environment sends the elliptical-slice update
 through its per-probe loop instead of the whole-sweep kernel.
@@ -147,7 +158,9 @@ def main(argv=None, result=None):
                 f"that many ranks, the world has {world}; start them with "
                 f"`torchrun --nproc-per-node {cfg.particle_shards} -m "
                 "auxpm_tpu_torch.run --sharded true ...`")
-        device = distributed_init(cfg.device)   # raises without a world
+        # raises without a world (or, with --multihost, without one that
+        # spans several nodes)
+        device = distributed_init(cfg.device, multihost=cfg.multihost)
         cfg = cfg.replace(device=str(device))
         mesh = make_mesh(cfg.particle_shards)
     else:
@@ -170,14 +183,13 @@ def main(argv=None, result=None):
     if cfg.sampler == "smc":
         return _run_smc(cfg, target, metrics, device_name, sync, result, mesh)
     params = initial_params(cfg, target)
-    n_chains, particle_axis = cfg.chains, None
+    particle_axis = None
     if mesh is not None:
         from auxpm_tpu_torch.parallel.sharded_chain import run_chains_sharded
 
         if cfg.chains % mesh.n_chain_shards:
             raise ValueError(f"--chains {cfg.chains} does not split over "
                              f"{mesh.n_chain_shards} chain shards")
-        n_chains = cfg.chains // mesh.n_chain_shards
         if mesh.n_particle_shards > 1:
             from auxpm_tpu_torch.parallel.particle_shard import (
                 shard_target_particles,
@@ -186,8 +198,10 @@ def main(argv=None, result=None):
             target, _ = shard_target_particles(target, mesh)
             particle_axis = mesh
     aux_slice = cfg.sampler.startswith("aux_slice")
+    # the chains of the whole run, each from its own key; a rank holds its
+    # chain shard's slice, so the records do not depend on the layout
     states = init_chain_states(
-        cfg.seed, target, n_chains, jitter_scale=cfg.jitter_scale,
+        cfg.seed, target, cfg.chains, jitter_scale=cfg.jitter_scale,
         with_cache=cfg.chol_cache and aux_slice, mesh=mesh,
     )
     slice_kw = {}

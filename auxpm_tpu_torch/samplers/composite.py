@@ -17,11 +17,9 @@ pseudo-marginal slice sampling" is the composition (ESS on u | theta) then
 
 ``THETA_ONLY`` holds the theta | u kernels without a u-update (the
 rejuvenation kernels of the reference's sharded SMC): ``slice_theta``,
-``mh_theta``, ``nuts`` and ``hmc``.  Called on a state that carries
-per-chain keys (``extras["key"]``, int64 ``(B, 2)``), such a transition
-draws its rows from those keys by the reference's recipe (the kernel's
-``draw_keyed``) and returns the advanced keys, so each chain's step is a
-function of its own key; without them it draws from the state's generator.
+``mh_theta``, ``nuts`` and ``hmc``.  Every stage draws from and advances
+``state.key`` itself, as in the reference, so each chain's step is a
+function of its own key.
 """
 
 from __future__ import annotations
@@ -137,26 +135,7 @@ def _make_theta_only(kind):
 
     def factory(target, particle_axis=None):
         del particle_axis
-        kernel = makers[kind](target)
-        composed = compose([(kind, kernel)])
-
-        def step(state, params):
-            keys = state.extras.get("key")
-            if keys is None:
-                return composed(state, params)
-            unknown = set(params) - {kind}
-            if unknown:
-                raise ValueError(f"unknown param group(s) {sorted(unknown)}; "
-                                 f"stages are {[kind]}")
-            p = params.get(kind, {})
-            keys, rows = kernel.draw_keyed(keys, state, p)
-            state, info = kernel.apply(state, rows, p)
-            return (state.replace(extras={**state.extras, "key": keys}),
-                    {f"{kind}/{k}": v for k, v in info.items()})
-
-        step.stage_names = composed.stage_names
-        step.stages = composed.stages
-        return step
+        return compose([(kind, makers[kind](target))])
 
     return factory
 

@@ -43,7 +43,9 @@ import os
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, make_u_normal
+from auxpm_tpu_torch.core.transition import keyed
 from auxpm_tpu_torch.ops.ess_sweep import MAX_SHRINK
 from auxpm_tpu_torch.ops.fused_estimator import rotate
 
@@ -53,8 +55,8 @@ _TWO_PI = 2.0 * math.pi
 def make_ess_u(target, particle_axis=None, n_repeats=1):
     """``particle_axis``: this rank's ``parallel.mesh.Mesh`` when ``target``
     is particle sharded.  The update then takes the per-probe loop (a sweep
-    kernel reduces over S inside its block), v is drawn block by block from
-    the state's block generators, and every probe is one call of the
+    kernel reduces over S inside its block), v covers the rank's rows
+    (``core/state.make_u_normal``), and every probe is one call of the
     target's collective estimator."""
     if particle_axis is not None:
         from auxpm_tpu_torch.parallel.mesh import require_mesh
@@ -74,24 +76,34 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
             return target.prepare_c(state.theta, cache)
         return target.prepare(state.theta)
 
-    def draw(generator, state: ChainState):
-        """Rows of one call, the same for both paths: ``scal (B, R, 3 + 32)``
-        = per repeat [ll0 (repeat 0 only), log U, a0, 32 shrink uniforms] and
-        ``v (B, R, S, n)``."""
-        b = state.u.shape[0]
-        dev = state.u.device
-        v = draw_v(generator, (b, n_repeats, *state.u.shape[1:]),
-                   state.block_generators)
-        unif = torch.rand((b, n_repeats, 2 + MAX_SHRINK), generator=generator,
-                          dtype=torch.float32, device=dev)
-        scal = torch.empty((b, n_repeats, 3 + MAX_SHRINK),
-                           dtype=torch.float32, device=dev)
+    def draw(state: ChainState, params=None):
+        """Rows of one call, the same for both paths, from each chain's key
+        as the reference splits it: per repeat ``key, k_v, k_h, k_loop =
+        split(key, 4)``, ``v = draw_v(k_v)``, ``log uniform(k_h)``, ``a0 =
+        uniform(k_loop) 2 pi`` and shrink uniform i from ``fold_in(k_loop, i
+        + 1)``.  Returns ``({"scal": (B, R, 3 + 32), "v": (B, R, S, n)},
+        advanced keys)``: ``scal`` = per repeat [ll0 (repeat 0 only), log U,
+        a0, 32 shrink uniforms]."""
+        del params
+        key, subkeys = state.key, []
+        for _ in range(n_repeats):
+            k = prng.split(key, 4)
+            key = k[:, 0]
+            subkeys.append(k[:, 1:])
+        k = torch.stack(subkeys, dim=1)              # (B, R, 3, 2)
+        v = draw_v(k[:, :, 0], state.u.shape[1])
+        shrink = prng.fold_in(k[:, :, 2, None], torch.arange(
+            1, MAX_SHRINK + 1, device=key.device))
+        # the uniforms of k_h, k_loop and the shrink keys in one draw
+        unif = prng.uniform(torch.cat([k[:, :, 1:], shrink], dim=2))
+        scal = torch.empty((*k.shape[:2], 3 + MAX_SHRINK),
+                           dtype=torch.float32, device=key.device)
         scal[:, :, 0] = 0.0
         scal[:, 0, 0] = state.log_lik_hat
         scal[:, :, 1] = torch.log(unif[:, :, 0])
         scal[:, :, 2] = unif[:, :, 1] * _TWO_PI
         scal[:, :, 3:] = unif[:, :, 2:]
-        return {"scal": scal, "v": v}
+        return {"scal": scal, "v": v}, key
 
     def _info(n_shrink_total, moved_total):
         return {"n_shrink": n_shrink_total / n_repeats,
@@ -159,12 +171,6 @@ def make_ess_u(target, particle_axis=None, n_repeats=1):
         return (state.replace(u=u, log_lik_hat=ll),
                 _info(n_shrink_total, moved_total))
 
-    apply = apply_loop if sweep is None else apply_sweep
-
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.apply = apply
+    step = keyed(draw, apply_loop if sweep is None else apply_sweep)
     step.uses_sweep = sweep is not None
     return step

@@ -36,6 +36,7 @@ import torch
 
 from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
+from auxpm_tpu_torch.core.transition import keyed
 
 _DIVERGENCE = 1000.0
 
@@ -100,31 +101,16 @@ def leapfrog(z, r, g, eps, inv_mass, vg, rows=None):
 
 
 def make_hmc(target):
-    def draw(generator, state: ChainState, params=None):
+    def draw(state: ChainState, params=None):
         """``n_steps (B,)`` int64 in {1..n_leapfrog}, the momentum draw
         ``r0 (B, d)`` ~ N(0, I) (scaled by ``inv_mass^-1/2`` in ``apply``)
-        and ``log_u (B,)``."""
+        and ``log_u (B,)``, as the reference draws them: ``key, k_mom,
+        k_acc, k_traj = split(key, 4)``.  Returns the advanced keys too."""
         n_leapfrog = int((params or {}).get("n_leapfrog", 8))
-        b, d = state.theta.shape
-        dev = state.theta.device
-        n_steps = torch.randint(1, n_leapfrog + 1, (b,), generator=generator,
-                                device=dev)
-        r0 = torch.randn((b, d), generator=generator, dtype=torch.float32,
-                         device=dev)
-        unif = torch.rand((b,), generator=generator, dtype=torch.float32,
-                          device=dev)
-        return {"n_steps": n_steps, "r0": r0, "log_u": torch.log(unif)}
-
-    def draw_keyed(keys, state: ChainState, params=None):
-        """The same rows from each chain's key ``(B, 2)``, as the reference
-        draws them (``key, k_mom, k_acc, k_traj = split(key, 4)``); returns
-        the advanced keys too."""
-        n_leapfrog = int((params or {}).get("n_leapfrog", 8))
-        k = prng.split(keys, 4)
-        return k[:, 0], {
-            "n_steps": prng.randint(k[:, 3], (), 1, n_leapfrog + 1),
-            "r0": prng.normal(k[:, 1], (state.theta.shape[1],)),
-            "log_u": torch.log(prng.uniform(k[:, 2]))}
+        k = prng.split(state.key, 4)
+        return ({"n_steps": prng.randint(k[:, 3], (), 1, n_leapfrog + 1),
+                 "r0": prng.normal(k[:, 1], (state.theta.shape[1],)),
+                 "log_u": torch.log(prng.uniform(k[:, 2]))}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         global host_syncs
@@ -172,10 +158,4 @@ def make_hmc(target):
         return state.replace(theta=new_theta, log_lik_hat=new_log_lik,
                              extras=extras), info
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state, params), params)
-
-    step.draw = draw
-    step.draw_keyed = draw_keyed
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -30,10 +30,10 @@ The pCN rotation is reversible w.r.t. N(u), so the acceptance is
 min(1, p(theta') L̂(theta', u') / (p(theta) L̂(theta, u))); rho = pi/2 is
 PM-MH, small rho keeps the estimator noise correlated between the two sides.
 
-Both draw v from ``core/state.make_u_normal`` with the state's block
-generators, as ``ess_u`` draws its v, so a particle-sharded chain draws the
-rows the unsharded chain draws there; every other draw comes from the
-state's (replicated) generator.  Both refresh a carried factor at the new
+Both draw from each chain's key as the reference splits it, v through
+``core/state.make_u_normal`` as ``ess_u`` draws its v, so a particle-sharded
+chain draws the rows the unsharded chain draws there; every other draw is
+replicated over the particle group.  Both refresh a carried factor at the new
 theta (``core/state.refresh_target_cache``).
 
 Params (groups "joint_slice" / "joint_mh"):
@@ -51,15 +51,17 @@ import math
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import (
     ChainState,
     make_u_normal,
     refresh_target_cache,
 )
+from auxpm_tpu_torch.core.transition import keyed
 from auxpm_tpu_torch.samplers.slice_theta import (
     MAX_SHRINK,
     _slice_1d,
-    draw_rep,
+    keyed_rep,
     unit_directions,
 )
 
@@ -93,12 +95,15 @@ def make_joint_slice(target, particle_axis=None):
     _require_mesh(particle_axis)
     draw_v = make_u_normal(target, particle_axis)
 
-    def draw(generator, state: ChainState):
-        """``direction (B, d)``, ``v (B, S, n)`` and ``rep (B, 2 + 32)``."""
-        return {"direction": unit_directions(generator, state.theta),
-                "v": draw_v(generator, tuple(state.u.shape),
-                            state.block_generators),
-                "rep": draw_rep(generator, state.theta)}
+    def draw(state: ChainState, params=None):
+        """``direction (B, d)``, ``v (B, S, n)`` and ``rep (B, 2 + 32)``:
+        ``key, k_dir, k_v, k_slice = split(key, 4)``.  Returns the advanced
+        keys too."""
+        del params
+        k = prng.split(state.key, 4)
+        return ({"direction": unit_directions(k[:, 1], target.d),
+                 "v": draw_v(k[:, 2], state.u.shape[1]),
+                 "rep": keyed_rep(k[:, 3])}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         max_step_out = int(params.get("max_step_out", 8))
@@ -137,12 +142,7 @@ def make_joint_slice(target, particle_axis=None):
         return new_state, {"n_probe": n_probe,
                            "moved": done.to(torch.float32)}
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.apply = apply
-    return step
+    return keyed(draw, apply)
 
 
 def make_joint_mh(target, particle_axis=None):
@@ -150,14 +150,14 @@ def make_joint_mh(target, particle_axis=None):
     _require_mesh(particle_axis)
     draw_v = make_u_normal(target, particle_axis)
 
-    def draw(generator, state: ChainState):
-        """``xi (B, d)``, ``v (B, S, n)`` and ``log_unif (B,)``."""
-        xi = torch.randn(state.theta.shape, generator=generator,
-                         dtype=torch.float32, device=state.theta.device)
-        v = draw_v(generator, tuple(state.u.shape), state.block_generators)
-        unif = torch.rand((state.theta.shape[0],), generator=generator,
-                          dtype=torch.float32, device=state.theta.device)
-        return {"xi": xi, "v": v, "log_unif": torch.log(unif)}
+    def draw(state: ChainState, params=None):
+        """``xi (B, d)``, ``v (B, S, n)`` and ``log_unif (B,)``: ``key, k_xi,
+        k_v, k_acc = split(key, 4)``.  Returns the advanced keys too."""
+        del params
+        k = prng.split(state.key, 4)
+        return ({"xi": prng.normal(k[:, 1], (state.theta.shape[1],)),
+                 "v": draw_v(k[:, 2], state.u.shape[1]),
+                 "log_unif": torch.log(prng.uniform(k[:, 3]))}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         s = _scalar(params, "step_size", 0.3, state.theta)
@@ -171,9 +171,4 @@ def make_joint_mh(target, particle_axis=None):
         new_state = _accepted(state, target, accept, theta_p, u_p, ll_p)
         return new_state, {"accept": accept.to(torch.float32)}
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -20,29 +20,19 @@ import torch
 
 from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState
+from auxpm_tpu_torch.core.transition import keyed
 from auxpm_tpu_torch.samplers.pm_mh import random_walk_move
 
 
 def make_mh_theta(target):
-    def draw(generator, state: ChainState):
-        """``eps (B, d)`` proposal noise and ``log_unif (B,)``."""
-        b, d = state.theta.shape
-        dev = state.theta.device
-        eps = torch.randn((b, d), generator=generator, dtype=torch.float32,
-                          device=dev)
-        unif = torch.rand((b,), generator=generator, dtype=torch.float32,
-                          device=dev)
-        return {"eps": eps, "log_unif": torch.log(unif)}
-
-    def draw_keyed(keys, state: ChainState, params=None):
-        """The same rows from each chain's key ``(B, 2)``, as the reference
-        draws them (``key, k_prop, k_acc = split(key, 3)``); returns the
-        advanced keys too."""
+    def draw(state: ChainState, params=None):
+        """``eps (B, d)`` proposal noise and ``log_unif (B,)``, as the
+        reference draws them: ``key, k_prop, k_acc = split(key, 3)``.
+        Returns the advanced keys too."""
         del params
-        k = prng.split(keys, 3)
-        return k[:, 0], {
-            "eps": prng.normal(k[:, 1], (state.theta.shape[1],)),
-            "log_unif": torch.log(prng.uniform(k[:, 2]))}
+        k = prng.split(state.key, 3)
+        return ({"eps": prng.normal(k[:, 1], (state.theta.shape[1],)),
+                 "log_unif": torch.log(prng.uniform(k[:, 2]))}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         new_state, accept, _ = random_walk_move(
@@ -50,10 +40,4 @@ def make_mh_theta(target):
             params.get("step_size", 0.5), state.u)
         return new_state, {"accept": accept.to(torch.float32)}
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.draw_keyed = draw_keyed
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -47,6 +47,7 @@ import torch
 
 from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
+from auxpm_tpu_torch.core.transition import keyed
 from auxpm_tpu_torch.samplers import hmc
 from auxpm_tpu_torch.samplers.hmc import (
     inv_mass_vector,
@@ -80,34 +81,22 @@ def _uturn(z_minus, r_minus, z_plus, r_plus, inv_mass):
 
 
 def make_nuts(target, max_depth=8):
-    n_leaf_cols = 1 << (max_depth - 1)
 
-    def draw(generator, state: ChainState, params=None):
+    def draw(state: ChainState, params=None):
         """``r0 (B, d)`` ~ N(0, I) (scaled by ``inv_mass^-1/2`` in
         ``apply``), ``direction (B, max_depth)`` of +1 / -1, ``u_biased (B,
-        max_depth)`` and ``u_leaf (B, max_depth, 2^(max_depth-1))``."""
+        max_depth)`` and ``leaf_keys (B, max_depth, 2)``, from each chain's
+        key as the reference draws them: ``key, k_mom, k_loop = split(key,
+        3)``, then per depth ``kd, kb, ks, k_loop = split(k_loop, 4)``, the
+        direction ``bernoulli(kd)``, ``uniform(kb)`` and the subtree's key
+        ``ks``, whose leaf s takes ``uniform(fold_in(ks, s))``; ``apply``
+        draws a depth's 2^depth leaves when the trajectory gets there (a
+        table of every leaf would be 2^(max_depth - 1) draws per depth,
+        nearly all unused).  ``apply`` also takes that table as ``u_leaf
+        (B, max_depth, 2^(max_depth-1))`` instead of the keys.  Returns the
+        advanced keys too."""
         del params
-        b, d = state.theta.shape
-        dev = state.theta.device
-        r0 = torch.randn((b, d), generator=generator, dtype=torch.float32,
-                         device=dev)
-        u_dir = torch.rand((b, max_depth), generator=generator,
-                           dtype=torch.float32, device=dev)
-        u_biased = torch.rand((b, max_depth), generator=generator,
-                              dtype=torch.float32, device=dev)
-        u_leaf = torch.rand((b, max_depth, n_leaf_cols), generator=generator,
-                            dtype=torch.float32, device=dev)
-        direction = torch.where(u_dir < 0.5, 1.0, -1.0)
-        return {"r0": r0, "direction": direction, "u_biased": u_biased,
-                "u_leaf": u_leaf}
-
-    def draw_keyed(keys, state: ChainState, params=None):
-        """The same table from each chain's key ``(B, 2)``, as the reference
-        draws it: ``key, k_mom, k_loop = split(key, 3)``, then per depth
-        ``kd, kb, ks, k_loop = split(k_loop, 4)``, the direction
-        ``bernoulli(kd)``, ``uniform(kb)`` and per leaf s
-        ``uniform(fold_in(ks, s))``.  Returns the advanced keys too."""
-        del params
+        keys = state.key
         k = prng.split(keys, 3)
         k_loop, per_depth = k[:, 2], []
         for _ in range(max_depth):
@@ -115,12 +104,13 @@ def make_nuts(target, max_depth=8):
             per_depth.append(kk[:, :3])
             k_loop = kk[:, 3]
         kd = torch.stack(per_depth, dim=1)        # (B, max_depth, 3, 2)
-        leaves = torch.arange(n_leaf_cols, device=keys.device)
-        return k[:, 0], {
+        u_db = prng.uniform(kd[:, :, :2])
+        return ({
             "r0": prng.normal(k[:, 1], (state.theta.shape[1],)),
-            "direction": torch.where(prng.bernoulli(kd[:, :, 0]), 1.0, -1.0),
-            "u_biased": prng.uniform(kd[:, :, 1]),
-            "u_leaf": prng.uniform(prng.fold_in(kd[:, :, 2, None], leaves))}
+            # bernoulli(kd) is uniform(kd) < 0.5: both uniforms in one draw
+            "direction": torch.where(u_db[:, :, 0] < 0.5, 1.0, -1.0),
+            "u_biased": u_db[:, :, 1].contiguous(),
+            "leaf_keys": kd[:, :, 2].contiguous()}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         theta = state.theta
@@ -187,7 +177,12 @@ def make_nuts(target, max_depth=8):
             g_ = torch.where(fwd, gp[idx], gm[idx])
             e_dir = direction * eps[idx]
             h0_i = h0[idx]
-            u_leaf = rows["u_leaf"][idx, dep]
+            if "u_leaf" in rows:
+                u_leaf = rows["u_leaf"][idx, dep]
+            else:    # this subtree's 2^dep leaves, from its key
+                u_leaf = prng.uniform(prng.fold_in(
+                    rows["leaf_keys"][idx, dep, None],
+                    torch.arange(1 << dep, device=dev)))
             n_i = idx.shape[0]
 
             # ---- the subtree of 2^dep leaves, the chains in lockstep
@@ -273,10 +268,4 @@ def make_nuts(target, max_depth=8):
         return state.replace(theta=z_prop, log_lik_hat=new_log_lik,
                              extras=extras), info
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state, params), params)
-
-    step.draw = draw
-    step.draw_keyed = draw_keyed
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -24,11 +24,13 @@ from __future__ import annotations
 
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import (
     ChainState,
     make_u_normal,
     refresh_target_cache,
 )
+from auxpm_tpu_torch.core.transition import keyed
 
 
 def random_walk_move(target, state: ChainState, eps, log_unif, step_size,
@@ -57,27 +59,24 @@ def random_walk_move(target, state: ChainState, eps, log_unif, step_size,
 
 def make_pm_mh(target, particle_axis=None):
     """``particle_axis``: this rank's ``parallel.mesh.Mesh`` when ``target``
-    is particle sharded: the fresh u' then covers this rank's rows, drawn
-    block by block from the state's block generators (the rows the
-    unsharded state would draw there); every other draw comes from the
-    replicated generator."""
+    is particle sharded: the fresh u' then covers this rank's rows (the
+    rows the unsharded state would draw there, ``core/state.make_u_normal``);
+    every other draw is replicated over the particle group."""
     if particle_axis is not None:
         from auxpm_tpu_torch.parallel.mesh import require_mesh
 
         require_mesh(particle_axis)
     draw_u = make_u_normal(target, particle_axis)
 
-    def draw(generator, state: ChainState):
+    def draw(state: ChainState, params=None):
         """``eps (B, d)`` proposal noise, ``u (B, S, n)`` fresh rows and
-        ``log_unif (B,)``."""
-        b, d = state.theta.shape
-        dev = state.theta.device
-        eps = torch.randn((b, d), generator=generator, dtype=torch.float32,
-                          device=dev)
-        u = draw_u(generator, tuple(state.u.shape), state.block_generators)
-        unif = torch.rand((b,), generator=generator, dtype=torch.float32,
-                          device=dev)
-        return {"eps": eps, "u": u, "log_unif": torch.log(unif)}
+        ``log_unif (B,)``, as the reference draws them: ``key, k_prop, k_u,
+        k_acc = split(key, 4)``.  Returns the advanced keys too."""
+        del params
+        k = prng.split(state.key, 4)
+        return ({"eps": prng.normal(k[:, 1], (state.theta.shape[1],)),
+                 "u": draw_u(k[:, 2], state.u.shape[1]),
+                 "log_unif": torch.log(prng.uniform(k[:, 3]))}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         new_state, accept, log_accept = random_walk_move(
@@ -87,9 +86,4 @@ def make_pm_mh(target, particle_axis=None):
                 "log_accept_ratio": torch.clamp(log_accept, max=0.0)}
         return new_state, info
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -75,6 +75,7 @@ import torch
 
 from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
+from auxpm_tpu_torch.core.transition import keyed
 from auxpm_tpu_torch.models.base import full_coord_probes, set_coord
 from auxpm_tpu_torch.ops.sigma_sweep import MAX_SHRINK
 
@@ -175,35 +176,24 @@ def make_slice_theta(target, n_sigma_extra=0):
             and os.environ.get("AUXPM_SIGMA_SWEEP", "1") != "0"):
         sigma_sweep_fn = target.sigma_sweep_factory(sigma_reps)
 
-    def draw(generator, state: ChainState):
-        """One ``rep (B, reps_i, 2 + 32)`` per coordinate i, each row
-        [log U (height), U1 (interval placement), 32 shrink uniforms].
-        Stepping out draws nothing of its own."""
-        b = state.theta.shape[0]
-        rows = []
-        for i in range(n_coords):
-            reps = sigma_reps if i == n_coords - 1 else 1
-            rep = torch.rand((b, reps, REP_COLS), generator=generator,
-                             dtype=torch.float32, device=state.theta.device)
-            rep[:, :, 0] = torch.log(rep[:, :, 0])
-            rows.append(rep)
-        return tuple(rows)
-
-    def draw_keyed(keys, state: ChainState, params=None):
-        """The same rows from each chain's key ``(B, 2)``, as the reference
-        draws them: ``key, *coord_keys = split(key, d + 1)``, a repeat r > 0
-        of the last coordinate from ``fold_in(coord_key, r)``, and each row
-        from ``keyed_rep``.  Returns the advanced keys too."""
+    def draw(state: ChainState, params=None):
+        """One ``rep (B, reps_i, 2 + 32)`` per coordinate i, each row [log U
+        (height), U1 (interval placement), 32 shrink uniforms], from each
+        chain's key as the reference draws them: ``key, *coord_keys =
+        split(key, d + 1)``, a repeat r > 0 of the last coordinate from
+        ``fold_in(coord_key, r)``, each row from ``keyed_rep``.  Stepping out
+        draws nothing of its own.  Returns the advanced keys too."""
         del params
-        k = prng.split(keys, n_coords + 1)
-        rows = []
-        for i in range(n_coords):
-            reps = sigma_reps if i == n_coords - 1 else 1
-            kc = k[:, i + 1]
-            rows.append(torch.stack(
-                [keyed_rep(kc if r == 0 else prng.fold_in(kc, r))
-                 for r in range(reps)], dim=1))
-        return k[:, 0], tuple(rows)
+        k = prng.split(state.key, n_coords + 1)
+        coord = k[:, 1:]                   # one key per coordinate's row
+        if sigma_reps > 1:                 # the last coordinate's repeats
+            coord = torch.cat([coord, prng.fold_in(
+                coord[:, -1:], torch.arange(1, sigma_reps,
+                                            device=coord.device))], dim=1)
+        reps = keyed_rep(coord)            # every row in one draw
+        last = n_coords - 1
+        return (tuple(reps[:, i:i + 1] for i in range(last))
+                + (reps[:, last:].contiguous(),), k[:, 0])
 
     def apply(state: ChainState, rows: tuple, params: dict):
         max_step_out = int(params.get("max_step_out", 8))
@@ -286,40 +276,27 @@ def make_slice_theta(target, n_sigma_extra=0):
         info = {"n_probe": n_probe_total, "n_probe_chol": n_probe_chol}
         return new_state, info
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.draw_keyed = draw_keyed
-    step.apply = apply
-    return step
+    return keyed(draw, apply)
 
 
 def keyed_rep(keys):
-    """``draw_rep``'s row from each key ``(B, 2)`` as the reference's
+    """One ``_slice_1d`` row per key ``(..., 2)`` as the reference's
     ``_slice_1d`` draws it: ``k_h, k_init, k_loop = split(key, 3)``, [log
-    uniform(k_h), uniform(k_init), uniform(fold_in(k_loop, j)) for j < 32]."""
+    uniform(k_h), uniform(k_init), uniform(fold_in(k_loop, j)) for j < 32]:
+    ``(..., 2 + 32)``, all 34 uniforms in one draw."""
     k = prng.split(keys, 3)
-    shrink = prng.uniform(prng.fold_in(
-        k[:, 2, None], torch.arange(MAX_SHRINK, device=keys.device)))
-    return torch.cat([torch.log(prng.uniform(k[:, 0]))[:, None],
-                      prng.uniform(k[:, 1])[:, None], shrink], dim=1)
-
-
-def unit_directions(generator, theta):
-    """One N(0, I) direction per chain, normalised: ``(B, d)``."""
-    e = torch.randn(theta.shape, generator=generator, dtype=torch.float32,
-                    device=theta.device)
-    return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
-
-
-def draw_rep(generator, theta):
-    """One ``_slice_1d`` row per chain: ``(B, 2 + 32)`` = [log U, U1, 32
-    shrink uniforms]."""
-    rep = torch.rand((theta.shape[0], REP_COLS), generator=generator,
-                     dtype=torch.float32, device=theta.device)
-    rep[:, 0] = torch.log(rep[:, 0])
+    shrink = prng.fold_in(k[..., 2, None, :],
+                          torch.arange(MAX_SHRINK, device=keys.device))
+    rep = prng.uniform(torch.cat([k[..., :2, :], shrink], dim=-2))
+    rep[..., 0] = torch.log(rep[..., 0])
     return rep
+
+
+def unit_directions(keys, d):
+    """One N(0, I) direction of length ``d`` per key ``(B, 2)``, normalised:
+    ``(B, d)``."""
+    e = prng.normal(keys, (d,))
+    return e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)
 
 
 def make_slice_theta_rd(target):
@@ -327,10 +304,14 @@ def make_slice_theta_rd(target):
     step).  The bracket is the scalar ``mean(widths)``.  Info: ``n_probe``
     and ``moved`` (the update was accepted)."""
 
-    def draw(generator, state: ChainState):
-        """``direction (B, d)`` unit vectors and ``rep (B, 2 + 32)``."""
-        return {"direction": unit_directions(generator, state.theta),
-                "rep": draw_rep(generator, state.theta)}
+    def draw(state: ChainState, params=None):
+        """``direction (B, d)`` unit vectors and ``rep (B, 2 + 32)``, as the
+        reference draws them: ``key, k_dir, k_slice = split(key, 3)``.
+        Returns the advanced keys too."""
+        del params
+        k = prng.split(state.key, 3)
+        return ({"direction": unit_directions(k[:, 1], target.d),
+                 "rep": keyed_rep(k[:, 2])}, k[:, 0])
 
     def apply(state: ChainState, rows: dict, params: dict):
         max_step_out = int(params.get("max_step_out", 8))
@@ -371,9 +352,4 @@ def make_slice_theta_rd(target):
         return new_state, {"n_probe": n_probe,
                            "moved": done.to(torch.float32)}
 
-    def step(state: ChainState, params: dict):
-        return apply(state, draw(state.generator, state), params)
-
-    step.draw = draw
-    step.apply = apply
-    return step
+    return keyed(draw, apply)

@@ -33,11 +33,13 @@ Known differences from the reference:
   UNtempered estimates with the tempered level and writes an untempered
   estimate back.  Here every closure left returns beta x the untempered
   estimate, or is None, so rejuvenation takes the per-probe paths.
-- After resampling the duplicated particles decorrelate through the next
-  draws of the state's generators (one per state, not one per particle);
-  the reference gives each particle a fresh key.  The sharded SMC
-  (``samplers/smc_sharded.py``) does give each particle a fresh
-  counter-based key (``core/prng.py``).
+
+Keys follow the reference's: ``k_init, k_loop = split(key(seed))``; particle
+i starts from ``split(k_init, N)[i]`` (``k_t, k_u, k_carry = split(., 3)``:
+theta ``sample_prior_key(k_t)``, u ``normal(k_u)``); stage s takes ``k_res,
+k_rej = split(fold_in(k_loop, s))``, resamples with ``uniform(k_res)`` and
+gives every particle a fresh key ``split(k_rej, N)``, so duplicated copies
+decorrelate.
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ import time
 
 import torch
 
-from auxpm_tpu_torch.core.state import ChainState, make_generators, make_u_normal
+from auxpm_tpu_torch.core import prng
+from auxpm_tpu_torch.core.state import ChainState
 from auxpm_tpu_torch.ops.logsumexp import logsumexp
 from auxpm_tpu_torch.parallel.resampling import systematic_resample_indices
 
@@ -129,7 +132,8 @@ def _take(states, idx):
 
     extras = take(states.extras)
     return states.replace(theta=states.theta[idx], u=states.u[idx],
-                          log_lik_hat=states.log_lik_hat[idx], extras=extras)
+                          log_lik_hat=states.log_lik_hat[idx],
+                          key=states.key[idx], extras=extras)
 
 
 def make_smc(target, make_rejuvenation, n_particles, n_mcmc=2, ess_frac=0.5):
@@ -145,14 +149,16 @@ def make_smc(target, make_rejuvenation, n_particles, n_mcmc=2, ess_frac=0.5):
     rejuvenation_params = default_rejuvenation_params(target)
     log_n = math.log(float(n_particles))
 
-    def stage(states, beta, generator):
+    def stage(states, beta, k_stage):
         ll = states.log_lik_hat        # untempered log L̂ per particle
         beta_new = next_beta(ll, beta, ess_frac)
         log_w = (beta_new - beta) * ll
         log_z_inc = logsumexp(log_w) - log_n
-        u01 = torch.rand((), generator=generator, dtype=ll.dtype,
-                         device=ll.device)
-        states = _take(states, systematic_resample_indices(log_w, u01))
+        k = prng.split(k_stage, 2)
+        states = _take(states, systematic_resample_indices(
+            log_w, prng.uniform(k[0])))
+        # fresh keys after resampling: the copies must decorrelate
+        states = states.replace(key=prng.split(k[1], n_particles))
         std = states.theta.std(0, unbiased=False) + 1e-6
         params = rejuvenation_params(std)
         transition = make_rejuvenation(tempered_target(target, beta_new))
@@ -166,29 +172,28 @@ def make_smc(target, make_rejuvenation, n_particles, n_mcmc=2, ess_frac=0.5):
         return (s.replace(log_lik_hat=s.log_lik_hat / beta_new), beta_new,
                 log_z_inc, infos)
 
-    def init_prior(seed):
-        if target.sample_prior is None:
+    def init_prior(k_init):
+        if target.sample_prior_key is None:
             raise ValueError(
-                f"SMC needs target.sample_prior (target {target.name}): the "
-                "stage-0 population must be exact prior draws for logZ")
-        generator, block_generators = make_generators(seed, target)
-        theta = target.sample_prior(generator, n_particles)
-        u = make_u_normal(target)(generator, (n_particles, *target.u_shape),
-                                  block_generators)
+                f"SMC needs target.sample_prior_key (target {target.name}): "
+                "the stage-0 population must be exact prior draws for logZ")
+        k = prng.split(prng.split(k_init, n_particles), 3)
+        theta = target.sample_prior_key(k[:, 0])
+        u = prng.normal(k[:, 1], tuple(target.u_shape))
         return ChainState(theta=theta, u=u,
                           log_lik_hat=target.log_lik_est(theta, u),
-                          generator=generator,
-                          block_generators=block_generators)
+                          key=k[:, 2].contiguous())
 
     def run(seed, on_stage=None):
-        states = init_prior(seed)
+        k_init, k_loop = prng.split(prng.key(seed).to(target.device), 2)
+        states = init_prior(k_init)
         beta = torch.zeros((), dtype=states.theta.dtype,
                            device=states.theta.device)
         log_z, betas, seconds = 0.0, [0.0], []
         for s in range(_MAX_STAGES):
             t0 = time.perf_counter()
-            states, beta, log_z_inc, infos = stage(states, beta,
-                                                   states.generator)
+            states, beta, log_z_inc, infos = stage(
+                states, beta, prng.fold_in(k_loop, s))
             log_z += float(log_z_inc)    # host reads: two per stage
             b = float(beta)
             seconds.append(time.perf_counter() - t0)

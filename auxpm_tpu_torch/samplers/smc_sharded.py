@@ -16,9 +16,9 @@ sharded over the mesh's CHAIN group (rank r holds the global particles
 ``carry_u=True``: u is materialised and travels with its particle through
 the gather (a payload of O(N S n)).  The rejuvenation is ``n_mcmc`` steps of
 ``make_rejuvenation(tempered_target(target, beta'))`` (``aux_slice``,
-``aux_hmc`` or ``aux_nuts``) drawing from the rank's generators, so the run
-is not invariant to the number of ranks (ROADMAP known difference 1), and the
-tempered target drops the sweeps (known difference 6).
+``aux_hmc`` or ``aux_nuts``) drawing from each particle's fresh key, as the
+reference's does, and the tempered target drops the sweeps (ROADMAP known
+difference 6).
 
 ``carry_u=False`` (key-as-u): a particle stores the threefry key that
 generated its u, ``u == normal(u_key, u_shape)`` (``core/prng.py``), so the
@@ -51,7 +51,7 @@ import time
 import torch
 
 from auxpm_tpu_torch.core import prng
-from auxpm_tpu_torch.core.state import ChainState, make_generators
+from auxpm_tpu_torch.core.state import ChainState
 from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 from auxpm_tpu_torch.parallel import collectives
 from auxpm_tpu_torch.parallel.resampling import (
@@ -172,7 +172,7 @@ def make_smc_sharded(target, make_rejuvenation, n_particles, mesh, n_mcmc=2,
         var = collectives.pmean(((theta - mean) ** 2).mean(0), mesh)
         std = torch.sqrt(var) + 1e-6
         states = states.replace(theta=theta, u=got["u"], log_lik_hat=ll,
-                                extras={**states.extras, "key": keys})
+                                key=keys)
         return states, beta_new, log_z_inc, std, idx
 
     def rejuvenation(beta_new, std, probe_log=None):
@@ -245,26 +245,23 @@ def make_smc_sharded(target, make_rejuvenation, n_particles, mesh, n_mcmc=2,
         transition, params = rejuvenation(beta_new, std, probe_log)
         theta, ll, ukd = states.theta.clone(), states.log_lik_hat.clone(), \
             states.u.clone()
-        keys = states.extras["key"].clone()
+        keys = states.key.clone()
         accs, margins, infos = [], [], []
         for sl in chunks():
             k = prng.split(keys[sl], 2)
             u_c, ll_c, acc, margin = refresh_u(theta[sl], ll[sl], ukd[sl],
                                                k[:, 0], beta_new)
             s = ChainState(theta=theta[sl], u=materialize(u_c),
-                           log_lik_hat=beta_new * ll_c,
-                           generator=states.generator,
-                           extras={"key": k[:, 1]})
+                           log_lik_hat=beta_new * ll_c, key=k[:, 1])
             info = {}
             for _ in range(n_mcmc):
                 s, info = transition(s, params)
             theta[sl], ll[sl], ukd[sl] = s.theta, s.log_lik_hat / beta_new, u_c
-            keys[sl] = s.extras["key"]
+            keys[sl] = s.key
             accs.append(acc)
             margins.append(margin)
             infos.append(info)
-        states = states.replace(theta=theta, u=ukd, log_lik_hat=ll,
-                                extras={**states.extras, "key": keys})
+        states = states.replace(theta=theta, u=ukd, log_lik_hat=ll, key=keys)
         acc = torch.cat(accs)
         u_acc = collectives.pmean(acc.to(torch.float32).mean(), mesh)
         info = {k: torch.cat([i[k] for i in infos]) for k in infos[0]}
@@ -318,11 +315,9 @@ def make_smc_sharded(target, make_rejuvenation, n_particles, mesh, n_mcmc=2,
     def init_states(seed):
         """``(stage-0 population, k_loop)`` of ``run(seed)``."""
         k = prng.split(prng.key(seed), 2)
-        generator, block_generators = make_generators(seed, target, mesh)
         theta, u, ll, keys = init(k[0])
-        return ChainState(theta=theta, u=u, log_lik_hat=ll,
-                          generator=generator, extras={"key": keys},
-                          block_generators=block_generators), k[1].to(dev)
+        return (ChainState(theta=theta, u=u, log_lik_hat=ll, key=keys),
+                k[1].to(dev))
 
     def run(seed, stop_after=None, on_stage=None):
         run_key = prng.key(seed)

@@ -135,6 +135,21 @@ PRESETS = {
         steps=1000,
         ard=True,
     ),
+    # BASELINE config 4: "4096 vectorized chains on GP posterior, chains
+    # sharded across hosts, global step-size/bracket adaptation via psum";
+    # every chain draws from its own key, so the records are the same on any
+    # number of chain shards (torchrun --nproc-per-node, or --nnodes with
+    # --multihost)
+    "gp_4096_sharded": RunConfig(
+        preset="gp_4096_sharded",
+        target="gp",
+        dataset="pima",
+        n_importance=64,
+        sampler="aux_slice",
+        chains=4096,
+        steps=500,
+        sharded=True,
+    ),
     # BASELINE config 5: SMC with distributed resampling and NUTS
     # rejuvenation, u kept as its generating key (samplers/smc_sharded.py)
     "smc_gp_nuts": RunConfig(
@@ -207,8 +222,9 @@ def unsupported(cfg: RunConfig):
         asked.append(("HMC / NUTS with --particle-shards > 1", "8"))
     if gradient and cfg.target == "gp" and cfg.proposal == "laplace":
         asked.append(("HMC / NUTS with proposal='laplace'", "6"))
-    if cfg.multihost:
-        asked.append(("multihost", "8"))
+    if cfg.multihost and not cfg.sharded:
+        raise ValueError("--multihost runs the sharded path over a world that "
+                         "spans several nodes: add --sharded true")
     if cfg.particle_shards > 1 and not cfg.sharded:
         raise ValueError("--particle-shards > 1 needs --sharded true")
     if asked:

@@ -70,9 +70,8 @@ def profile_steps(step, states, params, n_steps):
     from torch.autograd import DeviceType
 
     # wall time from an untraced run of the same length: tracing the host
-    # side slows the Python loop many times over
-    generators = (states.generator, *states.block_generators)
-    generator_states = [g.get_state() for g in generators]
+    # side slows the Python loop many times over; the traced run repeats
+    # the same steps (they are a function of the states' keys)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     probe_states = states
@@ -80,8 +79,6 @@ def profile_steps(step, states, params, n_steps):
         probe_states, _ = step(probe_states, params)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    for g, saved in zip(generators, generator_states):
-        g.set_state(saved)  # trace the same steps
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_steps):

@@ -11,8 +11,9 @@ once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop; config 2 again with
 holding 32 of every chain's 64 importance samples; config 3's
 ``abalone_aux`` at n=1024 and one step at full n=4224; PM-MH and ``aux_mh``
 on config 2's target and the config-1 preset ``toy_pm_mh``; a checkpointed
-resume) and holds each of its ten
-hand-written CUDA kernels against its plain PyTorch version on the card.
+resume; config 4's preset ``gp_4096_sharded``) and holds each of its
+eleven hand-written CUDA kernels (the ten TPU kernels' and the threefry
+PRNG's) against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
 
 1. ``device``     the card (name and power limit from ``nvidia-smi``) and the
@@ -147,7 +148,23 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   and log L-hat within the bars; then two stages of (b)'s
                   configuration with ``rejuv_dispatches`` 1 and 2 at
                   ``rejuv_batch`` 512 (chunks of 512 against 256): bitwise
-                  equal.
+                  equal;
+22. ``threefry_card`` (run right after ``kernels``) the port-only kernel
+                  ``csrc/threefry.cu`` against its plain version
+                  ``core/prng.draw_plain`` on the card: words, bits, uniforms
+                  (two ranges) and fold_in's words bitwise over 5 seeds,
+                  4 shapes and 2 counter offsets, normals within 3 ulp,
+                  the golden normals bitwise through the kernel; one
+                  (256, 32, 640) normal draw and the ESS v of a config-2
+                  step (128 x 4 blocked draws of (64, 640)) timed beside
+                  their bounds (int32 operations or bytes); the main path
+                  must launch it and reports the keyed draws' ms and
+                  launches per step;
+23. ``main_path_config4`` the preset ``gp_4096_sharded`` (config 4) on one
+                  spawned rank at 4096 chains, 4 steps (no warm-up): wall
+                  per step, peak memory, launches; then at 256 chains x 5
+                  steps on one rank against two ranks sharing the card
+                  (gloo): records and log L-hat bitwise equal.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -231,7 +248,7 @@ CONFIG3_CLI_ARGS = [
     "--steps", "10",
 ]
 CONFIG3_MAX_AMBIGUOUS = 4      # of 32 chains, ARD_MAX_AMBIGUOUS's share
-TRACE_KERNELS = ("fused_estimate_kernel", "chol_panel_kernel",
+TRACE_KERNELS = ("fused_estimate_kernel", "chol_panel_kernel", "threefry_kernel",
                  "ess_sweep_kernel")
 MH_CLI_ARGS = [                # pm_mh / aux_mh on config 2's target
     "--preset", "pima_aux_slice", "--chains", str(B), "--warmup-windows", "1",
@@ -277,6 +294,10 @@ SMC_CLI_ARGS = ["--preset", "pima_aux_slice", "--sampler", "smc",
                 "--smc-n-mcmc", "2"]
 PRNG_CHUNK = (256, 32, 640)    # one key-as-u chunk's u: particles, S, n
 PRNG_ULP = 4                   # normals vs jax.random
+THREEFRY_SEEDS = (0, 7, 42, 2**31 + 5, 123456789)
+THREEFRY_ULP = 3               # kernel vs plain normals (two log1pf)
+THREEFRY_INT_OPS = 80          # int32 operations of one cipher call
+INT32_OPS = 132 * 64 * 1.98e9  # H100 SXM: SMs x INT32 lanes x boost clock
 SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch)
     "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "1024"],
                       ("fused_estimator", "chol_panel")),
@@ -290,6 +311,15 @@ SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch)
 }
 U_BLOCKS_ACCEPT_FLOOR = 0.2    # the reference's floor (tests/test_smc.py)
 SMC_PARITY_PARTICLES, SMC_PARITY_S = 256, 32
+CONFIG4_CHAINS, CONFIG4_STEPS = 4096, 4
+CONFIG4_CLI_ARGS = [           # the preset; depth cut: no warm-up, 4 steps
+    "--preset", "gp_4096_sharded", "--warmup-windows", "0",
+    "--window-steps", "2", "--steps", str(CONFIG4_STEPS)]
+CONFIG4_SMALL_CHAINS, CONFIG4_SMALL_STEPS = 256, 5
+CONFIG4_SMALL_ARGS = [         # 1 rank against 2 sharing the card
+    "--preset", "gp_4096_sharded", "--chains", str(CONFIG4_SMALL_CHAINS),
+    "--warmup-windows", "0", "--window-steps", str(CONFIG4_SMALL_STEPS),
+    "--steps", str(CONFIG4_SMALL_STEPS)]
 SMC_MAX_AMBIGUOUS = 64         # of 256 particles: each takes two refresh
                                # decisions and two NUTS trees, ~4x the
                                # decisions of a chain in path_parity_hmc_nuts
@@ -1359,6 +1389,121 @@ def main():
                           "cap_hit_keeps_state": not failures}})
     end_phase()
 
+    # ------------------------------------------------------ threefry kernel
+    # csrc/threefry.cu against its plain version core/prng.draw_plain on the
+    # card: words, bits and uniforms bitwise, normals within THREEFRY_ULP
+    # (the two log1pf may differ), the golden jax.random normals bitwise.
+    log("kernels: threefry")
+    from auxpm_tpu_torch.core import prng
+    from auxpm_tpu_torch.ops import threefry as tfk
+
+    tf_cases, tf_bad, tf_ulp = 0, [], 0
+    for seed in THREEFRY_SEEDS:
+        keys_ = prng.split(prng.key(seed).to(dev), (3, 5))
+        for shape_ in ((), (7,), (4, 33), (2, 3, N)):
+            for mode, lo_, hi_ in (("words", 0.0, 1.0), ("bits", 0.0, 1.0),
+                                   ("uniform", 0.0, 1.0),
+                                   ("uniform", -2.5, 3.7),
+                                   ("normal", 0.0, 1.0)):
+                for off in (0, 11):
+                    k_out = tfk.threefry(keys_, shape_, mode, lo_, hi_, off)
+                    p_out = prng.draw_plain(keys_, shape_, mode, lo_, hi_,
+                                            off)
+                    tf_cases += 1
+                    if mode == "normal":
+                        tf_ulp = max(tf_ulp, _ulps(torch, k_out, p_out))
+                    elif not torch.equal(k_out, p_out):
+                        tf_bad.append(f"{seed}/{shape_}/{mode}/{lo_}/{off}")
+        data_ = torch.arange(100, device=dev) * 7919 + seed  # fold_in's data
+        tf_cases += 1
+        if not torch.equal(tfk.threefry(keys_[..., None, :], (), "words",
+                                        data=data_),
+                           prng.draw_plain(keys_[..., None, :], (), "words",
+                                           data=data_)):
+            tf_bad.append(f"{seed}/fold_in")
+    if tf_bad:
+        failures.append(f"threefry: kernel differs from the plain version "
+                        f"on {tf_bad}")
+    if tf_ulp > THREEFRY_ULP:
+        failures.append(f"threefry: normals {tf_ulp} ulp off the plain "
+                        "version")
+    golden_ = prng.load_golden()
+    golden_normals = all(
+        prng.golden_cases(seed, dev)["normal"]
+        == golden_["cases"][str(seed)]["normal"] for seed in golden_["seeds"])
+    if not golden_normals:
+        failures.append("threefry: golden normals differ from jax.random")
+
+    def threefry_bound(n_words, out_bytes, key_bytes):
+        """Integer operations (~80 int32 ops a cipher call at the card's
+        int32 rate) against the bytes written and the keys read."""
+        t_ops = n_words * THREEFRY_INT_OPS / INT32_OPS * 1e3
+        t_bytes = (out_bytes + key_bytes) / HBM_BYTES_PER_S * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    # one key-as-u chunk's u and the ESS v of one config-2 step (4 repeats
+    # of the blocked draw: fold_in of 8 block keys, then the normals)
+    keys_c = prng.split(prng.key(2026).to(dev), PRNG_CHUNK[0])
+    z_k = tfk.threefry(keys_c, PRNG_CHUNK[1:], "normal")
+    z_p = prng.draw_plain(keys_c, PRNG_CHUNK[1:], "normal")
+    chunk_err = max_err(z_k, z_p)
+    chunk_ulp_kp = _ulps(torch, z_k, z_p)
+    if chunk_ulp_kp > THREEFRY_ULP:
+        failures.append(f"threefry: chunk normals {chunk_ulp_kp} ulp off")
+    del z_k, z_p
+    n_chunk = math.prod(PRNG_CHUNK)
+    chunk_ms = time_ms(lambda: tfk.threefry(keys_c, PRNG_CHUNK[1:], "normal"))
+    chunk_plain_ms = time_ms(
+        lambda: prng.draw_plain(keys_c, PRNG_CHUNK[1:], "normal"), reps=3)
+    chunk_b_ms, chunk_b_by = threefry_bound(n_chunk, 4 * n_chunk,
+                                            16 * PRNG_CHUNK[0])
+    keys_v = prng.split(prng.key(7).to(dev), (B, N_ESS))
+    gids = torch.arange(8, device=dev)
+
+    def v_kernel():
+        return prng.blocked_normal(keys_v, (S, N), 8, S)
+
+    def v_plain():
+        kb = prng.draw_plain(keys_v[..., None, :], (), "words", data=gids)
+        return prng.draw_plain(kb, (S // 8, N), "normal").reshape(
+            B, N_ESS, S, N)
+
+    v_ulp = _ulps(torch, v_kernel(), v_plain())
+    if v_ulp > THREEFRY_ULP:
+        failures.append(f"threefry: ESS v {v_ulp} ulp off the plain version")
+    n_v = B * N_ESS * S * N
+    v_ms = time_ms(v_kernel)
+    v_plain_ms = time_ms(v_plain, reps=3)
+    v_b_ms, v_b_by = threefry_bound(n_v + B * N_ESS * 8, 4 * n_v,
+                                    16 * B * N_ESS * 9)
+    kernels["threefry"] = {
+        "name": "threefry", "route": "cuda",
+        "source": "auxpm_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: jax.random (XLA), auxpm_tpu/core/state.py:10-12",
+        "max_abs_err": chunk_err, "tol": f"{THREEFRY_ULP} ulp",
+        "max_ulp": max(tf_ulp, chunk_ulp_kp, v_ulp),
+        "shape": {"keys": PRNG_CHUNK[0], "normals_per_key":
+                  PRNG_CHUNK[1] * PRNG_CHUNK[2]},
+        "ms": chunk_ms, "plain_ms": chunk_plain_ms, "bound_ms": chunk_b_ms,
+        "bound_by": chunk_b_by, "library_ms": None,
+        "ess_v_ms": v_ms, "ess_v_plain_ms": v_plain_ms,
+        "ess_v_bound_ms": v_b_ms, "ess_v_bound_by": v_b_by,
+    }
+    emit({"phase": "threefry_card", "card": smi, "cases": tf_cases,
+          "words_bits_uniforms_bitwise": not tf_bad,
+          "normal_max_ulp": max(tf_ulp, chunk_ulp_kp, v_ulp),
+          "golden_normals_bitwise": golden_normals,
+          "chunk": {"shape": list(PRNG_CHUNK), "ms": chunk_ms,
+                    "plain_ms": chunk_plain_ms, "bound_ms": chunk_b_ms,
+                    "bound_by": chunk_b_by,
+                    "normals_per_s": n_chunk / (chunk_ms / 1e3)},
+          "ess_v_config2_step": {"shape": [B, N_ESS, S, N], "ms": v_ms,
+                                 "plain_ms": v_plain_ms, "bound_ms": v_b_ms,
+                                 "bound_by": v_b_by, "launches": 2}})
+    del keys_c, keys_v
+    end_phase()
+
     # ------------------------------------------------------------ main path
     log("main path:", " ".join(CLI_ARGS))
     counters = {"fused_estimator": (fe, "launches"),
@@ -1370,7 +1515,8 @@ def main():
                 "fused_weights": (fe, "launches_w"),
                 "fused_rot_weights": (fe, "launches_rot_w"),
                 "chol_panel_v1": (chol_hopper, "launches_v1"),
-                "chol_panel_v2": (chol_hopper, "launches_v2")}
+                "chol_panel_v2": (chol_hopper, "launches_v2"),
+                "threefry": (tfk, "launches")}
     only_sharded = ("fused_weights", "fused_rot_weights")
     only_bench = ("chol_panel_v1", "chol_panel_v2")
 
@@ -1397,10 +1543,12 @@ def main():
                 raise AssertionError(f"{args[1]}: launched {name}")
         return result, counts
 
-    first_path = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep")
+    first_path = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep",
+                  "threefry")
     result, counts = run_cli(CLI_ARGS, first_path,
                              ("fused_estimator_rot", "se_gram_ard",
                               *only_sharded, *only_bench))
+    n_steps_main = 40   # 2 x 10 warm-up + 20
     for name in first_path:
         kernels[name]["launches"] = counts[name]
     states, tgt, params = result["states"], result["target"], result["params"]
@@ -1415,9 +1563,22 @@ def main():
                         tgt.cache_init(states.theta)["chol_r"])
     if not cache_err <= CHOL_TOL:
         raise AssertionError(f"carried factor off by {cache_err:.3e}")
+    # the keyed draws' device time from a profiled window of the same step
+    # on the final state (not during the run: timing every draw would slow
+    # the host loop it measures)
+    _, prof_main = profile_steps(port_run_step(tgt), states, params, 5)
+    keyed_ms = sum(v_ for k_, v_ in
+                   prof_main["device_ms_per_step_by_kernel"].items()
+                   if "threefry_kernel" in k_)
     emit({"phase": "main_path", "card": smi, "args": CLI_ARGS,
           "launches": counts, "summary": summary,
           "chain_steps_per_sec": summary["chain_steps_per_sec"],
+          "keyed_draws_device_ms_per_step": keyed_ms,
+          "threefry_launches_per_step": counts["threefry"] / n_steps_main,
+          "profile": {k_: prof_main[k_] for k_ in (
+              "wall_ms_per_step", "device_busy_ms_per_step",
+              "device_idle_share", "kernel_launches_per_step",
+              "host_syncs_per_step")},
           "cache_max_abs_err": cache_err, **health})
     end_phase()
 
@@ -1425,14 +1586,14 @@ def main():
     log("path parity")
     step = port_run_step(tgt)
     ess_t, sl_t = step.stages["ess_u"], step.stages["slice_theta"]
-    rows_e = ess_t.draw(states.generator, states)
+    rows_e, _ = ess_t.draw(states)
 
     def one_step(state):
         mid, info_e = ess_t.apply(state, rows_e, params["ess_u"])
         out, info_s = sl_t.apply(mid, rows_s, params["slice_theta"])
         return out, {**info_e, **info_s}
 
-    rows_s = sl_t.draw(states.generator, states)
+    rows_s, _ = sl_t.draw(states)
     s_k, i_k = one_step(states)
     with contextlib.ExitStack() as stack:
         for mod, cuda_fn, plain_fn in (
@@ -1517,12 +1678,13 @@ def main():
     ard = {}
     for mode, env, must, must_not in (
             ("sweep", None,
-             ("se_gram_ard", "chol_panel", "fused_estimator", "ess_sweep"),
+             ("se_gram_ard", "chol_panel", "fused_estimator", "ess_sweep",
+              "threefry"),
              ("fused_estimator_rot", "sigma_sweep", *only_sharded,
               *only_bench)),
             ("loop", "0",
              ("se_gram_ard", "chol_panel", "fused_estimator",
-              "fused_estimator_rot"),
+              "fused_estimator_rot", "threefry"),
              ("ess_sweep", "sigma_sweep", *only_sharded, *only_bench))):
         log(f"main path (ARD, {mode}):", " ".join(ARD_CLI_ARGS))
         saved = os.environ.pop("AUXPM_ESS_SWEEP", None)
@@ -1583,8 +1745,8 @@ def main():
     # ------------------------------------------------------ ARD path parity
     log("path parity (ARD, loop)")
     ess_a, sl_a = step_a.stages["ess_u"], step_a.stages["slice_theta"]
-    rows_ea = ess_a.draw(st_a.generator, st_a)
-    rows_sa = sl_a.draw(st_a.generator, st_a)
+    rows_ea, _ = ess_a.draw(st_a)
+    rows_sa, _ = sl_a.draw(st_a)
 
     def one_step_ard(state, probe_log=None):
         extra = {} if probe_log is None else {"probe_log": probe_log}
@@ -1792,8 +1954,8 @@ def main():
     if ess_l.uses_sweep:
         raise AssertionError("sharded parity: the unsharded side took the "
                              "sweep")
-    rows_el = ess_l.draw(states.generator, states)
-    rows_sl = sl_l.draw(states.generator, states)
+    rows_el, _ = ess_l.draw(states)
+    rows_sl, _ = sl_l.draw(states)
     probe_log = []
     mid_l, info_el = ess_l.apply(states, rows_el,
                                  {**params["ess_u"], "probe_log": probe_log})
@@ -1909,7 +2071,7 @@ def main():
     log("main path (config 3):", " ".join(CONFIG3_CLI_ARGS))
     import tempfile
 
-    path3 = ("fused_estimator", "chol_panel", "ess_sweep")
+    path3 = ("fused_estimator", "chol_panel", "ess_sweep", "threefry")
     not_path3 = ("sigma_sweep", "fused_estimator_rot", "se_gram_ard",
                  *only_sharded, *only_bench)
     with tempfile.TemporaryDirectory() as prof_dir:
@@ -1977,8 +2139,7 @@ def main():
         own state at the estimator's bar."""
         b_ = state.theta.shape[0]
         stages = list(step_.stages.items())
-        rows_ = {name: st_.draw(state.generator, state)
-                 for name, st_ in stages}
+        rows_ = {name: st_.draw(state)[0] for name, st_ in stages}
 
         def one_step(probe_log=None):
             extra = {} if probe_log is None else {"probe_log": probe_log}
@@ -1990,9 +2151,15 @@ def main():
             return mid, s_, info
 
         mid_k, out_k, i_k = one_step()
-        probe_log = []
+        probe_log, ess_log = [], []
+
+        def ref_ess_logged(*args):
+            """The plain sweep, logging its decisions' margins: the ESS
+            decisions follow the same rule as the slice's."""
+            return ess._ref_ess_sweep(*args, probe_log=ess_log)
+
         patches = [(fe, "_cuda_estimate", fe._ref_estimate),
-                   (ess, "_cuda_ess_sweep", ess._ref_ess_sweep)]
+                   (ess, "_cuda_ess_sweep", ref_ess_logged)]
         if plain_sigma:
             patches.append((sig, "_cuda_sigma_sweep", sig._ref_sigma_sweep))
         with contextlib.ExitStack() as stack:
@@ -2007,8 +2174,11 @@ def main():
                                      "patched kernel")
         torch.cuda.synchronize()
         amb_ = torch.zeros(b_, dtype=torch.bool, device=dev)
-        for counted, margin in probe_log:
+        for counted, margin in probe_log + ess_log:
             amb_ |= counted & (margin.abs() <= ARD_DECISION_TOL)
+        amb_ess = torch.zeros(b_, dtype=torch.bool, device=dev)
+        for counted, margin in ess_log:
+            amb_ess |= counted & (margin.abs() <= ARD_DECISION_TOL)
         agree = torch.ones(b_, dtype=torch.bool, device=dev)
         for k_ in i_k:
             agree &= i_k[k_] == i_p[k_]
@@ -2045,7 +2215,9 @@ def main():
                 LL_TOL, None, LL_RTOL),
         }
         stats = {"decisions_logged": len(probe_log),
+                 "ess_decisions_logged": len(ess_log),
                  "chains_with_a_decision_inside_tolerance": n_amb_,
+                 "of_those_in_the_ess": int(amb_ess.sum()),
                  "decision_tol": ARD_DECISION_TOL,
                  "chains_with_a_differing_decision": int((~agree).sum()),
                  "of_those_outside_tolerance": n_bad,
@@ -2175,9 +2347,10 @@ def main():
     # per step, no carried factor), then --sampler aux_mh (adds the ESS
     # sweep), then the preset toy_pm_mh (the toy has no kernel).
     mh = {}
-    for sampler, must in (("pm_mh", ("fused_estimator", "chol_panel")),
+    for sampler, must in (("pm_mh", ("fused_estimator", "chol_panel",
+                                     "threefry")),
                           ("aux_mh", ("fused_estimator", "chol_panel",
-                                      "ess_sweep"))):
+                                      "ess_sweep", "threefry"))):
         args = MH_CLI_ARGS + ["--sampler", sampler]
         log(f"main path ({sampler}):", " ".join(args))
         res_m, cnt_m = run_cli(args, must,
@@ -2208,7 +2381,8 @@ def main():
                 "device_idle_share", "kernel_launches_per_step",
                 "host_syncs_per_step")}}
     log("main path (toy_pm_mh):", " ".join(TOY_CLI_ARGS))
-    res_toy, _ = run_cli(TOY_CLI_ARGS, (), tuple(counters))
+    res_toy, _ = run_cli(TOY_CLI_ARGS, ("threefry",),
+                         tuple(k_ for k_ in counters if k_ != "threefry"))
     acc_toy = [w_["accept"] for w_ in res_toy["windows"]]
     if not (res_toy["states"].theta.is_cuda
             and np.isfinite(res_toy["theta"]).all()
@@ -2286,7 +2460,7 @@ def main():
     theta_runs, finals = {}, {}
     for sampler, move_key in THETA_SAMPLERS.items():
         aux = sampler.startswith("aux_slice")
-        must = (("fused_estimator", "chol_panel")
+        must = (("fused_estimator", "chol_panel", "threefry")
                 + (("ess_sweep",) if aux else ())
                 + (("sigma_sweep",) if aux and sampler != "aux_slice_rd"
                    else ()))
@@ -2380,8 +2554,9 @@ def main():
     # where every factorisation of both sides settled on the same jitter.
     log("main path (laplace):", " ".join(LAPLACE_CLI_ARGS))
     torch.cuda.reset_peak_memory_stats()
-    res_l, cnt_l = run_cli(LAPLACE_CLI_ARGS, ("chol_panel",),
-                           [k_ for k_ in counters if k_ != "chol_panel"])
+    res_l, cnt_l = run_cli(LAPLACE_CLI_ARGS, ("chol_panel", "threefry"),
+                           [k_ for k_ in counters
+                            if k_ not in ("chol_panel", "threefry")])
     st_l = res_l["states"]
     if st_l.u.shape != (B, S_LAPLACE, N) or not st_l.u.is_cuda:
         raise AssertionError("laplace did not run at full width on the GPU")
@@ -2742,7 +2917,7 @@ def main():
     for sampler, group in (("aux_hmc", "hmc"), ("aux_nuts", "nuts")):
         args = HMC_CLI_ARGS + ["--sampler", sampler]
         log(f"main path ({sampler}):", " ".join(args))
-        must = ("fused_estimator", "chol_panel", "ess_sweep")
+        must = ("fused_estimator", "chol_panel", "ess_sweep", "threefry")
         res_h, cnt_h = run_cli(args, must,
                                [k_ for k_ in counters if k_ not in must])
         st_h = res_h["states"]
@@ -2823,7 +2998,7 @@ def main():
     log("path parity (HMC, NUTS)")
     path_h = {}
     for group, (st_, stage_, par_) in finals_h.items():
-        rows_ = stage_.draw(st_.generator, st_, par_)
+        rows_, _ = stage_.draw(st_, par_)
         for m, attr in counters.values():
             setattr(m, attr, 0)
         out_k, i_k = stage_.apply(st_, rows_, par_)
@@ -2909,7 +3084,7 @@ def main():
 
             return run_counting
 
-        must = ("fused_estimator", "chol_panel")
+        must = ("fused_estimator", "chol_panel", "threefry")
         with mock.patch.object(smc_mod, "make_smc", make_smc_counting):
             res_s, cnt_s = run_cli(args, must,
                                    [k_ for k_ in counters if k_ not in must])
@@ -2942,14 +3117,9 @@ def main():
     # core/prng.py against jax.random's values (written once with JAX into
     # core/prng_golden.json; the card has no JAX) and against the CPU.
     log("prng on the card")
-    from auxpm_tpu_torch.core import prng
 
     def ulps(a, b):
-        a = a.to(torch.int64) & 0xFFFFFFFF
-        b = b.to(torch.int64) & 0xFFFFFFFF
-        a = torch.where(a >= 2**31, 2**31 - a, a)   # sign-magnitude order
-        b = torch.where(b >= 2**31, 2**31 - b, b)
-        return int((a - b).abs().max())
+        return _ulps(torch, a, b)
 
     golden = prng.load_golden()
     worst_ulp, n_values = 0, 0
@@ -3175,7 +3345,7 @@ def main():
                      and db1["u_mh_accept"] == db2["u_mh_accept"]
                      and all(torch.equal(getattr(sb1, f), getattr(sb2, f))
                              for f in ("theta", "u", "log_lik_hat"))
-                     and torch.equal(sb1.extras["key"], sb2.extras["key"]))
+                     and torch.equal(sb1.key, sb2.key))
         if not bitwise_b:
             failures.append("path_parity_smc_sharded: rejuv_dispatches 1 "
                             "and 2 differ")
@@ -3187,6 +3357,58 @@ def main():
                                 "rejuv_batch": 512, "bitwise_equal":
                                 bitwise_b, "betas": db1["betas"],
                                 "u_mh_accept": db1["u_mh_accept"]}})
+    end_phase()
+
+    # ------------------------------------------- config 4: gp_4096_sharded
+    # The preset on one rank at its 4096 chains for a few steps (its depth
+    # cut), then at 256 chains on one rank against two ranks sharing the
+    # card (gloo): every chain draws from its own key, so the records must
+    # be bitwise equal.  Fixed params (no warm-up): the adaptation averages
+    # over chain shards in another order.  Each rank counts its own
+    # launches around its run.
+    log("config 4:", " ".join(CONFIG4_CLI_ARGS))
+    from auxpm_tpu_torch.parallel import rank_jobs
+    from auxpm_tpu_torch.parallel.launch import spawn
+
+    torch.cuda.empty_cache()    # the child needs the card's memory
+    (c4,) = spawn(rank_jobs.cli, 1, CONFIG4_CLI_ARGS, timeout_s=900)
+    for name in ("fused_estimator", "chol_panel", "ess_sweep",
+                 "threefry_launches"):
+        if c4["counts"][name] <= 0:
+            failures.append(f"main_path_config4: never launched {name}")
+    rec4 = c4["recorded_theta"]
+    if rec4.shape != (CONFIG4_CHAINS, CONFIG4_STEPS, 2) or \
+            not np.isfinite(rec4).all():
+        failures.append(f"main_path_config4: records {rec4.shape}, finite "
+                        f"{bool(np.isfinite(rec4).all())}")
+    layouts = {w: spawn(rank_jobs.cli, w, CONFIG4_SMALL_ARGS, timeout_s=600)
+               for w in (1, 2)}
+    rec1 = layouts[1][0]["recorded_theta"]
+    invariance = {
+        "records_1_vs_2_ranks_bitwise": bool(
+            np.array_equal(rec1, layouts[2][0]["recorded_theta"])
+            and np.array_equal(rec1, layouts[2][1]["recorded_theta"])),
+        "log_lik_1_vs_2_ranks_bitwise": bool(np.array_equal(
+            layouts[1][0]["log_lik_hat"],
+            np.concatenate([r["log_lik_hat"] for r in layouts[2]]))),
+        "backends": [layouts[1][0]["backend"], layouts[2][0]["backend"]],
+        "chains": CONFIG4_SMALL_CHAINS, "steps": CONFIG4_SMALL_STEPS,
+        "records_shape": list(rec1.shape),
+    }
+    if not (invariance["records_1_vs_2_ranks_bitwise"]
+            and invariance["log_lik_1_vs_2_ranks_bitwise"]):
+        failures.append("main_path_config4: 1 and 2 ranks differ")
+    emit({"phase": "main_path_config4", "card": smi,
+          "args": CONFIG4_CLI_ARGS, "chains": CONFIG4_CHAINS,
+          "step_wall_ms": 1e3 * c4["summary"]["wall"] / CONFIG4_STEPS,
+          "chain_steps_per_sec": c4["summary"]["chain_steps_per_sec"],
+          "windows_wall_s": [w_["wall"] for w_ in c4["windows"]],
+          "peak_memory_gb": c4["peak_mem_gb"], "launches": c4["counts"],
+          "threefry_launches_per_step":
+              c4["counts"]["threefry_launches"] / CONFIG4_STEPS,
+          "ess_u/moved": c4["windows"][-1]["ess_u/moved"],
+          "layout_invariance": invariance})
+    del layouts, c4
     end_phase()
 
     # ---------------------------------------------------------------- result
@@ -3202,6 +3424,18 @@ def main():
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _ulps(torch, a, b):
+    """Largest distance in units in the last place between two float32
+    tensors (or int tensors of their bit patterns)."""
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    a = a.to(torch.int64) & 0xFFFFFFFF
+    b = b.to(torch.int64) & 0xFFFFFFFF
+    a = torch.where(a >= 2**31, 2**31 - a, a)   # sign-magnitude order
+    b = torch.where(b >= 2**31, 2**31 - b, b)
+    return int((a - b).abs().max())
 
 
 def _big_inputs(np, t, n):

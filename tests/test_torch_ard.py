@@ -51,6 +51,16 @@ _WD = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 F32 = np.float32
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

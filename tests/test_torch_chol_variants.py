@@ -30,6 +30,16 @@ from tests.test_torch_panel_bodies import interpret_v1, interpret_v2
 BACK_TOL, L_TOL, INV_TOL = 1e-5, 5e-4, 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 

@@ -35,6 +35,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from auxpm_tpu.models import datasets as jdatasets
 from auxpm_tpu.models.gp_classification import (
@@ -56,6 +57,16 @@ from tests.test_torch_stepout import (
 N_SUB = 256
 SUBSAMPLE_SEED = 0
 LL_TOL, PATH_CHOL_TOL, PATH_LL_TOL = 2e-4, 1e-2, 5e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

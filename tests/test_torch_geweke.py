@@ -17,7 +17,8 @@ loops genuinely iterate under the check (asserted: mean ESS shrinks > 0.05,
 mean slice probes > 1).
 
 Seeds are ``crc32`` of the case name, as in the reference, fed to NumPy for
-the population and to the state's generator for the steps.
+the population and to the chains' keys (``prng.split(prng.key(seed), N)``)
+for the steps.
 """
 
 import zlib
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState
 from auxpm_tpu_torch.models.base import Target
 from auxpm_tpu_torch.samplers.chain import run_chains
@@ -93,9 +95,9 @@ def _population(seed, target, u_scale):
                             dtype=torch.float32)
     u = torch.as_tensor(rng.standard_normal((N_CHAINS, *U_SHAPE)) * u_scale,
                         dtype=torch.float32)
-    gen = torch.Generator().manual_seed(seed)
     return ChainState(theta=theta, u=u,
-                      log_lik_hat=target.log_lik_est(theta, u), generator=gen)
+                      log_lik_hat=target.log_lik_est(theta, u),
+                      key=prng.split(prng.key(seed), N_CHAINS))
 
 
 def _check_moments(states, u_var):

@@ -19,6 +19,7 @@ from auxpm_tpu.models.gp_classification import (
     make_gp_classification as jmake,
 )
 from auxpm_tpu.ops.sigma_sweep import make_fused_sigma_sweep as j_sigma_sweep
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import init_chain_states, refresh_target_cache
 from auxpm_tpu_torch.models.datasets import load as tload
 from auxpm_tpu_torch.models.gp_classification import (
@@ -27,6 +28,16 @@ from auxpm_tpu_torch.models.gp_classification import (
 
 S = 16
 THETAS = np.float32([[0.0, 0.0], [-0.6, 0.4], [0.7, -0.5]])
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -168,7 +179,7 @@ def test_init_chain_states_holds_the_cache_invariant(targets):
     assert refresh_target_cache(tt, {}, st.theta) == {}
     # without the cache the extras stay empty
     assert init_chain_states(5, tt, 2).extras == {}
-    draws = tt.sample_prior(st.generator, 1000)
+    draws = tt.sample_prior_key(prng.split(prng.key(0), 1000))
     assert draws.shape == (1000, 2) and abs(float(draws.std()) - 1.5) < 0.15
 
 

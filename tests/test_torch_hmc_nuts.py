@@ -173,14 +173,15 @@ def test_draw_then_apply_and_the_draw_tables(targets):
         b = t_init(3, tt, 3, jitter_scale=0.3)
         step = t_make(tt)
         out_a, _ = step(a, params)
-        rows = step.draw(b.generator, b, params)
+        rows, key = step.draw(b, params)
         out_b, _ = step.apply(b, rows, params)
         assert torch.equal(out_a.theta, out_b.theta), kernel
+        assert torch.equal(out_a.key, key), kernel
         assert rows["r0"].shape == (3, 2)
-    rows = KERNELS["nuts"][1](tt).draw(b.generator, b)
-    assert rows["u_leaf"].shape == (3, MAX_DEPTH, 1 << (MAX_DEPTH - 1))
+    rows, _ = KERNELS["nuts"][1](tt).draw(b)
+    assert rows["leaf_keys"].shape == (3, MAX_DEPTH, 2)
     assert set(rows["direction"].unique().tolist()) <= {-1.0, 1.0}
-    counts = make_hmc(tt).draw(b.generator, b, {"n_leapfrog": 3})["n_steps"]
+    counts = make_hmc(tt).draw(b, {"n_leapfrog": 3})[0]["n_steps"]
     assert counts.min() >= 1 and counts.max() <= 3
 
 

@@ -109,8 +109,9 @@ def _run(toy, step, params, oracle_step, seed):
     ora = NpTarget(toy)
     got, want = [], []
     for k in range(STEPS):
-        rows = step.draw(state.generator, state)
+        rows, key = step.draw(state)
         new, info = step.apply(state, rows, params)
+        new = new.replace(key=key)
         for c in range(CHAINS):
             o_new, decision = oracle_step(ora, _oracle_state(state, c), rows,
                                           c)

@@ -31,6 +31,7 @@ What is held to what:
   the chain shards).
 """
 
+import dataclasses
 import os
 
 import jax
@@ -51,11 +52,8 @@ from auxpm_tpu.parallel.particle_shard import (
     shard_target_particles as j_shard_target,
 )
 from auxpm_tpu_torch import convert
-from auxpm_tpu_torch.core.state import (
-    init_chain_states,
-    make_generators,
-    make_u_normal,
-)
+from auxpm_tpu_torch.core import prng
+from auxpm_tpu_torch.core.state import init_chain_states, make_u_normal
 from auxpm_tpu_torch.models.gaussian_toy import make_gaussian_toy as t_toy
 from auxpm_tpu_torch.models.gp_classification import (
     make_gp_classification as tmake,
@@ -79,6 +77,16 @@ JITTER = 1e-3
 LL_TOL = 1e-3            # through two factorisations of one Gram, see above
 MESHES = [(2, 2), (4, 4), (4, 2)]          # (world, particle shards)
 N_ESS, N_SIGMA_EXTRA = 2, 1
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -336,8 +344,10 @@ class _FakeMesh:
 
 
 def test_u_shaped_draws_do_not_depend_on_k():
-    """Block b's rows are a fixed function of (seed, chain shard, b): a
-    shard's state draws exactly the rows the whole state draws there."""
+    """A row's draw is a fixed function of the chain's key and the row: a
+    particle shard's u at init (the counters of its rows of a plain draw)
+    and its v (global row blocks from ``fold_in(key, block)``) are exactly
+    the rows the whole state draws there."""
 
     def Shard(k, pi):
         return _FakeMesh(1, k, rank=pi)
@@ -345,22 +355,23 @@ def test_u_shaped_draws_do_not_depend_on_k():
     x, y = _xy()
     tt = tmake(x, y, n_importance=S, device="cpu")
     whole = init_chain_states(7, tt, 3, with_cache=False)
-    assert len(whole.block_generators) == 8
-    draw = make_u_normal(tt)
-    v = draw(whole.generator, (3, 2, S, N), whole.block_generators)
+    keys = prng.split(whole.key, 2)                 # two draws per chain
+    v = make_u_normal(tt)(keys, S)
+    assert v.shape == (3, 2, S, N)
+    # a shard's estimate is a collective; here only its rows matter
+    rows_only = dataclasses.replace(
+        tt, log_lik_est=lambda theta, u: torch.zeros(theta.shape[0]))
     for k in (2, 4):
         rows = S // k
         for pi in range(k):
-            gen, blocks = make_generators(7, tt, Shard(k, pi))
-            assert len(blocks) == 8 // k
-            u_l = draw(gen, (3, rows, N), blocks)
-            v_l = draw(gen, (3, 2, rows, N), blocks)
+            share = init_chain_states(7, rows_only, 3, with_cache=False,
+                                      mesh=Shard(k, pi))
+            v_l = make_u_normal(tt, particle_axis=Shard(k, pi))(keys, rows)
             sl = slice(pi * rows, (pi + 1) * rows)
-            assert torch.equal(u_l, whole.u[:, sl])
+            assert torch.equal(share.u, whole.u[:, sl])
+            assert torch.equal(share.key, whole.key)
+            assert torch.equal(share.theta, whole.theta)
             assert torch.equal(v_l, v[:, :, sl])
-    with pytest.raises(ValueError, match="block_generators"):
-        make_u_normal(tt, particle_axis=Shard(2, 0))(whole.generator,
-                                                     (3, 8, N))
 
 
 def test_split_of_a_reference_state():
@@ -373,16 +384,17 @@ def test_split_of_a_reference_state():
     np.testing.assert_array_equal(shares[5]["theta"], d["theta"][2:4])
     with pytest.raises(ValueError, match="do not split"):
         convert.shard_numpy_state(d, 3, 2)
-    # the same cut of a whole port state, with the rank's own generators
+    # the same cut of a whole port state, keys included
     x, y = _xy()
     tt = tmake(x, y, n_importance=S, device="cpu")
     whole = init_chain_states(3, tt, 4, with_cache=True)
     mesh = _FakeMesh(2, 4, rank=5)
-    share = shard_states(whole, tt, mesh, seed=3)
+    share = shard_states(whole, tt, mesh)
     assert torch.equal(share.u, whole.u[2:4, 4:8])
     assert torch.equal(share.extras["target_cache"]["chol_r"],
                        whole.extras["target_cache"]["chol_r"][2:4])
-    assert share.theta.shape == (2, 2) and len(share.block_generators) == 2
+    assert share.theta.shape == (2, 2)
+    assert torch.equal(share.key, whole.key[2:4])
 
 
 # ---------------------------------------------------------------- the CLI

@@ -56,6 +56,16 @@ S, CHAINS, STEPS, STEP_SIZE = 16, 4, 3, 0.5
 LL_TOL = {"toy": 2e-5, "gp": 2e-4}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -217,7 +227,8 @@ def test_pm_mh_is_draw_then_apply(targets):
     b = t_init(3, tt, 3, jitter_scale=0.3)
     step = make_pm_mh(tt)
     out_a, info_a = step(a, {"step_size": 0.3})
-    rows = step.draw(b.generator, b)
+    rows, key = step.draw(b)
+    assert torch.equal(out_a.key, key)
     assert rows["eps"].shape == (3, 2) and rows["log_unif"].shape == (3,)
     assert rows["u"].shape == (3, S, 128)
     out_b, info_b = step.apply(b, rows, {"step_size": 0.3})
@@ -317,7 +328,7 @@ SHARDED_DECISIONS = {"pm_mh": ("accept",), "aux_mh": ("mh_theta/accept",),
 def test_particle_sharded_run_matches_the_unsharded_run(sampler):
     """``--sharded true --particle-shards 2`` on two gloo ranks: the ranks
     hold 8 of every chain's 16 rows, draw the rows the unsharded state
-    draws there (block generators; the joint kernels' v too) and fold the
+    draws there (blocked per-chain keys; the joint kernels' v too) and fold the
     estimate with a collective; both ranks end bitwise equal, and the run
     follows the unsharded run's chains to rounding (the collective folds in
     another order than the estimator), with the same decisions (window means

@@ -63,6 +63,16 @@ S, CHAINS, N_ESS, N_SIGMA_EXTRA, STEPS = 16, 4, 4, 1, 3
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
@@ -249,15 +259,18 @@ def test_step_is_draw_then_apply(slice_run):
                                            "max_step_out": 0}}
     s1, info1 = step_t(a, params)
     ess, sl = step_t.stages["ess_u"], step_t.stages["slice_theta"]
-    mid, _ = ess.apply(b, ess.draw(b.generator, b), {})
-    s2, _ = sl.apply(mid, sl.draw(mid.generator, mid), params["slice_theta"])
+    rows_e, key = ess.draw(b)
+    mid, _ = ess.apply(b, rows_e, {})
+    rows_s, key = sl.draw(mid.replace(key=key))
+    s2, _ = sl.apply(mid, rows_s, params["slice_theta"])
     assert torch.equal(s1.theta, s2.theta) and torch.equal(s1.u, s2.u)
-    rows = ess.draw(b.generator, s2)
+    assert torch.equal(s1.key, key)
+    rows, _ = ess.draw(s2)
     assert rows["scal"].shape == (3, N_ESS, 35)
     assert rows["v"].shape == (3, N_ESS, S, 256)
     assert torch.equal(rows["scal"][:, 0, 0], s2.log_lik_hat)
     assert (rows["scal"][:, 1:, 0] == 0).all()
-    reps = sl.draw(b.generator, s2)
+    reps, _ = sl.draw(s2)
     assert [tuple(r.shape) for r in reps] == [(3, 1, 34), (3, 2, 34)]
     assert set(info1) == {"ess_u/n_shrink", "ess_u/moved",
                           "slice_theta/n_probe", "slice_theta/n_probe_chol"}
@@ -382,7 +395,8 @@ def test_cli_lists_presets(capsys):
 
 @pytest.mark.parametrize("overrides", [
     {"sampler": "aux_hmc", "sharded": True, "particle_shards": 2},
-    {"sampler": "aux_nuts", "proposal": "laplace"}, {"multihost": True},
+    {"sampler": "aux_nuts", "proposal": "laplace"},
+    {"sampler": "aux_hmc", "proposal": "laplace"},
     {"sampler": "smc", "sharded": True, "smc_rejuvenation": "aux_nuts",
      "proposal": "laplace"},
     {"proposal": "laplace", "sharded": True, "particle_shards": 2},
@@ -404,7 +418,7 @@ def test_default_device_is_the_gpu_and_is_never_replaced(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         trun.main(["--chains", "2", "--steps", "2"])  # --device defaults to cuda
     with pytest.raises(RuntimeError, match="cuda"):
-        convert.chain_states_from_numpy({}, seed=0)
+        convert.chain_states_from_numpy({})
 
 
 # ------------------------------------------------------------ import hygiene

@@ -1,7 +1,7 @@
 """PyTorch port vs the JAX package: the mesh-sharded SMC (CPU, gloo ranks).
 
 - keyed draws: ``sample_prior_key`` of the toy and the GP target and
-  ``draw_keyed`` of the four theta-only kernels gives the rows
+  ``draw`` of the four theta-only kernels gives the rows
   the reference's transitions consume (recomputed here with ``jax.random``:
   integers and uniforms bitwise, normals within 4 ulp), and a ``THETA_ONLY``
   step on per-chain keys takes the reference's decisions and hands back its
@@ -260,13 +260,15 @@ def test_draw_keyed_gives_the_reference_rows(targets, kind):
     _, tt = targets["toy"]
     keys = jax.random.split(jax.random.key(3), CHAINS)
     want_keys, want = jax.vmap(lambda k: _recipe(kind, k, tt.d))(keys)
-    state = _toy_state(tt)
+    state = _toy_state(tt).replace(key=torch.from_numpy(_words(keys)))
     stage = THETA_ONLY[kind](tt).stages[kind]
-    got_keys, rows = stage.draw_keyed(torch.from_numpy(_words(keys)), state,
-                                      PARAMS[kind])
+    rows, got_keys = stage.draw(state, PARAMS[kind])
     np.testing.assert_array_equal(got_keys.numpy(), _words(want_keys))
     if kind == "slice_theta":
         rows = {f"coord{i}": r for i, r in enumerate(rows)}
+    if kind == "nuts":   # the leaves' uniforms come from the subtree keys
+        rows["u_leaf"] = prng.uniform(prng.fold_in(
+            rows.pop("leaf_keys")[:, :, None], torch.arange(128)))
     assert set(rows) == set(want)
     for name, w in want.items():
         g, w = rows[name].numpy(), np.asarray(w)
@@ -294,11 +296,10 @@ def test_keyed_theta_only_step_matches_the_reference(targets, kind, name):
         nxt, _, info = j_run_chains(step_j, state_j, params, 1)
         st = convert.chain_states_from_numpy(
             {"theta": np.asarray(state_j.theta), "u": np.asarray(state_j.u),
-             "log_lik_hat": np.asarray(state_j.log_lik_hat)}, device="cpu")
-        st = st.replace(extras={"key": torch.from_numpy(_words(state_j.key))})
+             "log_lik_hat": np.asarray(state_j.log_lik_hat),
+             "key": _words(state_j.key)}, device="cpu")
         out, info_t = step_t(st, params)
-        np.testing.assert_array_equal(out.extras["key"].numpy(),
-                                      _words(nxt.key))
+        np.testing.assert_array_equal(out.key.numpy(), _words(nxt.key))
         for dec in DECISIONS[kind]:
             np.testing.assert_array_equal(
                 info_t[f"{kind}/{dec}"].numpy(),
@@ -314,16 +315,19 @@ def test_keyed_theta_only_step_matches_the_reference(targets, kind, name):
 
 
 def test_unkeyed_theta_only_step_still_draws_from_the_generator(targets):
+    """Every state carries its keys now (no generator is left): a
+    theta-only step is its stage's draw from ``state.key`` then apply, and
+    hands the advanced keys back."""
     _, tt = targets["toy"]
     a, b = _toy_state(tt), _toy_state(tt)
     step = THETA_ONLY["mh_theta"](tt)
     out, info = step(a, {"mh_theta": {"step_size": 0.3}})
-    rows = step.stages["mh_theta"].draw(b.generator, b)
+    rows, key = step.stages["mh_theta"].draw(b)
     want, _ = step.stages["mh_theta"].apply(b, rows, {"step_size": 0.3})
-    assert torch.equal(out.theta, want.theta) and "key" not in out.extras
+    assert torch.equal(out.theta, want.theta) and torch.equal(out.key, key)
+    assert not torch.equal(out.key, a.key)
     with pytest.raises(ValueError, match="unknown param group"):
-        step(a.replace(extras={"key": prng.split(prng.key(0), CHAINS)}),
-             {"nuts": {}})
+        step(a, {"nuts": {}})
 
 
 # ------------------------------------------------------------- resampling

@@ -50,6 +50,7 @@ from auxpm_tpu.samplers.chain import run_chains as j_run_chains
 from auxpm_tpu.samplers.composite import make_aux_slice as j_aux_slice
 from auxpm_tpu_torch import convert
 from auxpm_tpu_torch import run as trun
+from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import init_chain_states as t_init
 from auxpm_tpu_torch.models.gaussian_toy import make_gaussian_toy as t_toy
 from auxpm_tpu_torch.models.gp_classification import (
@@ -70,6 +71,16 @@ JITTER = 1e-3
 ARD_LL_TOL = 1e-3
 INFO_KEYS = ("ess_u/n_shrink", "ess_u/moved", "slice_theta/n_probe",
              "slice_theta/n_probe_chol")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs several workers
+    on the same cores, where multi-threaded small ops wait on each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -326,7 +337,7 @@ def test_loop_and_sweep_paths_agree(ard_pair, sweep_switch):
     assert make_ess_u(tt).uses_sweep
     assert ess_sweep.uses_sweep and not ess_loop.uses_sweep
     st = t_init(9, tt, CHAINS, jitter_scale=0.3, with_cache=True)
-    rows = ess_sweep.draw(st.generator, st)
+    rows, _ = ess_sweep.draw(st)
     a, info_a = ess_sweep.apply(st, rows, {})
     b, info_b = ess_loop.apply(st, rows, {})
     assert torch.equal(info_a["n_shrink"], info_b["n_shrink"])
@@ -352,7 +363,7 @@ def test_a_cached_target_on_the_generic_branch_keeps_the_cache_invariant(
     with pytest.warns(UserWarning, match="n_sigma_extra"):
         sl = make_slice_theta(bare, n_sigma_extra=1)
     st = t_init(2, tt, 2, jitter_scale=0.3, with_cache=True)
-    rows = sl.draw(st.generator, st)
+    rows, _ = sl.draw(st)
     assert [tuple(r.shape) for r in rows] == [(2, 1, 34)] * (D + 1)
     probe_log = []   # every decision's margin, for a caller that wants them
     out, info = sl.apply(st, rows, {"widths": 0.8, "max_step_out": 2,
@@ -412,7 +423,7 @@ def test_toy_estimator_and_moments_match_jax(monkeypatch):
         rtol=0, atol=5e-5)
     np.testing.assert_allclose(tt2.posterior_mean.numpy(),
                                np.asarray(tj2.posterior_mean), rtol=1e-6)
-    draws = tt.sample_prior(torch.Generator().manual_seed(0), 4000)
+    draws = tt.sample_prior_key(prng.split(prng.key(0), 4000))
     assert abs(float(draws.std()) - 2.0) < 0.1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):

@@ -247,8 +247,9 @@ def test_kernel_draw_shapes_and_step_is_draw_then_apply(targets):
         b = t_init(3, tt, 3, jitter_scale=0.3, with_cache=True)
         step = t_make(tt)
         out_a, info_a = step(a, params)
-        rows = step.draw(b.generator, b)
+        rows, key = step.draw(b)
         out_b, info_b = step.apply(b, rows, params)
+        assert torch.equal(out_a.key, key), kernel
         assert torch.equal(out_a.theta, out_b.theta), kernel
         assert torch.equal(out_a.u, out_b.u), kernel
         assert info_a.keys() == info_b.keys()

@@ -39,7 +39,7 @@ def _smc(mesh, target, rejuvenation, n_particles, seed, stop_after=None,
     states, diag = run(seed, stop_after=stop_after)
     return {"theta": _np(states.theta), "u": _np(states.u),
             "log_lik_hat": _np(states.log_lik_hat),
-            "key": _np(states.extras["key"]), "diag": diag}
+            "key": _np(states.key), "diag": diag}
 
 
 def _resample(mesh, log_w, u01, payload):
