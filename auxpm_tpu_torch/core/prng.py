@@ -11,27 +11,20 @@ its u can regenerate u anywhere (the key-as-u mode of
 Representation: a key is an int64 tensor ``(..., 2)`` holding the two uint32
 words of ``jax.random.key_data``.  Every function takes a batch of keys on
 the leading axes (where the reference ``vmap``s) and computes on the device
-of the key tensor: on CUDA keys every draw is ONE launch of the kernel
-``csrc/threefry.cu`` (``ops/threefry.py``), whose plain version is
-``draw_plain`` (PyTorch: the cipher in place on int32 tensors of the words'
-bits, as PyTorch has no usable uint32 arithmetic and an int32 sum wraps like
-a uint32 one); on CPU keys ``_draw_host``, the same in NumPy uint32, whose
-per-operation cost on small arrays is a fifth of PyTorch's (words, bits and
-uniforms bitwise ``draw_plain``'s).  Words come out as int64 holding uint32
-values.  An element's draw depends on its counter alone, so a draw may start
-at any ``offset`` of the flattened draw.
+of the key tensor through ``ops/threefry.threefry``: on CUDA keys every draw
+is ONE launch of the kernel ``csrc/threefry.cu``, on CPU keys its plain
+version ``ops/threefry.draw_plain`` (PyTorch).  Words come out as int64
+holding uint32 values.  An element's draw depends on its counter alone, so a
+draw may start at any ``offset`` of the flattened draw.
 
 Normals: ``jax.random.normal`` is ``sqrt(2) erf_inv(u)`` with u uniform on
-(nextafter(-1, 0), 1).  ``erf_inv`` here is XLA's float32 polynomial (Giles'
-two branches of degree 8 in ``w = -log1p(-x^2)``, split at w = 5, the one
-``chlo.erf_inv`` lowers to), not ``torch.erfinv``, which misses XLA's by up
-to ~800 ulp in the tails.  With it the normals match ``jax.random`` to a few
+(nextafter(-1, 0), 1), ``erf_inv`` being XLA's float32 polynomial
+(``ops/threefry.erf_inv``).  With it the normals match ``jax.random`` to a few
 ulp (bitwise for most draws: the two frameworks' ``log1p`` differ by an ulp
 at times); words, bits, uniforms, bernoulli and randint are bitwise.
 
-``draws`` counts the cipher's calls off the kernel (``draw_plain`` and the
-host path; ``ops/threefry.launches`` counts the kernel's); between ``start_timing()`` and ``stop_timing()`` every outermost
-call of a public function on CUDA keys is bracketed by two CUDA events, and
+Between ``start_timing()`` and ``stop_timing()`` every outermost call of a
+public function on CUDA keys is bracketed by two CUDA events, and
 ``stop_timing`` returns their summed milliseconds (the per-stage accounting
 of ``chip_smoke.py``).
 """
@@ -40,17 +33,15 @@ from __future__ import annotations
 
 import functools
 import json
-import math
 from pathlib import Path
 
-import numpy as np
 import torch
 
-_M = 0xFFFFFFFF
-_PARITY = 0x1BD11BDA
-_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+from auxpm_tpu_torch.ops import threefry as _tf
+from auxpm_tpu_torch.ops.threefry import fma32, threefry2x32  # noqa: F401
 
-draws = 0   # calls of threefry2x32
+_M = 0xFFFFFFFF
+_NEXT_M1 = _tf.NEXT_M1                         # nextafter(-1, 0) in float32
 _events = None   # (start, end) CUDA event pairs while timing is on
 _depth = 0
 
@@ -95,48 +86,6 @@ def stop_timing():
     return sum(a.elapsed_time(b) for a, b in events)
 
 
-def _i32(x, device=None):
-    """uint32 words (int64 or Python ints, taken modulo 2^32) as the int32
-    of the same bits (the narrowing conversion wraps)."""
-    return torch.as_tensor(x, dtype=torch.int64, device=device).to(
-        torch.int32)
-
-
-def _rounds_torch(ks, x0, x1):
-    """The 20 rounds in place on int32 tensors of the words' bits (an int32
-    sum wraps like a uint32 one; the rotation masks the arithmetic right
-    shift), a few passes per round over half the bytes of int64."""
-    t = torch.empty_like(x1)
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            x0.add_(x1)
-            torch.bitwise_right_shift(x1, 32 - r, out=t)
-            t.bitwise_and_((1 << r) - 1)
-            x1.bitwise_left_shift_(r).bitwise_or_(t).bitwise_xor_(x0)
-        x0.add_(ks[(i + 1) % 3])
-        x1.add_(ks[(i + 2) % 3]).add_(i + 1)
-    return x0, x1
-
-
-def _threefry_i32(k1, k2, x0, x1):
-    """``threefry2x32`` with its two words as int32 of the same bits."""
-    global draws
-    draws += 1
-    dev = torch.as_tensor(k1).device
-    ks = [_i32(k1, dev), _i32(k2, dev)]
-    ks.append(ks[0] ^ ks[1] ^ _PARITY)
-    x0, x1 = torch.broadcast_tensors(_i32(x0, dev) + ks[0],
-                                     _i32(x1, dev) + ks[1])
-    return _rounds_torch(ks, x0.contiguous(), x1.contiguous())
-
-
-def threefry2x32(k1, k2, x0, x1):
-    """The threefry2x32 block cipher (20 rounds) on uint32 words held in
-    int64 tensors; all four arguments broadcast.  Returns ``(y0, y1)``."""
-    y0, y1 = _threefry_i32(k1, k2, x0, x1)
-    return y0.to(torch.int64) & _M, y1.to(torch.int64) & _M
-
-
 def _shape(shape):
     return (shape,) if isinstance(shape, int) else tuple(shape)
 
@@ -151,159 +100,11 @@ def key(seed, width=32):
     return torch.tensor([hi, s & _M], dtype=torch.int64)
 
 
-def _counters(batch_ndim, shape, device, offset=0):
-    """The low words of ``iota_2x32_shape(shape)`` from ``offset`` on (the
-    high words are 0 below 2^32 draws), shaped to broadcast after
-    ``batch_ndim`` key axes."""
-    n = math.prod(shape)
-    if offset + n > 2**32:
-        raise ValueError(f"{offset + n} draws from one key: at most 2^32 "
-                         "supported")
-    return torch.arange(offset, offset + n, dtype=torch.int64,
-                        device=device).reshape((1,) * batch_ndim + shape)
-
-
-MODES = ("words", "bits", "uniform", "normal")
-
-
-def draw_plain(keys, shape=(), mode="bits", minval=0.0, maxval=1.0, offset=0,
-               data=None):
-    """The plain version of every draw (and of ``ops/threefry.py``'s
-    kernel): ``threefry2x32`` of each key ``(..., 2)`` with the counters
-    ``offset + iota(shape)``, or with ``data`` (broadcast against the keys'
-    batch axes; ``shape`` must then be ``()``), turned into ``mode``:
-    ``words`` ``(..., *shape, 2)``, ``bits`` (int64), ``uniform`` on
-    [minval, maxval) or ``normal`` (float32), each ``(..., *shape)``."""
-    shape = _shape(shape)
-    if data is not None:
-        if shape:
-            raise ValueError("data and shape exclude each other")
-        y0, y1 = _threefry_i32(keys[..., 0], keys[..., 1], 0, data)
-    else:
-        exp = (...,) + (None,) * len(shape)
-        c = _counters(keys.dim() - 1, shape, keys.device, offset)
-        y0, y1 = _threefry_i32(keys[..., 0][exp], keys[..., 1][exp], 0, c)
-    if mode == "words":
-        return torch.stack([y0, y1], dim=-1).to(torch.int64) & _M
-    b = y0.bitwise_xor_(y1)
-    if mode == "bits":
-        return b.to(torch.int64) & _M
-    if mode == "normal":
-        minval, maxval = _NEXT_M1, 1.0
-    # the 23 high bits as the mantissa of a float in [1, 2), minus 1
-    f = (b.bitwise_right_shift_(9).bitwise_and_(0x7FFFFF)
-         .bitwise_or_(0x3F800000).view(torch.float32) - 1.0)
-    if (minval, maxval) == (0.0, 1.0):
-        u = f          # max(0, f * 1 + 0) is f, to the bit
-    else:
-        lo = torch.tensor(minval, dtype=torch.float32, device=f.device)
-        hi = torch.tensor(maxval, dtype=torch.float32, device=f.device)
-        u = torch.maximum(lo, fma32(f, hi - lo, lo))
-    if mode == "uniform":
-        return u
-    if mode != "normal":
-        raise ValueError(f"mode {mode!r} not one of {MODES}")
-    return torch.tensor(_SQRT2, dtype=torch.float32, device=u.device) \
-        * erf_inv(u)
-
-
-def _draw_host(keys, shape=(), mode="bits", minval=0.0, maxval=1.0,
-               offset=0, data=None):
-    """``draw_plain`` for CPU keys, in NumPy uint32 and float32: the host's
-    cheapest per-operation path (a draw of a few chains is a hundred tiny
-    operations, each ~5x dearer in PyTorch).  Words, bits and uniforms are
-    bitwise ``draw_plain``'s; normals take ``log1p`` in float64 rounded to
-    float32 (one rounding, as XLA's float32 ``log1p`` nearly always gives)
-    and may differ from ``draw_plain``'s by an ulp or two."""
-    global draws
-    draws += 1
-    shape = _shape(shape)
-    k = keys.numpy()
-    if data is not None:
-        if shape:
-            raise ValueError("data and shape exclude each other")
-        d = np.asarray(data.numpy() if torch.is_tensor(data) else data,
-                       dtype=np.int64)
-        batch = np.broadcast_shapes(k.shape[:-1], d.shape)
-        k = np.broadcast_to(k, batch + (2,)).reshape(-1, 2)
-        x1 = (np.broadcast_to(d, batch).reshape(-1, 1) & _M).astype(np.uint32)
-        out_shape = batch
-    else:
-        n = math.prod(shape)
-        if offset + n > 2**32:
-            raise ValueError(f"{offset + n} draws from one key: at most 2^32 "
-                             "supported")
-        batch = k.shape[:-1]
-        k = k.reshape(-1, 2)
-        x1 = np.arange(offset, offset + n, dtype=np.int64).astype(
-            np.uint32)[None, :]
-        out_shape = batch + shape
-    k0, k1 = k[:, :1].astype(np.uint32), k[:, 1:].astype(np.uint32)
-    ks = (k0, k1, k0 ^ k1 ^ np.uint32(_PARITY))
-    a = np.broadcast_to(k0, (k.shape[0], x1.shape[1])).copy()
-    b = x1 + k1
-    t = np.empty_like(b)
-    for i in range(5):
-        for r in _ROT[i % 2]:
-            a += b
-            np.right_shift(b, np.uint32(32 - r), out=t)
-            b <<= np.uint32(r)
-            b |= t
-            b ^= a
-        a += ks[(i + 1) % 3]
-        b += ks[(i + 2) % 3] + np.uint32(i + 1)
-    if mode == "words":
-        out = np.stack([a, b], axis=-1).astype(np.int64).reshape(
-            out_shape + (2,))
-        return torch.from_numpy(out)
-    b ^= a
-    if mode == "bits":
-        return torch.from_numpy(b.astype(np.int64).reshape(out_shape))
-    if mode == "normal":
-        minval, maxval = _NEXT_M1, 1.0
-    b >>= np.uint32(9)
-    b |= np.uint32(0x3F800000)
-    u = b.view(np.float32) - np.float32(1.0)
-    if (minval, maxval) != (0.0, 1.0):
-        lo, hi = np.float32(minval), np.float32(maxval)
-        u = np.maximum(lo, (u.astype(np.float64) * np.float64(hi - lo)
-                            + np.float64(lo)).astype(np.float32))
-    if mode == "uniform":
-        return torch.from_numpy(u.reshape(out_shape))
-    if mode != "normal":
-        raise ValueError(f"mode {mode!r} not one of {MODES}")
-    # XLA's erf_inv, as ``erf_inv`` below
-    w = (-np.log1p(-(u * u).astype(np.float64))).astype(np.float32)
-    lt = w < np.float32(5.0)
-    w = np.where(lt, w - np.float32(2.5),
-                 np.sqrt(w) - np.float32(3.0)).astype(np.float64)
-    p = np.where(lt, _W_LT_5_F32[0], _W_GE_5_F32[0])
-    for i in range(1, len(_W_LT_5)):
-        p = (p * w + np.where(lt, _W_LT_5_F32[i], _W_GE_5_F32[i])).astype(
-            np.float32).astype(np.float64)
-    z = np.where(np.abs(u) == np.float32(1.0),
-                 u * np.finfo(np.float32).max, p.astype(np.float32) * u)
-    return torch.from_numpy((np.float32(_SQRT2) * z).astype(
-        np.float32).reshape(out_shape))
-
-
-def _draw(keys, shape=(), mode="bits", minval=0.0, maxval=1.0, offset=0,
-          data=None):
-    """``_draw_host`` on CPU keys; on CUDA keys the kernel
-    ``csrc/threefry.cu`` (``ops/threefry.py``), which raises where it cannot
-    launch."""
-    if keys.is_cuda:
-        from auxpm_tpu_torch.ops import threefry as kernel
-
-        return kernel.threefry(keys, shape, mode, minval, maxval, offset, data)
-    return _draw_host(keys, shape, mode, minval, maxval, offset, data)
-
-
 @_timed
 def split(keys, num=2):
     """``jax.random.split``: ``(..., 2) -> (..., *num, 2)``; ``num`` an int
     or a shape."""
-    return _draw(keys, num, "words")
+    return _tf.threefry(keys, num, "words")
 
 
 @_timed
@@ -311,7 +112,7 @@ def fold_in(keys, data):
     """``jax.random.fold_in``: ``threefry2x32(key, 0, data)``.  ``data`` (an
     int or an integer tensor, taken modulo 2^32) broadcasts against the
     keys' batch axes."""
-    return _draw(keys, (), "words", data=data)
+    return _tf.threefry(keys, (), "words", data=data)
 
 
 @_timed
@@ -319,13 +120,7 @@ def bits(keys, shape=(), offset=0):
     """``jax.random.bits`` (uint32 words, in int64): ``(*batch, *shape)``;
     ``offset``: start at that element of the flattened draw (a slice of a
     larger draw, element i depending on counter i alone)."""
-    return _draw(keys, shape, "bits", offset=offset)
-
-
-def fma32(a, b, c):
-    """``a b + c`` of float32 tensors rounded once, as XLA contracts it: the
-    product of two float32 is exact in float64."""
-    return (a.double() * b.double() + c.double()).float()
+    return _tf.threefry(keys, shape, "bits", offset=offset)
 
 
 @_timed
@@ -333,53 +128,14 @@ def uniform(keys, shape=(), minval=0.0, maxval=1.0, offset=0):
     """``jax.random.uniform`` in float32: ``max(minval, f (maxval - minval) +
     minval)`` with the difference and the bounds rounded to float32, f in
     [0, 1) from the 23 high bits of each word; ``offset`` as in ``bits``."""
-    return _draw(keys, shape, "uniform", minval, maxval, offset)
-
-
-# XLA's ErfInv32: coefficients of the two branches, highest degree first
-_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
-           0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
-           1.50140941)
-_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
-           0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
-           2.83297682)
-# the same rounded to float32, held in float64 (the host path's Horner)
-_W_LT_5_F32 = np.float32(_W_LT_5).astype(np.float64)
-_W_GE_5_F32 = np.float32(_W_GE_5).astype(np.float64)
-
-
-def erf_inv(x):
-    """XLA's float32 ``erf_inv``: ``p(w) x`` with w = -log1p(-x^2) and p of
-    degree 8 in ``w - 2.5`` (w < 5) or ``sqrt(w) - 3``; +-inf at +-1."""
-    x = x.to(torch.float32)
-    w = -torch.log1p(-(x * x))
-    lt = w < 5.0
-    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
-    # the coefficients rounded to float32, held (exactly) in float64; each
-    # Horner step is fma32 with w converted once
-    lo = torch.tensor(_W_LT_5, dtype=torch.float32,
-                      device=x.device).double()
-    hi = torch.tensor(_W_GE_5, dtype=torch.float32,
-                      device=x.device).double()
-    w64 = w.double()
-    p = torch.where(lt, lo[0], hi[0])
-    for i in range(1, len(_W_LT_5)):
-        p = (p * w64 + torch.where(lt, lo[i], hi[i])).float()
-        if i + 1 < len(_W_LT_5):
-            p = p.double()
-    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
-                       p * x)
-
-
-_NEXT_M1 = -1.0 + 2.0**-24                     # nextafter(-1, 0) in float32
-_SQRT2 = torch.tensor(math.sqrt(2.0), dtype=torch.float32).item()
+    return _tf.threefry(keys, shape, "uniform", minval, maxval, offset)
 
 
 @_timed
 def normal(keys, shape=(), offset=0):
     """``jax.random.normal`` in float32: ``sqrt(2) erf_inv(u)``, u uniform on
     (nextafter(-1, 0), 1) in float32; ``offset`` as in ``bits``."""
-    return _draw(keys, shape, "normal", offset=offset)
+    return _tf.threefry(keys, shape, "normal", offset=offset)
 
 
 @_timed

@@ -2,9 +2,9 @@
 //
 // Replaces no TPU kernel: the JAX package takes its random numbers from
 // jax.random, which XLA compiles (partitionable threefry2x32, JAX's
-// default).  The port's plain version is core/prng.py, a few hundred small
-// int64 launches per cipher call; this kernel computes the same function in
-// one launch.  ops/threefry.py is its wrapper.
+// default).  Its plain version is ops/threefry.py's draw_plain, about two
+// hundred small launches per draw; this kernel computes the same function in
+// one launch.  ops/threefry.py is also its wrapper.
 //
 // One thread per (key, counter) element, grid-stride over all of them.  Key
 // i (two uint32 words, held in int64 as core/prng.py holds them) meets the
@@ -23,9 +23,11 @@
 // rounded intrinsic, so nvcc contracts nothing else and the draws equal the
 // plain version's: words, bits and uniforms bitwise, normals to log1pf.
 //
-// Bound on this card: integer operations.  A cipher call is ~80 int32
-// operations (20 rounds of add, rotate, xor, five key injections) for 4 or
-// 8 bytes of output, far above the 16.7 T int32 ops/s : 3.35 TB/s balance.
+// Bound on this card: integer operations.  A cipher call is 71 int32
+// operations (x1's first add; 20 rounds of add, rotate, xor; five key
+// injections of two adds each), plus up to 3 for the output (xor, shift,
+// or), for 4 or 8 bytes of output: far above the 16.7 T int32 ops/s :
+// 3.35 TB/s balance.
 // The design does nothing about it yet: one thread per counter, words
 // straight to device memory.
 
@@ -71,7 +73,7 @@ __device__ __forceinline__ float uniform(uint32_t bits, float lo, float hi) {
   return fmaxf(lo, __fmaf_rn(f, __fsub_rn(hi, lo), lo));
 }
 
-// XLA's ErfInv32, highest degree first (core/prng.py _W_LT_5 / _W_GE_5)
+// XLA's ErfInv32, highest degree first (ops/threefry.py _W_LT_5 / _W_GE_5)
 __constant__ float kLt5[9] = {2.81022636e-08f, 3.43273939e-07f,
                               -3.5233877e-06f, -4.39150654e-06f,
                               0.00021858087f, -0.00125372503f,

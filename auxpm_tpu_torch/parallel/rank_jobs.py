@@ -64,7 +64,6 @@ def _np(t):
 def _counts():
     """Launches of the estimator kernels, collectives entered (and their
     ms), plain threefry calls and threefry kernel launches, so far."""
-    from auxpm_tpu_torch.core import prng
     from auxpm_tpu_torch.ops import (
         chol_hopper,
         ess_sweep,
@@ -83,7 +82,7 @@ def _counts():
             "chol_panel": chol_hopper.launches,
             "collectives": collectives.calls,
             "collective_ms": 1e3 * collectives.seconds,
-            "threefry_calls": prng.draws,
+            "threefry_calls": threefry.plain_calls,
             "threefry_launches": threefry.launches}
 
 

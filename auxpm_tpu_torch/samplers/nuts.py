@@ -92,9 +92,7 @@ def make_nuts(target, max_depth=8):
         ``ks``, whose leaf s takes ``uniform(fold_in(ks, s))``; ``apply``
         draws a depth's 2^depth leaves when the trajectory gets there (a
         table of every leaf would be 2^(max_depth - 1) draws per depth,
-        nearly all unused).  ``apply`` also takes that table as ``u_leaf
-        (B, max_depth, 2^(max_depth-1))`` instead of the keys.  Returns the
-        advanced keys too."""
+        nearly all unused).  Returns the advanced keys too."""
         del params
         keys = state.key
         k = prng.split(keys, 3)
@@ -177,12 +175,10 @@ def make_nuts(target, max_depth=8):
             g_ = torch.where(fwd, gp[idx], gm[idx])
             e_dir = direction * eps[idx]
             h0_i = h0[idx]
-            if "u_leaf" in rows:
-                u_leaf = rows["u_leaf"][idx, dep]
-            else:    # this subtree's 2^dep leaves, from its key
-                u_leaf = prng.uniform(prng.fold_in(
-                    rows["leaf_keys"][idx, dep, None],
-                    torch.arange(1 << dep, device=dev)))
+            # this subtree's 2^dep leaves, from its key
+            u_leaf = prng.uniform(prng.fold_in(
+                rows["leaf_keys"][idx, dep, None],
+                torch.arange(1 << dep, device=dev)))
             n_i = idx.shape[0]
 
             # ---- the subtree of 2^dep leaves, the chains in lockstep

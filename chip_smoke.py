@@ -119,7 +119,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   its plain version: accept bits (HMC), depth, n_leapfrog
                   and the chosen point (NUTS) equal outside the margins;
 18. ``main_path_smc`` ``--sampler smc`` with ``aux_slice`` rejuvenation at
-                  1024 particles and ``aux_nuts`` at 256: logZ finite, the
+                  1024 particles and ``aux_nuts`` at 256, one rejuvenation
+                  step per stage (cut from 2 to keep the script under ten
+                  minutes): logZ finite, the
                   last beta 1, no sweep kernel on the tempered target, the
                   launches of kernels 1 and 2 per stage;
 19. ``prng_card`` ``core/prng.py`` on the card against the golden
@@ -151,9 +153,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   equal;
 22. ``threefry_card`` (run right after ``kernels``) the port-only kernel
                   ``csrc/threefry.cu`` against its plain version
-                  ``core/prng.draw_plain`` on the card: words, bits, uniforms
-                  (two ranges) and fold_in's words bitwise over 5 seeds,
-                  4 shapes and 2 counter offsets, normals within 3 ulp,
+                  ``ops/threefry.draw_plain`` on the card: words, bits,
+                  uniforms (two ranges) and fold_in's words bitwise over 5
+                  seeds, 4 shapes and 2 counter offsets, normals within 3 ulp,
                   the golden normals bitwise through the kernel; one
                   (256, 32, 640) normal draw and the ESS v of a config-2
                   step (128 x 4 blocked draws of (64, 640)) timed beside
@@ -291,12 +293,20 @@ UTURN_DECISION_TOL = 1e-6      # U-turn dot over its norms
 GRAD_PATH_THETA_TOL = 1e-6     # theta after a trajectory, same gradients
 SMC_RUNS = (("aux_slice", 1024), ("aux_nuts", 256))   # rejuvenation, particles
 SMC_CLI_ARGS = ["--preset", "pima_aux_slice", "--sampler", "smc",
-                "--smc-n-mcmc", "2"]
+                "--smc-n-mcmc", "1"]   # depth cut from 2 (script time)
 PRNG_CHUNK = (256, 32, 640)    # one key-as-u chunk's u: particles, S, n
 PRNG_ULP = 4                   # normals vs jax.random
 THREEFRY_SEEDS = (0, 7, 42, 2**31 + 5, 123456789)
 THREEFRY_ULP = 3               # kernel vs plain normals (two log1pf)
-THREEFRY_INT_OPS = 80          # int32 operations of one cipher call
+# int32 operations of one cipher call as csrc/threefry.cu writes it: x1's
+# first add (x0 starts at 0, so its add is a move), 20 rounds of add, rotate
+# (one funnel shift) and xor (60), five key injections of one add to x0 and
+# one three-input add to x1 (10); then per word y0 ^ y1 (bits) and the
+# mantissa's shift and or (uniform, normal).  The float32 work of a normal
+# (~35 instructions of log1pf, Horner and scale) goes to the float pipe,
+# twice as wide, and takes under a quarter of the int32 time.
+THREEFRY_INT_OPS = 71
+THREEFRY_OUT_OPS = {"words": 0, "bits": 1, "uniform": 3, "normal": 3}
 INT32_OPS = 132 * 64 * 1.98e9  # H100 SXM: SMs x INT32 lanes x boost clock
 SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch)
     "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "1024"],
@@ -329,7 +339,13 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
+_T0 = time.time()
+
+
 def emit(obj):
+    """One JSON line; a phase's line also gets its seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": round(time.time() - _T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1390,8 +1406,8 @@ def main():
     end_phase()
 
     # ------------------------------------------------------ threefry kernel
-    # csrc/threefry.cu against its plain version core/prng.draw_plain on the
-    # card: words, bits and uniforms bitwise, normals within THREEFRY_ULP
+    # csrc/threefry.cu against its plain version ops/threefry.draw_plain on
+    # the card: words, bits and uniforms bitwise, normals within THREEFRY_ULP
     # (the two log1pf may differ), the golden jax.random normals bitwise.
     log("kernels: threefry")
     from auxpm_tpu_torch.core import prng
@@ -1407,7 +1423,7 @@ def main():
                                    ("normal", 0.0, 1.0)):
                 for off in (0, 11):
                     k_out = tfk.threefry(keys_, shape_, mode, lo_, hi_, off)
-                    p_out = prng.draw_plain(keys_, shape_, mode, lo_, hi_,
+                    p_out = tfk.draw_plain(keys_, shape_, mode, lo_, hi_,
                                             off)
                     tf_cases += 1
                     if mode == "normal":
@@ -1418,7 +1434,7 @@ def main():
         tf_cases += 1
         if not torch.equal(tfk.threefry(keys_[..., None, :], (), "words",
                                         data=data_),
-                           prng.draw_plain(keys_[..., None, :], (), "words",
+                           tfk.draw_plain(keys_[..., None, :], (), "words",
                                            data=data_)):
             tf_bad.append(f"{seed}/fold_in")
     if tf_bad:
@@ -1434,10 +1450,13 @@ def main():
     if not golden_normals:
         failures.append("threefry: golden normals differ from jax.random")
 
-    def threefry_bound(n_words, out_bytes, key_bytes):
-        """Integer operations (~80 int32 ops a cipher call at the card's
-        int32 rate) against the bytes written and the keys read."""
-        t_ops = n_words * THREEFRY_INT_OPS / INT32_OPS * 1e3
+    def threefry_bound(words_by_mode, out_bytes, key_bytes):
+        """Integer operations (THREEFRY_INT_OPS a cipher call, plus the
+        output's, at the card's int32 rate) against the bytes written and
+        the keys read; ``words_by_mode``: cipher calls of each mode."""
+        n_ops = sum(n_ * (THREEFRY_INT_OPS + THREEFRY_OUT_OPS[m_])
+                    for m_, n_ in words_by_mode.items())
+        t_ops = n_ops / INT32_OPS * 1e3
         t_bytes = (out_bytes + key_bytes) / HBM_BYTES_PER_S * 1e3
         return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                      else "bytes")
@@ -1446,7 +1465,7 @@ def main():
     # of the blocked draw: fold_in of 8 block keys, then the normals)
     keys_c = prng.split(prng.key(2026).to(dev), PRNG_CHUNK[0])
     z_k = tfk.threefry(keys_c, PRNG_CHUNK[1:], "normal")
-    z_p = prng.draw_plain(keys_c, PRNG_CHUNK[1:], "normal")
+    z_p = tfk.draw_plain(keys_c, PRNG_CHUNK[1:], "normal")
     chunk_err = max_err(z_k, z_p)
     chunk_ulp_kp = _ulps(torch, z_k, z_p)
     if chunk_ulp_kp > THREEFRY_ULP:
@@ -1455,9 +1474,9 @@ def main():
     n_chunk = math.prod(PRNG_CHUNK)
     chunk_ms = time_ms(lambda: tfk.threefry(keys_c, PRNG_CHUNK[1:], "normal"))
     chunk_plain_ms = time_ms(
-        lambda: prng.draw_plain(keys_c, PRNG_CHUNK[1:], "normal"), reps=3)
-    chunk_b_ms, chunk_b_by = threefry_bound(n_chunk, 4 * n_chunk,
-                                            16 * PRNG_CHUNK[0])
+        lambda: tfk.draw_plain(keys_c, PRNG_CHUNK[1:], "normal"), reps=3)
+    chunk_b_ms, chunk_b_by = threefry_bound(
+        {"normal": n_chunk}, 4 * n_chunk, 16 * PRNG_CHUNK[0])
     keys_v = prng.split(prng.key(7).to(dev), (B, N_ESS))
     gids = torch.arange(8, device=dev)
 
@@ -1465,8 +1484,8 @@ def main():
         return prng.blocked_normal(keys_v, (S, N), 8, S)
 
     def v_plain():
-        kb = prng.draw_plain(keys_v[..., None, :], (), "words", data=gids)
-        return prng.draw_plain(kb, (S // 8, N), "normal").reshape(
+        kb = tfk.draw_plain(keys_v[..., None, :], (), "words", data=gids)
+        return tfk.draw_plain(kb, (S // 8, N), "normal").reshape(
             B, N_ESS, S, N)
 
     v_ulp = _ulps(torch, v_kernel(), v_plain())
@@ -1475,8 +1494,8 @@ def main():
     n_v = B * N_ESS * S * N
     v_ms = time_ms(v_kernel)
     v_plain_ms = time_ms(v_plain, reps=3)
-    v_b_ms, v_b_by = threefry_bound(n_v + B * N_ESS * 8, 4 * n_v,
-                                    16 * B * N_ESS * 9)
+    v_b_ms, v_b_by = threefry_bound(
+        {"normal": n_v, "words": B * N_ESS * 8}, 4 * n_v, 16 * B * N_ESS * 9)
     kernels["threefry"] = {
         "name": "threefry", "route": "cuda",
         "source": "auxpm_tpu_torch/csrc/threefry.cu",

@@ -105,15 +105,14 @@ def _hmc_rows(key, d):
 
 def _nuts_rows(key, d):
     key, k_mom, k_loop = jax.random.split(key, 3)
-    rows = {"direction": [], "u_biased": [], "u_leaf": []}
+    rows = {"direction": [], "u_biased": [], "leaf_keys": []}
     for _ in range(MAX_DEPTH):
         kd, kb, ks, k_loop = jax.random.split(k_loop, 4)
         rows["direction"].append(
             jnp.where(jax.random.bernoulli(kd), 1.0, -1.0))
         rows["u_biased"].append(jax.random.uniform(kb, (), jnp.float32))
-        rows["u_leaf"].append(jax.vmap(lambda s: jax.random.uniform(
-            jax.random.fold_in(ks, s), (), jnp.float32))(
-                jnp.arange(1 << (MAX_DEPTH - 1))))
+        # the subtree's key: leaf s takes uniform(fold_in(ks, s))
+        rows["leaf_keys"].append(jax.random.key_data(ks))
     return {"r0": jax.random.normal(k_mom, (d,), jnp.float32),
             **{k: jnp.stack(v) for k, v in rows.items()}}
 
@@ -138,7 +137,8 @@ def test_apply_on_the_reference_draws(targets, kernel, name):
     seen = {}
     for _ in range(STEPS):
         nxt, _, info = j_run_chains(step_j, state, params, 1)
-        rows = {k: torch.from_numpy(np.array(v))
+        rows = {k: torch.from_numpy(np.array(v, dtype=np.int64
+                                             if k == "leaf_keys" else None))
                 for k, v in rows_fn(state.key).items()}
         out, info_t = step_t.apply(_to_port(state), rows, params)
         assert set(info_t) == set(info)

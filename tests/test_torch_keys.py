@@ -371,10 +371,10 @@ def test_multihost_needs_a_world_that_spans_nodes(monkeypatch):
 def test_threefry_wrapper_on_cpu_keys_is_the_plain_version():
     keys = prng.split(prng.key(9), (2, 3))
     before = tfk.launches
-    for mode in prng.MODES:
+    for mode in tfk.MODES:
         np.testing.assert_array_equal(
             tfk.threefry(keys, (4, 5), mode, offset=7).numpy(),
-            prng.draw_plain(keys, (4, 5), mode, offset=7).numpy())
+            tfk.draw_plain(keys, (4, 5), mode, offset=7).numpy())
     np.testing.assert_array_equal(
         tfk.threefry(keys[..., None, :], (), "words",
                      data=torch.arange(6)).numpy(),
@@ -382,24 +382,24 @@ def test_threefry_wrapper_on_cpu_keys_is_the_plain_version():
     np.testing.assert_array_equal(prng.fold_in(keys, 2**32 + 3).numpy(),
                                   prng.fold_in(keys, 3).numpy())
     assert tfk.launches == before    # no kernel on the CPU
-    # the host path of CPU keys is the plain version (what the kernel is
-    # held to on the card): words, bits and uniforms bitwise, normals to an
-    # ulp or two (its log1p is rounded from float64)
-    for mode, lo, hi, off in (("words", 0.0, 1.0, 0), ("bits", 0.0, 1.0, 3),
-                              ("uniform", 0.0, 1.0, 0),
-                              ("uniform", -2.5, 3.7, 5),
-                              ("normal", 0.0, 1.0, 7)):
-        host = prng._draw_host(keys, (40, 50), mode, lo, hi, off)
-        plain = prng.draw_plain(keys, (40, 50), mode, lo, hi, off)
-        if mode == "normal":
-            assert _ulps(host.numpy(), plain.numpy()).max() <= 2
-        else:
-            assert torch.equal(host, plain), mode
+    # every public draw of core/prng on CPU keys is the plain version (what
+    # the kernel is held to on the card), one plain cipher call each
+    for fn, args, mode, lo, hi, off in (
+            (prng.split, ((40, 50),), "words", 0.0, 1.0, 0),
+            (prng.bits, ((40, 50), 3), "bits", 0.0, 1.0, 3),
+            (prng.uniform, ((40, 50),), "uniform", 0.0, 1.0, 0),
+            (prng.uniform, ((40, 50), -2.5, 3.7, 5), "uniform", -2.5, 3.7,
+             5),
+            (prng.normal, ((40, 50), 7), "normal", 0.0, 1.0, 7)):
+        calls = tfk.plain_calls
+        got = fn(keys, *args)
+        assert tfk.plain_calls == calls + 1, mode
+        assert torch.equal(got, tfk.draw_plain(keys, (40, 50), mode, lo, hi,
+                                               off)), mode
     data = torch.arange(-3, 5)
-    assert torch.equal(prng._draw_host(keys[..., None, :], (), "words",
-                                       data=data),
-                       prng.draw_plain(keys[..., None, :], (), "words",
-                                       data=data))
+    assert torch.equal(prng.fold_in(keys[..., None, :], data),
+                       tfk.draw_plain(keys[..., None, :], (), "words",
+                                      data=data))
     # a slice of a draw is the draw of the slice's counters
     full = prng.normal(keys, (6, 5))
     np.testing.assert_array_equal(prng.normal(keys, (2, 5), offset=15)

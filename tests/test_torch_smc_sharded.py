@@ -216,14 +216,14 @@ def _recipe(kind, key, d):
                      "log_u": jnp.log(jax.random.uniform(k_acc, ()))}
     if kind == "nuts":
         key, k_mom, k_loop = jax.random.split(key, 3)
-        rows = {"direction": [], "u_biased": [], "u_leaf": []}
+        rows = {"direction": [], "u_biased": [], "leaf_keys": []}
         for _ in range(8):
             kd, kb, ks, k_loop = jax.random.split(k_loop, 4)
             rows["direction"].append(
                 jnp.where(jax.random.bernoulli(kd), 1.0, -1.0))
             rows["u_biased"].append(jax.random.uniform(kb, ()))
-            rows["u_leaf"].append(jax.vmap(lambda s: jax.random.uniform(
-                jax.random.fold_in(ks, s), ()))(jnp.arange(128)))
+            # the subtree's key: leaf s takes uniform(fold_in(ks, s))
+            rows["leaf_keys"].append(jax.random.key_data(ks))
         return key, {"r0": jax.random.normal(k_mom, (d,)),
                      **{k: jnp.stack(v) for k, v in rows.items()}}
     key, *coord_keys = jax.random.split(key, d + 1)
@@ -266,9 +266,6 @@ def test_draw_keyed_gives_the_reference_rows(targets, kind):
     np.testing.assert_array_equal(got_keys.numpy(), _words(want_keys))
     if kind == "slice_theta":
         rows = {f"coord{i}": r for i, r in enumerate(rows)}
-    if kind == "nuts":   # the leaves' uniforms come from the subtree keys
-        rows["u_leaf"] = prng.uniform(prng.fold_in(
-            rows.pop("leaf_keys")[:, :, None], torch.arange(128)))
     assert set(rows) == set(want)
     for name, w in want.items():
         g, w = rows[name].numpy(), np.asarray(w)
@@ -280,7 +277,7 @@ def test_draw_keyed_gives_the_reference_rows(targets, kind):
         elif name.startswith("coord"):                 # [log U, U1, U...]
             np.testing.assert_array_equal(g[..., 1:], w[..., 1:])
             assert _ulps(g[..., 0], w[..., 0]).max() <= 1, name
-        else:                                           # ints, uniforms, +-1
+        else:                                   # ints, keys, uniforms, +-1
             np.testing.assert_array_equal(g, w.astype(g.dtype), err_msg=name)
 
 
