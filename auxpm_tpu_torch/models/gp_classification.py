@@ -44,9 +44,10 @@ against the factor, which every rank of the group computes for itself
 (replicated), and a collective folds the blocked partials of all ranks in
 global block order (``parallel/collectives.allgather_blocked_logsumexp``), so
 every rank holds bitwise the same estimate.  Every estimator call of such a
-target (the coordinate factories included) goes through that one function.
-It has no whole-sweep factories: a sweep kernel folds each estimate inside
-its launch, where no collective can reach.
+target (the coordinate factories included) goes through that one function;
+the Laplace proposal's log-weights too.  It has no whole-sweep factories: a
+sweep kernel folds each estimate inside its launch, where no collective can
+reach.
 
 ``proposal="laplace"`` draws the importance samples from the Laplace
 approximation N(f̂, Σ_q) fitted per theta by Newton (``models/laplace.py``):
@@ -55,16 +56,22 @@ log-weights add log N(f; 0, K) - log N(f; f̂, Σ_q) to the likelihood (plain
 PyTorch; no estimator kernel takes a tuple).  The mode depends on sigma, so
 there is no carried factor, no sigma-separable probe and no sweep: every
 sampler takes its generic path, each probe paying ``1 + newton_iters + 2``
-factorisations.  A particle-sharded Laplace target is not ported yet
-(ROADMAP.md).
+factorisations.  On a particle axis the Newton fit runs replicated on every
+rank and the local log-weights fold through the same collective as the
+prior's, as in the reference.
 
 ``log_lik_est(theta, u)`` and ``log_prior`` are differentiable in theta on
-both devices, isotropic and ARD (what HMC and NUTS need): ``prepare`` ->
-``robust_cholesky`` -> the estimator go through the ``torch.autograd.
-Function``s of ``ops/`` (``SeGramArd``, ``RobustCholesky``,
-``FusedEstimate``), whose forwards are the kernels on the card and whose
-backwards are plain PyTorch.  A particle-sharded target's estimate folds
-through collectives, which have no reverse mode here.
+both devices, isotropic and ARD, with either proposal, sharded or not (what
+HMC and NUTS need): ``prepare`` -> ``robust_cholesky`` -> the estimator go
+through the ``torch.autograd.Function``s of ``ops/`` (``SeGramArd``,
+``RobustCholesky``, ``FusedEstimate``, ``FusedWeights``), whose forwards are
+the kernels on the card and whose backwards are plain PyTorch; the Laplace
+fit differentiates through its unrolled Newton loop (``models/laplace.py``).
+On a particle axis the fold's backward reaches this rank's rows only, and
+``log_lik_est`` passes theta through ``parallel/collectives.
+particle_grad_sum`` before ``prepare``, whose backward adds the ranks'
+shares of the theta cotangent: every rank of the group holds bitwise the
+same gradient.
 
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  The reference's memory gates on its sweeps belong to the TPU; the
@@ -146,7 +153,7 @@ def make_gp_classification(
         u is split over the mesh's particle group (see the module note);
         ``Target.make_sharded`` is the usual way to get one.
       proposal: "prior" (the density ratio cancels) or "laplace" (see the
-        module note; unsharded only).
+        module note).
       newton_iters: the Laplace fit's fixed Newton iteration count.
     """
     if proposal not in ("prior", "laplace"):
@@ -160,11 +167,6 @@ def make_gp_classification(
         from auxpm_tpu_torch.parallel.mesh import require_mesh
 
         require_mesh(particle_axis)
-        if proposal == "laplace":
-            raise NotImplementedError(
-                "the Laplace proposal on a particle-sharded target is not "
-                "ported to auxpm_tpu_torch yet; see ROADMAP.md (modules still "
-                "to port)")
     if likelihood not in ("logistic", "probit"):
         raise ValueError(f"unknown likelihood {likelihood!r}")
     if whiten_dtype not in WHITEN_DTYPES:
@@ -276,8 +278,17 @@ def make_gp_classification(
                 est = torch.where(active != 0, est, torch.zeros_like(est))
             return est
 
+    def _theta_in(theta):
+        """theta as the estimate's path sees it: on a particle axis through
+        the theta-cotangent sum of the group (identity forward)."""
+        if particle_axis is None:
+            return theta
+        from auxpm_tpu_torch.parallel.collectives import particle_grad_sum
+
+        return particle_grad_sum(theta, particle_axis)
+
     def log_lik_est(theta, u):
-        return log_lik_est_u(prepare(theta), u)
+        return log_lik_est_u(prepare(_theta_in(theta)), u)
 
     log_norm = n_theta * (0.5 * math.log(2.0 * math.pi) + math.log(prior_std))
 
@@ -441,11 +452,13 @@ def make_gp_classification(
             return log_lik_fn(f, y_dev, mask) + extra
 
         def log_lik_est_u(prepared, u):
-            return blocked_logsumexp(log_weights_u(prepared, u),
-                                     nb_global) - log_s_fac
+            lw = log_weights_u(prepared, u)
+            if sharded:   # the Newton fit replicated, the rows folded
+                return _combine_local_lw(lw, u.shape[-2])
+            return blocked_logsumexp(lw, nb_global) - log_s_fac
 
         def log_lik_est(theta, u):
-            return log_lik_est_u(prepare(theta), u)
+            return log_lik_est_u(prepare(_theta_in(theta)), u)
 
         # the mode depends on both coordinates: no sigma-separable factor,
         # no structure-aware probes, no kernel that takes the tuple

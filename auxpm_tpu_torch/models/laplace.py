@@ -25,6 +25,13 @@ triangular-solve pair off the factor of K.  Padded rows carry mask 0, so
 g = W = 0 there: f̂ = 0 and Σ_q = K on the pad block, and the padded
 coordinates' two densities cancel in log ŵ.
 
+Reverse mode: every step above is differentiable (the unrolled Newton loop,
+``RobustCholesky``, ``torch.cholesky_solve``, the log-determinants), so the
+GP target's ``log_lik_est`` has a gradient in theta for HMC and NUTS.  W^½
+takes its limit 0 as derivative at w = 0 (``_sqrt_w``), which keeps that
+gradient finite on a padded target; the reference's ``jnp.sqrt`` gives NaN
+there.
+
 Every factorisation goes through ``ops/cholesky.robust_cholesky`` (on the
 card: the blocked loop over the v3 panel kernel); the solves against a factor
 are ``torch.cholesky_solve``, as the reference solves outside any kernel.  A
@@ -39,6 +46,17 @@ import torch
 
 from auxpm_tpu_torch.models.likelihoods import LIKELIHOOD_GRAD_HESS
 from auxpm_tpu_torch.ops.cholesky import robust_cholesky
+
+
+def _sqrt_w(w):
+    """W^½ with a finite derivative where w = 0.  The forward is
+    ``torch.sqrt(w)`` bit for bit (W >= 0); the derivative there is 0, the
+    limit of the exact gradient, where ``sqrt``'s is infinite: a padded row
+    (mask 0, so w = 0) gets an exactly 0 cotangent, and 0 x inf would make
+    the whole gradient NaN.  The same guard covers a real row whose w
+    underflows to 0 in the probit tail."""
+    pos = w > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, w, 1.0)), w * 0.0)
 
 
 def _matvec(k, x):
@@ -67,7 +85,7 @@ def laplace_fit(k, y, mask, likelihood="logistic", newton_iters=12,
     eye = torch.eye(n, dtype=k.dtype, device=k.device)
 
     def b_factor(w):
-        sw = torch.sqrt(w)
+        sw = _sqrt_w(w)
         b_mat = eye + sw[..., :, None] * k * sw[..., None, :]
         return sw, robust_cholesky(b_mat)
 

@@ -19,9 +19,23 @@ The population reductions of the sharded SMC (``pmax``,
 ``population_logsumexp``, ``population_ess``, ``pmean``) run over the CHAIN
 group, which the particles of a population are sharded over.
 
-``calls`` counts the collectives this rank has entered; ``seconds`` adds up
-their wall time (host clock, each call waited for; a caller that wants their
-time reads it).
+Reverse mode.  The two folds of a particle group (``psum_logsumexp``,
+``allgather_blocked_logsumexp``) are ``torch.autograd.Function``s whose
+forward is the collective above and whose backward needs none: the global
+log-sum-exp L is the same on every rank, so its derivative with respect to
+this rank's own rows is ``exp(lw_local - L)``.  Each rank's backward thus
+reaches only its own S / K rows, and a factor replicated over the group (the
+GP's C) gets a partial cotangent on each rank.  ``particle_grad_sum(theta,
+mesh)`` is the identity forward; its backward adds the theta cotangents of
+the group (one ``all_reduce`` of ``(B, d)``, not of C's ``(B, n, n)``), so
+every rank holds bitwise the same gradient and takes the same HMC / NUTS
+decisions.  Nothing between the fold and theta may branch on the rank: the
+ranks enter the backward's collective in graph order, which is the same
+graph on every rank.
+
+``calls`` counts the collectives this rank has entered, backward ones
+included; ``seconds`` adds up their wall time (host clock, each call waited
+for; a caller that wants their time reads it).
 """
 
 from __future__ import annotations
@@ -50,18 +64,59 @@ def _all_reduce(x, op, group):
     return x
 
 
+class _PsumLogsumexp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_w_local, mesh):
+        group = mesh.particle_group
+        m = _all_reduce(log_w_local.max(dim=-1).values.contiguous(),
+                        dist.ReduceOp.MAX, group)
+        m_safe = _finite_or_zero(m)
+        s = _all_reduce(torch.exp(log_w_local - m_safe[..., None]).sum(-1),
+                        dist.ReduceOp.SUM, group)
+        lse = torch.log(s) + m_safe
+        ctx.save_for_backward(log_w_local, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fold_pullback(ctx, g), None
+
+
+class _AllgatherBlockedLogsumexp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logw_local, n_blocks_local, mesh):
+        k, pi = mesh.n_particle_shards, mesh.particle_index
+        m, se = block_partials(logw_local, n_blocks_local)  # (B, nb_local)
+        buf = torch.zeros((k, 2, *m.shape), dtype=m.dtype, device=m.device)
+        buf[pi, 0] = m
+        buf[pi, 1] = se
+        _all_reduce(buf, dist.ReduceOp.SUM, mesh.particle_group)
+        # (K, B, nb_local) -> (B, K * nb_local): shard-major is global order
+        m_all = buf[:, 0].movedim(0, -2).reshape(*m.shape[:-1], -1)
+        se_all = buf[:, 1].movedim(0, -2).reshape(*m.shape[:-1], -1)
+        lse = combine_block_partials(m_all, se_all)
+        ctx.save_for_backward(logw_local, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fold_pullback(ctx, g), None, None
+
+
+def _fold_pullback(ctx, g):
+    """``g dL/dlw_local = g exp(lw_local - L)``: the global softmax restricted
+    to this rank's rows, with no collective (L is the same everywhere)."""
+    lw, lse = ctx.saved_tensors
+    return g[..., None] * torch.exp(lw - lse[..., None])
+
+
 def psum_logsumexp(log_w_local, mesh):
     """Global log-sum-exp over the last axis AND the particle group of
     ``log_w_local (..., S_local)``: global max, then the sum of the shifted
     exponential sums.  Two small collectives; the association of the sum is
-    the backend's, so this is exact but not the blocked tree."""
-    group = mesh.particle_group
-    m = _all_reduce(log_w_local.max(dim=-1).values.contiguous(),
-                    dist.ReduceOp.MAX, group)
-    m_safe = _finite_or_zero(m)
-    s = _all_reduce(torch.exp(log_w_local - m_safe[..., None]).sum(-1),
-                    dist.ReduceOp.SUM, group)
-    return torch.log(s) + m_safe
+    the backend's, so this is exact but not the blocked tree.
+    Differentiable in ``log_w_local`` (see the module note)."""
+    return _PsumLogsumexp.apply(log_w_local, mesh)
 
 
 def allgather_blocked_logsumexp(logw_local, n_blocks_local, mesh):
@@ -72,17 +127,30 @@ def allgather_blocked_logsumexp(logw_local, n_blocks_local, mesh):
     Each rank computes the (max, shifted sum) partials of its own contiguous
     blocks, the partials of all ranks are gathered in rank order (which is
     global block order: a rank's rows are one contiguous slice), and every
-    rank folds them left to right."""
-    k, pi = mesh.n_particle_shards, mesh.particle_index
-    m, se = block_partials(logw_local, n_blocks_local)     # (B, nb_local)
-    buf = torch.zeros((k, 2, *m.shape), dtype=m.dtype, device=m.device)
-    buf[pi, 0] = m
-    buf[pi, 1] = se
-    _all_reduce(buf, dist.ReduceOp.SUM, mesh.particle_group)
-    # (K, B, nb_local) -> (B, K * nb_local): shard-major is global order
-    m_all = buf[:, 0].movedim(0, -2).reshape(*m.shape[:-1], -1)
-    se_all = buf[:, 1].movedim(0, -2).reshape(*m.shape[:-1], -1)
-    return combine_block_partials(m_all, se_all)
+    rank folds them left to right.  Differentiable in ``logw_local`` (see
+    the module note)."""
+    return _AllgatherBlockedLogsumexp.apply(logw_local, n_blocks_local, mesh)
+
+
+class _ParticleGradSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, theta, mesh):
+        ctx.mesh = mesh
+        return theta.view_as(theta)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        _all_reduce(g, dist.ReduceOp.SUM, ctx.mesh.particle_group)
+        return g, None
+
+
+def particle_grad_sum(theta, mesh):
+    """``theta`` unchanged; in reverse mode the theta cotangents of the
+    particle group summed (one ``all_reduce``), so that each rank's share of
+    dL/dtheta, which reaches theta through the replicated prepare, adds up
+    to the whole on every rank (see the module note)."""
+    return _ParticleGradSum.apply(theta, mesh)
 
 
 def pmean_tree(tree, group, size):

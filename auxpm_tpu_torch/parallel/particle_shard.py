@@ -14,7 +14,13 @@ rank, whose ``u`` holds the local rows:
   synchronisation: the invariant the scheme rests on;
 - the samplers draw u-shaped randomness per rank, the rows of its own
   (``core/state.make_u_normal``), and everything else from the replicated
-  keys.
+  keys;
+- ``log_lik_est(theta, u_local)`` is differentiable in theta with bitwise
+  the same gradient on every rank: the fold's backward reaches this rank's
+  rows, ``particle_grad_sum`` adds the group's theta cotangents
+  (``parallel/collectives.py``), so HMC and NUTS take the same decisions on
+  every rank as well.  ``log_lik_est_u`` on a state prepared once (the ESS
+  update's probes) is not differentiated.
 """
 
 from __future__ import annotations
@@ -22,7 +28,10 @@ from __future__ import annotations
 import dataclasses
 import math
 
-from auxpm_tpu_torch.parallel.collectives import psum_logsumexp
+from auxpm_tpu_torch.parallel.collectives import (
+    particle_grad_sum,
+    psum_logsumexp,
+)
 
 
 def shard_target_particles(target, mesh):
@@ -44,7 +53,10 @@ def shard_target_particles(target, mesh):
                               mesh) - log_s
 
     def log_lik_est(theta, u_local):
-        return log_lik_est_u(target.prepare(theta), u_local)
+        # the prior's gradient is never summed over ranks: only the
+        # estimate's path goes through the theta sum
+        return log_lik_est_u(target.prepare(particle_grad_sum(theta, mesh)),
+                             u_local)
 
     return dataclasses.replace(
         target,

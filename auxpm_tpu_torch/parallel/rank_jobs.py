@@ -11,7 +11,9 @@ in fresh processes:
                                                # a 2 x 2 mesh on the CPU
 
 ``chip_smoke.py`` drives the sharded path on the card through them and the
-CPU tests hold it to the reference through them.
+CPU tests hold it to the reference through them: the estimate, its gradient
+(``grad``), one ``aux_slice`` step, one HMC or NUTS ``apply`` and whole CLI
+runs, on one spawned world.
 
 ``target_spec``: ``("gp", x, y, kwargs)`` for ``make_gp_classification`` or
 ``("gaussian_toy", kwargs)`` for ``make_gaussian_toy``.
@@ -88,12 +90,17 @@ def _counts():
 
 def run_all(jobs, n_particle_shards, device="cuda"):
     """Several jobs on one world: ``jobs`` is a list of ``("estimate",
-    target_spec, theta, u)`` and ``("step", target_spec, state, rows, params
-    [, sampler_kwargs, log_probes, return_cache])`` tuples (the arguments of
-    ``_estimate`` / ``_step`` below); returns their results in order."""
+    target_spec, theta, u)``, ``("grad", target_spec, theta, u)``,
+    ``("step", target_spec, state, rows, params [, sampler_kwargs,
+    log_probes, return_cache])`` and ``("apply", target_spec, kernel, state,
+    rows, params [, kernel_kwargs])`` tuples (the arguments of the functions
+    below) and ``("cli", argv)`` (``cli``); returns their results in
+    order."""
     dev, mesh = _join(n_particle_shards, device)
-    kinds = {"estimate": _estimate, "step": _step}
-    return [kinds[job[0]](dev, mesh, *job[1:]) for job in jobs]
+    kinds = {"estimate": _estimate, "grad": _grad, "step": _step,
+             "apply": _apply}
+    return [cli(*job[1:]) if job[0] == "cli"
+            else kinds[job[0]](dev, mesh, *job[1:]) for job in jobs]
 
 
 def _estimate(dev, mesh, target_spec, theta, u):
@@ -111,6 +118,77 @@ def _estimate(dev, mesh, target_spec, theta, u):
     return {"rank": mesh.rank, "chain_index": mesh.chain_index,
             "particle_index": mesh.particle_index, "target": target.name,
             "estimate": _np(est), "counts": _counts()}
+
+
+def _grad(dev, mesh, target_spec, theta, u):
+    """The collective estimate ``log_lik_est(theta, u)`` and its gradient in
+    theta, and the gradient of ``log_prior + log_lik_est`` (the prior's part
+    is never summed over ranks), on this rank's share of ``theta (B, d)``
+    and ``u (B, S, n)``; every rank of a particle group returns bitwise the
+    same ``(B_local,)`` and ``(B_local, d)``.  ``counts``: the kernel
+    launches and collectives of the two gradient calls; ``seconds``: their
+    host time, the card waited for."""
+    import time
+
+    from auxpm_tpu_torch.convert import shard_numpy_state
+
+    target = _sharded_target(target_spec, mesh, dev)
+    share = shard_numpy_state({"theta": theta, "u": u}, mesh.n_chain_shards,
+                              mesh.n_particle_shards)[mesh.rank]
+    u_t = torch.as_tensor(share["u"], dtype=torch.float32, device=dev)
+    th = torch.as_tensor(share["theta"], dtype=torch.float32, device=dev)
+    before = _counts()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        z = th.clone().requires_grad_(True)
+        est = target.log_lik_est(z, u_t)
+        (g,) = torch.autograd.grad(est.sum(), z)
+        z = th.clone().requires_grad_(True)
+        post = target.log_prior(z) + target.log_lik_est(z, u_t)
+        (g_post,) = torch.autograd.grad(post.sum(), z)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    after = _counts()
+    return {"rank": mesh.rank, "chain_index": mesh.chain_index,
+            "particle_index": mesh.particle_index, "target": target.name,
+            "estimate": _np(est), "grad": _np(g), "grad_post": _np(g_post),
+            "counts": {k: after[k] - before[k] for k in after},
+            "seconds": seconds}
+
+
+def _apply(dev, mesh, target_spec, kernel, state, rows, params,
+           kernel_kwargs=None):
+    """One HMC or NUTS ``apply`` (``kernel`` "hmc" or "nuts") on this rank's
+    share of a whole state, fed the caller's draws ``rows`` (whole, cut on
+    the chains axis; int64 arrays stay int64); ``params``: the kernel's own
+    group (``{"step_size": ..}``), as NumPy or numbers.  Returns the rank's
+    new theta and log L-hat, the infos, and the gradient calls and
+    collectives it made."""
+    from auxpm_tpu_torch import convert
+    from auxpm_tpu_torch.parallel.sharded_chain import chain_slice
+    from auxpm_tpu_torch.samplers import hmc
+    from auxpm_tpu_torch.samplers.nuts import make_nuts
+
+    target = _sharded_target(target_spec, mesh, dev)
+    share = convert.shard_numpy_state(state, mesh.n_chain_shards,
+                                      mesh.n_particle_shards)[mesh.rank]
+    st = convert.chain_states_from_numpy(share, device=str(dev))
+    make = {"hmc": hmc.make_hmc, "nuts": make_nuts}[kernel]
+    step = make(target, **(kernel_kwargs or {}))
+    cs = chain_slice(np.asarray(state["theta"]).shape[0], mesh)
+    rows_t = {k: torch.as_tensor(np.asarray(v)[cs], device=dev)
+              for k, v in rows.items()}
+    par = {k: (torch.as_tensor(np.asarray(v, np.float32), device=dev)
+               if isinstance(v, np.ndarray) else v)
+           for k, v in params.items()}
+    calls0, coll0 = hmc.grad_calls, hmc.grad_collectives
+    out, info = step.apply(st, rows_t, par)
+    return {"rank": mesh.rank, "theta": _np(out.theta),
+            "log_lik_hat": _np(out.log_lik_hat),
+            "info": {k: _np(v) for k, v in info.items()},
+            "grad_calls": hmc.grad_calls - calls0,
+            "grad_collectives": hmc.grad_collectives - coll0}
 
 
 def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
@@ -188,6 +266,7 @@ def cli(argv, profile_steps=0):
     from auxpm_tpu_torch import run as port_run
     from auxpm_tpu_torch.core import prng
     from auxpm_tpu_torch.ops import fused_estimator as fe
+    from auxpm_tpu_torch.samplers import hmc
 
     stages = []
 
@@ -203,6 +282,7 @@ def cli(argv, profile_steps=0):
 
     result = {"on_stage": on_stage}
     before = _counts()
+    grad0 = (hmc.grad_calls, hmc.grad_collectives)
     prng.start_timing()
     for count in fe.active_counts.values():
         count.reset()
@@ -236,6 +316,11 @@ def cli(argv, profile_steps=0):
         "rot_weights_active_share": active_share,
         "peak_mem_gb": (torch.cuda.max_memory_allocated(states.u.device)
                         / 2**30 if states.u.is_cuda else None),
+        # the frozen step sizes of the gradient samplers' groups
+        "step_sizes": {g: result["params"][g]["step_size"]
+                       for g in ("hmc", "nuts") if g in result["params"]},
+        "grad_calls": hmc.grad_calls - grad0[0],
+        "grad_collectives": hmc.grad_collectives - grad0[1],
     }
     cache = states.extras.get("target_cache")
     if cache is not None:

@@ -23,6 +23,12 @@
     python -m auxpm_tpu_torch.run --list-presets
     torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sharded true \
         --particle-shards 2 --preset pima_aux_slice --max-step-out 0 ...
+    torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --sharded true \
+        --particle-shards 2 --sampler aux_nuts      # or aux_hmc
+    python -m auxpm_tpu_torch.run --proposal laplace --n-importance 16 \
+        --sampler aux_nuts     # aux_hmc; --sampler smc --smc-rejuvenation
+    torchrun --nproc-per-node 2 -m auxpm_tpu_torch.run --proposal laplace \
+        --n-importance 16 --sharded true --particle-shards 2
     torchrun --nproc-per-node 4 -m auxpm_tpu_torch.run --preset gp_4096_sharded
     torchrun --nnodes 2 --node-rank 0 --nproc-per-node 4 \
         --rdzv-endpoint HOST:PORT -m auxpm_tpu_torch.run --multihost true \
@@ -40,7 +46,14 @@ on gloo.  ``--multihost true`` (with ``--sharded true``) runs the same path
 over several nodes, each started by ``torchrun --nnodes N --node-rank i
 --nproc-per-node M --rdzv-endpoint HOST:PORT``; it refuses a world that does
 not span several nodes.  ``--preset gp_4096_sharded`` is config 4: 4096
-chains, chain-sharded.
+chains, chain-sharded.  Every sampler runs on particle shards, ``aux_hmc``
+and ``aux_nuts`` too (their gradient's theta cotangent is summed over the
+group, ``parallel/collectives.particle_grad_sum``; warm-up adapts each
+chain's step size from statistics that are bitwise the same on every rank of
+its group), and so does ``--proposal laplace``, whose Newton fit runs
+replicated on every rank.  The gradient samplers take the Laplace proposal
+too, single-device, on particle shards and as SMC rejuvenation (sharded SMC
+included).
 
 ``AUXPM_ESS_SWEEP=0`` in the environment sends the elliptical-slice update
 through its per-probe loop instead of the whole-sweep kernel.

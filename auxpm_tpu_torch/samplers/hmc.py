@@ -8,10 +8,23 @@ pseudo-marginal conditional
 which is differentiable in theta: the GP estimator is Gram -> Cholesky ->
 whiten -> log-likelihood, and every kernel on that chain is a
 ``torch.autograd.Function`` whose backward is plain PyTorch
-(``ops/cholesky.RobustCholesky``, ``ops/fused_estimator.FusedEstimate``,
-``ops/gram.SeGramArd``).  One gradient evaluation is
+(``ops/cholesky.RobustCholesky``, ``ops/fused_estimator.FusedEstimate`` /
+``FusedWeights``, ``ops/gram.SeGramArd``).  One gradient evaluation is
 ``torch.autograd.grad(U(theta).sum(), theta)`` on a fresh leaf; no graph is
 kept across leapfrog steps.
+
+Targets: every target with a differentiable ``log_lik_est``: the GP target
+(isotropic or ARD, prior or Laplace proposal, whose Newton fit is unrolled
+under the gradient) and the Gaussian toy, each of them also particle
+sharded (``parallel/particle_shard.py``), and the exact MVN.  On a particle-sharded
+target a gradient call enters collectives in its forward (the fold) and in
+its backward (the theta sum, ``parallel/collectives.particle_grad_sum``): 2
+per call on a sharded GP target at S % 8 == 0.  Every rank of the group
+holds bitwise the same U and gradient, so the accept tests, the step counts
+and the gathers of the chains still integrating agree across the group, and
+the ranks enter the same collectives in the same order.  ``grad_collectives``
+counts the collectives entered inside gradient calls (read from
+``parallel/collectives.calls``).
 
 Batching: every chain draws its own number of leapfrog steps, uniform in
 {1..n_leapfrog} (fixed-length HMC resonates on near-Gaussian targets; Neal
@@ -37,11 +50,13 @@ import torch
 from auxpm_tpu_torch.core import prng
 from auxpm_tpu_torch.core.state import ChainState, refresh_target_cache
 from auxpm_tpu_torch.core.transition import keyed
+from auxpm_tpu_torch.parallel import collectives
 
 _DIVERGENCE = 1000.0
 
 grad_calls = 0  # batched gradient evaluations made by HMC and NUTS
 grad_rows = 0   # chain-gradients among them (the rows of those calls)
+grad_collectives = 0  # collectives entered inside those calls (sharded)
 host_syncs = 0  # reads to the host by HMC and NUTS (step counts, active sets)
 
 
@@ -59,14 +74,16 @@ def value_and_grad(target, u):
     (an index tensor; None = all), each call on a fresh leaf."""
 
     def vg(theta, rows=None):
-        global grad_calls, grad_rows
+        global grad_calls, grad_rows, grad_collectives
         uu = u if rows is None else u[rows]
+        entered = collectives.calls
         with torch.enable_grad():
             z = theta.detach().requires_grad_(True)
             pe = potential_fn(target, uu)(z)
             (g,) = torch.autograd.grad(pe.sum(), z)
         grad_calls += 1
         grad_rows += theta.shape[0]
+        grad_collectives += collectives.calls - entered
         return pe.detach(), g
 
     return vg

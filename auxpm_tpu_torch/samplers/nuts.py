@@ -33,6 +33,15 @@ The proposal is exact multinomial sampling over the trajectory (no MH
 accept); ``accept_prob`` in the info is the Stan-style mean Metropolis
 statistic that dual averaging reads.
 
+Targets: those of ``samplers/hmc.py`` (the GP target with either proposal,
+isotropic or ARD, and the toy, each also particle sharded; the MVN),
+through its ``value_and_grad``, which counts the gradient calls
+(``hmc.grad_calls``) and the collectives entered inside them
+(``hmc.grad_collectives``; 2 per call on a sharded GP target).  On a
+particle-sharded target every rank computes bitwise the same trajectories,
+so the U-turn and divergence tests and the gathers of the chains still
+going agree across the group.
+
 Factory args:
   max_depth: maximum tree depth (default 8: at most 255 gradient
     evaluations per step).

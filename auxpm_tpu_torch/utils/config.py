@@ -2,14 +2,13 @@
 
 Counterpart of ``auxpm_tpu/utils/config.py``: the same ``RunConfig`` fields
 (plus ``device``), so a command line written for the JAX package reads the
-same here.  Fields that select a part of the system not ported yet
-(multi-host runs, the Laplace proposal on a particle-sharded target, HMC /
-NUTS on a particle-sharded or Laplace target) are accepted by the parser and
-refused with ``NotImplementedError`` naming the ROADMAP item when used
-(``unsupported``).  ``PRESETS`` holds the reference's presets, each field for
-field the reference's preset of the same name; ``smc_gp_nuts`` is the
-sharded SMC with u kept as keys (``samplers/smc_sharded.py``), run under
-``torchrun``.
+same here.  Every combination the reference runs is ported, the gradient
+samplers on particle-sharded and Laplace targets and the Laplace proposal on
+a particle-sharded target included; ``unsupported`` keeps the reference's own
+refusals (``ValueError``) and the port's checks that a flag is not ignored.
+``PRESETS`` holds the reference's presets, each field for field the
+reference's preset of the same name; ``smc_gp_nuts`` is the sharded SMC with
+u kept as keys (``samplers/smc_sharded.py``), run under ``torchrun``.
 """
 
 from __future__ import annotations
@@ -182,15 +181,13 @@ KEYED_REJUVENATION = {"aux_nuts": "nuts", "aux_hmc": "hmc", "aux_mh": "mh_theta"
                       "aux_slice": "slice_theta", "aux_slice_rd": "slice_theta",
                       "nuts": "nuts", "hmc": "hmc", "mh_theta": "mh_theta",
                       "slice_theta": "slice_theta"}
-GRADIENT_SAMPLERS = ("aux_hmc", "aux_nuts")
 
 
 def unsupported(cfg: RunConfig):
-    """Raise ``NotImplementedError`` if ``cfg`` asks for a part of the system
-    that is not ported yet."""
+    """Raise ``ValueError`` if ``cfg`` asks for a combination that the
+    reference refuses, or sets a flag that the run would ignore."""
     from auxpm_tpu_torch.samplers.composite import SAMPLERS
 
-    asked = []   # (what, ROADMAP queue 1 item)
     if cfg.target not in ("gp", "gaussian_toy"):
         raise ValueError(f"unknown target {cfg.target!r}")
     smc = cfg.sampler == "smc"
@@ -210,30 +207,11 @@ def unsupported(cfg: RunConfig):
     if smc and cfg.smc_rejuvenation not in names:
         raise ValueError(f"smc_rejuvenation must be one of {names}"
                          f", got {cfg.smc_rejuvenation!r}")
-    sharded_particles = cfg.sharded and cfg.particle_shards > 1
-    gradient = (cfg.sampler in GRADIENT_SAMPLERS
-                or (smc and cfg.smc_rejuvenation in GRADIENT_SAMPLERS)
-                or (keyed and KEYED_REJUVENATION[cfg.smc_rejuvenation]
-                    in ("nuts", "hmc")))
-    if cfg.target == "gp" and cfg.proposal == "laplace" and sharded_particles:
-        asked.append(("proposal='laplace' with --particle-shards > 1", "8"))
-    if gradient and sharded_particles:
-        # the collective estimate has no reverse mode
-        asked.append(("HMC / NUTS with --particle-shards > 1", "8"))
-    if gradient and cfg.target == "gp" and cfg.proposal == "laplace":
-        asked.append(("HMC / NUTS with proposal='laplace'", "6"))
     if cfg.multihost and not cfg.sharded:
         raise ValueError("--multihost runs the sharded path over a world that "
                          "spans several nodes: add --sharded true")
     if cfg.particle_shards > 1 and not cfg.sharded:
         raise ValueError("--particle-shards > 1 needs --sharded true")
-    if asked:
-        raise NotImplementedError(
-            "not ported to auxpm_tpu_torch yet: "
-            + ", ".join(f"{what} (ROADMAP.md queue 1, item {item})"
-                        for what, item in asked)
-            + "; see ROADMAP.md (modules still to port)"
-        )
 
 
 def build_target(cfg: RunConfig):

@@ -11,7 +11,9 @@ once with ``AUXPM_ESS_SWEEP=0``, the per-probe loop; config 2 again with
 holding 32 of every chain's 64 importance samples; config 3's
 ``abalone_aux`` at n=1024 and one step at full n=4224; PM-MH and ``aux_mh``
 on config 2's target and the config-1 preset ``toy_pm_mh``; a checkpointed
-resume; config 4's preset ``gp_4096_sharded``) and holds each of its
+resume; config 4's preset ``gp_4096_sharded``; HMC and NUTS on two
+particle-sharded ranks and on the Laplace proposal, and the Laplace proposal
+on two ranks) and holds each of its
 eleven hand-written CUDA kernels (the ten TPU kernels' and the threefry
 PRNG's) against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
@@ -131,12 +133,14 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   uniforms), and the normals per second of one key-as-u
                   chunk's u, (256, 32, 640);
 20. ``main_path_smc_sharded`` the sharded SMC on two spawned ranks sharing
-                  the card (gloo) through ``rank_jobs.cli``: (a) ``--preset
-                  smc_gp_nuts`` at 1024 particles (the preset's 4096 cut to
-                  fit the time), (b) the blocked refresh (``--smc-u-blocks
-                  8``, S = 64, ``aux_mh`` -> ``mh_theta``, one proposal per
-                  block) at 512, (c) ``--smc-carry-u true`` with
-                  ``aux_slice`` at 512: logZ finite, the last beta 1,
+                  the card (gloo) through ``rank_jobs.cli``, the three runs
+                  in one spawn: (a) ``--preset smc_gp_nuts`` at 512
+                  particles (the preset's 4096 cut to fit the time; 1024
+                  until phases 24-26), (b) the blocked refresh
+                  (``--smc-u-blocks 8``, S = 64, ``aux_mh`` -> ``mh_theta``,
+                  one proposal per block) at 512, (c) ``--smc-carry-u true``
+                  with ``aux_slice`` at 256 (512 until phases 24-26): logZ
+                  finite, the last beta 1,
                   kernels 1 and 2 launched in (a) and (c), 6 in (b), run
                   (b)'s last-stage refresh acceptance at least the
                   reference's floor of 0.2; per stage the launches of
@@ -163,10 +167,36 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   must launch it and reports the keyed draws' ms and
                   launches per step;
 23. ``main_path_config4`` the preset ``gp_4096_sharded`` (config 4) on one
-                  spawned rank at 4096 chains, 4 steps (no warm-up): wall
-                  per step, peak memory, launches; then at 256 chains x 5
-                  steps on one rank against two ranks sharing the card
-                  (gloo): records and log L-hat bitwise equal.
+                  spawned rank at 4096 chains, 2 steps (no warm-up; 4 until
+                  phases 24-26): wall per step, peak memory, launches; then
+                  at 256 chains x 5 steps on that rank against two ranks
+                  sharing the card (gloo): records and log L-hat bitwise
+                  equal;
+24. ``main_path_sharded_grad`` ``--sharded true --particle-shards 2`` with
+                  ``aux_hmc`` (128 chains) and ``aux_nuts`` (64), one
+                  warm-up window each, on two spawned ranks sharing the card:
+                  theta, log L-hat and the step sizes bitwise equal on both
+                  ranks, the two weights kernels launched and no estimator
+                  or sweep kernel, 2 collectives per gradient call; then the
+                  gradient at a fixed (theta, u) of 128 chains on the two
+                  ranks against one process's on the card (reported; the
+                  chains over 1e-4 of max(|g|, 1) counted) and against the
+                  float64 gradient: on every chain no further from it than
+                  one process's, plus 1e-4 of max(|g|, 1); gradient calls,
+                  collectives and weights launches per step, a profiled
+                  window per run;
+25. ``main_path_laplace_grad`` ``--proposal laplace --n-importance 16`` with
+                  ``aux_hmc`` (64 chains, 3 steps) and ``aux_nuts`` (16, 2):
+                  no non-finite gradient row; ms, panel launches, jitter
+                  escalations and peak memory of a gradient call; on 8
+                  chains the gradient against float64 central differences
+                  (step 1e-4, the plain path on the CPU) within 5 % at
+                  jitter 1e-3, reported at the CLI's 1e-5;
+26. ``main_path_laplace_sharded`` ``aux_slice --proposal laplace`` on two
+                  spawned ranks (64 chains, 3 steps): the ranks bitwise
+                  equal, only the panel and threefry kernels launched; the
+                  estimate at a fixed (theta, u) within 1e-4 of one
+                  process's.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -308,21 +338,23 @@ THREEFRY_ULP = 3               # kernel vs plain normals (two log1pf)
 THREEFRY_INT_OPS = 71
 THREEFRY_OUT_OPS = {"words": 0, "bits": 1, "uniform": 3, "normal": 3}
 INT32_OPS = 132 * 64 * 1.98e9  # H100 SXM: SMs x INT32 lanes x boost clock
-SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch)
-    "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "1024"],
+SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch);
+    # particles of (a) and (c) halved to make room for phases 24-26
+    "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "512"],
                       ("fused_estimator", "chol_panel")),
     "b_u_blocks": (["--preset", "smc_gp_nuts", "--smc-u-blocks", "8",
                     "--n-importance", "64", "--smc-rejuvenation", "aux_mh",
                     "--smc-n-u-mh", "1", "--particles", "512"],
                    ("fused_weights",)),
     "c_carry_u": (["--sharded", "true", "--sampler", "smc",
-                   "--smc-rejuvenation", "aux_slice", "--particles", "512"],
+                   "--smc-rejuvenation", "aux_slice", "--particles", "256"],
                   ("fused_estimator", "chol_panel")),
 }
 U_BLOCKS_ACCEPT_FLOOR = 0.2    # the reference's floor (tests/test_smc.py)
 SMC_PARITY_PARTICLES, SMC_PARITY_S = 256, 32
-CONFIG4_CHAINS, CONFIG4_STEPS = 4096, 4
-CONFIG4_CLI_ARGS = [           # the preset; depth cut: no warm-up, 4 steps
+CONFIG4_CHAINS, CONFIG4_STEPS = 4096, 2
+CONFIG4_CLI_ARGS = [           # the preset; depth cut: no warm-up, 2 steps
+                               # (4 until the gradient phases took the time)
     "--preset", "gp_4096_sharded", "--warmup-windows", "0",
     "--window-steps", "2", "--steps", str(CONFIG4_STEPS)]
 CONFIG4_SMALL_CHAINS, CONFIG4_SMALL_STEPS = 256, 5
@@ -333,6 +365,15 @@ CONFIG4_SMALL_ARGS = [         # 1 rank against 2 sharing the card
 SMC_MAX_AMBIGUOUS = 64         # of 256 particles: each takes two refresh
                                # decisions and two NUTS trees, ~4x the
                                # decisions of a chain in path_parity_hmc_nuts
+SHARDED_GRAD_RUNS = {          # sampler -> chains, window steps, steps,
+    "aux_hmc": (B, 3, 6, 2),   # profiled steps: one warm-up window (the
+    "aux_nuts": (64, 3, 3, 1),  # CLI's window length is shared by warm-up
+}                              # and sampling)
+SHARDED_GRAD_RTOL = 1e-4       # 2 ranks vs 1, of max(|g|, 1)
+LAPLACE_GRAD_RUNS = {"aux_hmc": (64, 3), "aux_nuts": (16, 2)}   # no warm-up
+LAPLACE_GRAD_STEP = 0.05       # of the order dual averaging finds (0.064)
+LAPLACE_FD_CHAINS = 8          # float64 differences on the CPU
+LAPLACE_SHARDED_CHAINS, LAPLACE_SHARDED_STEPS = 64, 3
 
 
 def log(*a):
@@ -3185,15 +3226,21 @@ def main():
     end_phase()
 
     # ------------------------------------------------- sharded SMC, two ranks
-    # Each run through rank_jobs.cli on two ranks sharing the card (gloo);
-    # the ranks count their own launches per stage (stage -1 is the init).
+    # The three runs through rank_jobs.cli on two ranks sharing the card
+    # (gloo), one spawn for all three (one start-up); the ranks count their
+    # own launches per stage (stage -1 is the init).
     smc_sh = {}
-    for run_name, (args, must) in SMC_SHARDED_RUNS.items():
-        log(f"main path (sharded smc, {run_name}):", " ".join(args))
-        t0 = time.time()
-        ranks_s = spawn(rank_jobs.cli, K_SHARDS, args, timeout_s=600,
-                        threads=0)
-        wall_spawn = time.time() - t0
+    log("main path (sharded smc):", "; ".join(
+        " ".join(args) for args, _ in SMC_SHARDED_RUNS.values()))
+    t0 = time.time()
+    per_rank_s = spawn(rank_jobs.run_all, K_SHARDS,
+                       [("cli", args) for args, _ in
+                        SMC_SHARDED_RUNS.values()], 1, "cuda",
+                       timeout_s=900, threads=0)
+    wall_spawn = time.time() - t0
+    for i_run, (run_name, (args, must)) in enumerate(
+            SMC_SHARDED_RUNS.items()):
+        ranks_s = [r[i_run] for r in per_rank_s]
         r0 = ranks_s[0]
         diag = r0["diag"]
         for r in ranks_s:
@@ -3232,7 +3279,7 @@ def main():
             "args": args, "n_stages": diag["n_stages"],
             "betas": diag["betas"], "log_z": diag["log_z"],
             "u_mh_accept": acc, "stage_seconds": diag["stage_seconds"],
-            "wall_s": r0["summary"]["wall"], "spawn_wall_s": wall_spawn,
+            "wall_s": r0["summary"]["wall"],
             "u_shape_per_rank": list(r0["u_shape"]),
             "backend": r0["backend"],
             "peak_mem_gb_per_rank": [r["peak_mem_gb"] for r in ranks_s],
@@ -3243,7 +3290,8 @@ def main():
             "posterior_mean": r0["summary"]["posterior_mean"],
             "posterior_std": r0["summary"]["posterior_std"]}
     emit({"phase": "main_path_smc_sharded", "card": smi, "ranks": K_SHARDS,
-          **smc_sh})
+          **smc_sh, "spawn_wall_s_all_runs": wall_spawn})
+    del per_rank_s
     end_phase()
 
     # ----------------------------------------- sharded SMC, path parity
@@ -3390,7 +3438,12 @@ def main():
     from auxpm_tpu_torch.parallel.launch import spawn
 
     torch.cuda.empty_cache()    # the child needs the card's memory
-    (c4,) = spawn(rank_jobs.cli, 1, CONFIG4_CLI_ARGS, timeout_s=900)
+    # one rank runs the preset at 4096 chains, then 256 chains for the
+    # layout check (one start-up); two ranks run the 256 chains
+    ((c4, small1),) = spawn(rank_jobs.run_all, 1,
+                            [("cli", CONFIG4_CLI_ARGS),
+                             ("cli", CONFIG4_SMALL_ARGS)], 1, "cuda",
+                            timeout_s=900)
     for name in ("fused_estimator", "chol_panel", "ess_sweep",
                  "threefry_launches"):
         if c4["counts"][name] <= 0:
@@ -3400,8 +3453,8 @@ def main():
             not np.isfinite(rec4).all():
         failures.append(f"main_path_config4: records {rec4.shape}, finite "
                         f"{bool(np.isfinite(rec4).all())}")
-    layouts = {w: spawn(rank_jobs.cli, w, CONFIG4_SMALL_ARGS, timeout_s=600)
-               for w in (1, 2)}
+    layouts = {1: [small1],
+               2: spawn(rank_jobs.cli, 2, CONFIG4_SMALL_ARGS, timeout_s=600)}
     rec1 = layouts[1][0]["recorded_theta"]
     invariance = {
         "records_1_vs_2_ranks_bitwise": bool(
@@ -3430,6 +3483,10 @@ def main():
     del layouts, c4
     end_phase()
 
+    # ------------------- the fourteenth slice: gradients through the fold
+    gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
+                    check_close, failures, end_phase)
+
     # ---------------------------------------------------------------- result
     emit({"kernels": [
         {key: k[key] for key in (
@@ -3443,6 +3500,487 @@ def main():
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
+                    check_close, failures, end_phase):
+    """main_path_laplace_grad, main_path_sharded_grad and
+    main_path_laplace_sharded (phases 24-26 of the module note), with
+    ``main``'s helpers: the launch counters and the CLI runner, the failure
+    list and the closing check of a phase.  The two sharded phases share one
+    spawn of two ranks (one start-up)."""
+    import dataclasses
+
+    from auxpm_tpu_torch.core.state import init_chain_states
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.ops import fused_estimator as fe
+    from auxpm_tpu_torch.ops.gram import se_gram_iso
+    from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+    from auxpm_tpu_torch.parallel import rank_jobs
+    from auxpm_tpu_torch.parallel.launch import spawn
+
+    laplace_grad_phase(torch, np, smi, x, y_np, run_cli, counters,
+                       read_counts, failures, end_phase)
+
+    # ---------------------------- HMC, NUTS and Laplace on two ranks
+    # --sharded true --particle-shards 2 on two spawned ranks sharing the
+    # card: aux_hmc at 128 chains, aux_nuts at 64, each after one warm-up
+    # window with dual averaging and then profiled on each rank; the
+    # gradient of log L-hat at a fixed (theta, u) of 128 chains; aux_slice
+    # with the Laplace proposal at 64 chains; the Laplace estimate at a
+    # fixed (theta, u).  The one-process references are computed first, on
+    # the card: the gradient through the target's estimator kernel and
+    # through the weights kernel and the blocked fold (the forward the
+    # ranks run, on all S rows), and the Laplace estimate.
+    log("main path (sharded gradients, sharded laplace)")
+    tgt = make_gp_classification(x, y_np, n_importance=S, device="cuda")
+    st = init_chain_states(21, tgt, B, jitter_scale=0.3)
+    log_s = math.log(S)
+    via_weights = dataclasses.replace(tgt, log_lik_est=lambda th_, u_: (
+        blocked_logsumexp(tgt.log_weights_u(tgt.prepare(th_), u_),
+                          tgt.n_weight_blocks) - log_s))
+    g1 = {}
+    for label, tg in (("estimator", tgt), ("weights", via_weights)):
+        with torch.enable_grad():
+            th = st.theta.clone().requires_grad_(True)
+            (g1[label],) = torch.autograd.grad(tg.log_lik_est(th, st.u).sum(),
+                                               th)
+    # the same gradient in float64 through the plain path (the library's
+    # factor, no jitter raise), as grad_parity computes it
+    dev = st.u.device
+    n_pad = N - len(x)
+    x64 = np.asarray(x, np.float64)
+    sq = np.full((N, N), 1e30)
+    sq[:len(x), :len(x)] = ((x64[:, None] - x64[None]) ** 2).sum(-1)
+    np.fill_diagonal(sq, 0.0)
+    sq64 = torch.as_tensor(sq, device=dev)
+    y64 = torch.as_tensor(np.concatenate([y_np, np.ones(n_pad)]), device=dev)
+    mask64 = torch.as_tensor(np.concatenate([np.ones(len(x)),
+                                             np.zeros(n_pad)]), device=dev)
+    with torch.enable_grad():
+        th64 = st.theta.double().requires_grad_(True)
+        l64, info64 = torch.linalg.cholesky_ex(se_gram_iso(
+            sq64, th64[:, 0], 0.0, 1e-5))
+        ll64 = fe._ref_estimate(torch.exp(th64[:, 1])[:, None, None] * l64,
+                                st.u.double(), y64, mask64, "logistic",
+                                tgt.n_weight_blocks)
+        (g64,) = torch.autograd.grad(ll64.sum(), th64)
+    ok64 = (info64 == 0) & torch.isfinite(g64).all(-1)
+    del l64, ll64, sq64
+    theta_np, u_np = st.theta.cpu().numpy(), st.u.cpu().numpy()
+    tgt_l = make_gp_classification(x, y_np, n_importance=S_LAPLACE,
+                                   proposal="laplace", device="cuda")
+    st_l = init_chain_states(22, tgt_l, LAPLACE_SHARDED_CHAINS,
+                             jitter_scale=0.3)
+    with torch.no_grad():
+        est1 = tgt_l.log_lik_est(st_l.theta, st_l.u)
+    theta_l, u_l = st_l.theta.cpu().numpy(), st_l.u.cpu().numpy()
+    torch.cuda.synchronize()
+    del st, tgt, via_weights, th, st_l, tgt_l
+    torch.cuda.empty_cache()
+    args = {sampler: [
+        "--sharded", "true", "--particle-shards", str(K_SHARDS), "--preset",
+        "pima_aux_slice", "--sampler", sampler, "--chains", str(chains),
+        "--warmup-windows", "1", "--window-steps", str(window), "--steps",
+        str(steps)] for sampler, (chains, window, steps, _)
+        in SHARDED_GRAD_RUNS.items()}
+    args_l = ["--sharded", "true", "--particle-shards", str(K_SHARDS),
+              "--preset", "pima_aux_slice", "--proposal", "laplace",
+              "--n-importance", str(S_LAPLACE), "--chains",
+              str(LAPLACE_SHARDED_CHAINS), "--warmup-windows", "0",
+              "--window-steps", str(LAPLACE_SHARDED_STEPS), "--steps",
+              str(LAPLACE_SHARDED_STEPS)]
+    jobs = [("cli", args[k_], prof_) for k_, (*_, prof_)
+            in SHARDED_GRAD_RUNS.items()]
+    jobs += [("grad", ("gp", x, y_np, {"n_importance": S}), theta_np, u_np),
+             ("cli", args_l),
+             ("estimate", ("gp", x, y_np, {"n_importance": S_LAPLACE,
+                                           "proposal": "laplace"}),
+              theta_l, u_l)]
+    t0 = time.time()
+    per_rank = spawn(rank_jobs.run_all, K_SHARDS, jobs, K_SHARDS, "cuda",
+                     timeout_s=600, threads=0)
+    spawn_s = time.time() - t0
+    del u_np, u_l
+    shares = torch.cuda.device_count() < K_SHARDS    # one card for both
+    done = {}
+
+    def job(i):
+        """The ranks' results of job ``i``, in rank order."""
+        return [r[i] for r in per_rank]
+
+    def check_ranks(phase, ranks, must, must_not):
+        """Each rank's backend and launches; the ranks bitwise equal."""
+        for r in ranks:
+            c = r["counts"]
+            if shares and r["backend"] != "gloo":
+                failures.append(f"{phase}: rank {r['rank']} on "
+                                f"{r['backend']}")
+            for name in must:
+                if c[name] <= 0:
+                    failures.append(f"{phase}: rank {r['rank']} never "
+                                    f"launched {name}")
+            for name in must_not:
+                if c[name] != 0:
+                    failures.append(f"{phase}: rank {r['rank']} launched "
+                                    f"{name}")
+            if not (np.isfinite(r["recorded_theta"]).all()
+                    and np.isfinite(r["log_lik_hat"]).all()):
+                failures.append(f"{phase}: non-finite theta or log L-hat")
+        bitwise = all(
+            np.array_equal(r[k_], ranks[0][k_]) for r in ranks[1:]
+            for k_ in ("theta", "log_lik_hat", "recorded_theta"))
+        bitwise &= all(r["step_sizes"] == ranks[0]["step_sizes"]
+                       for r in ranks)
+        if not bitwise:
+            failures.append(f"{phase}: the ranks of the particle group do "
+                            "not hold bitwise the same theta, log L-hat and "
+                            "step sizes")
+        return bitwise
+
+    estimators = ("fused_estimator", "fused_estimator_rot", "ess_sweep",
+                  "sigma_sweep")
+    for i, (sampler, (chains, window, steps, prof_steps)) in enumerate(
+            SHARDED_GRAD_RUNS.items()):
+        ranks = job(i)
+        r0 = ranks[0]
+        bitwise = check_ranks(f"main_path_sharded_grad/{sampler}", ranks,
+                              ("fused_weights", "fused_rot_weights"),
+                              estimators)
+        n_steps = window + steps
+        c0, prof = r0["counts"], r0["profile"]
+        if r0["u_shape"] != (chains, S_LOCAL, N):
+            failures.append(f"main_path_sharded_grad/{sampler}: u "
+                            f"{r0['u_shape']}")
+        if r0["grad_collectives"] != 2 * r0["grad_calls"]:
+            failures.append(f"main_path_sharded_grad/{sampler}: "
+                            f"{r0['grad_collectives']} collectives in "
+                            f"{r0['grad_calls']} gradient calls, not 2 each")
+        done[sampler] = {
+            "args": args[sampler], "chains": chains,
+            "steps": f"1 x {window} warm-up + {steps}",
+            "target": r0["target"], "backend": r0["backend"],
+            "ranks_bitwise_equal": bitwise,
+            "step_sizes": r0["step_sizes"],
+            "chain_steps_per_sec": r0["summary"]["chain_steps_per_sec"],
+            "gradient_calls_per_step": r0["grad_calls"] / n_steps,
+            "collectives_per_gradient_call":
+                r0["grad_collectives"] / max(r0["grad_calls"], 1),
+            "collectives_per_step": c0["collectives"] / n_steps,
+            "collective_ms_per_step": c0["collective_ms"] / n_steps,
+            "fused_weights_launches_per_step": c0["fused_weights"] / n_steps,
+            "fused_rot_weights_launches_per_step":
+                c0["fused_rot_weights"] / n_steps,
+            "chol_panel_launches_per_step": c0["chol_panel"] / n_steps,
+            "peak_memory_gb_rank0": r0["peak_mem_gb"],
+            "launches": [r["counts"] for r in ranks],
+            "profile_rank0": {"steps": prof_steps, **{k_: prof[k_] for k_ in (
+                "wall_ms_per_step", "device_busy_ms_per_step",
+                "device_idle_share", "kernel_launches_per_step",
+                "host_syncs_per_step", "collectives_per_step",
+                "collective_ms")}},
+            "device_ms_per_step_by_kernel":
+                prof["device_ms_per_step_by_kernel"]}
+    # the fixed-(theta, u) gradient against one process's, through the
+    # target's estimator kernel and through the weights kernel and the fold
+    # (the ranks' forward on all S rows): reported, with the chains over
+    # SHARDED_GRAD_RTOL.  Two f32 gradients of one function differ by their
+    # rounding, which the Cholesky pullback amplifies where R(ell) is near
+    # singular: there the one-process gradient is itself further than that
+    # from the float64 one.  Held: on every chain the 2-rank gradient is no
+    # further from the float64 gradient than the one-process gradient is,
+    # plus SHARDED_GRAD_RTOL of max(|g|, 1) (sharding loses at most that)
+    grads = job(len(SHARDED_GRAD_RUNS))
+    g2 = torch.as_tensor(grads[0]["grad"], device=g64.device)
+    grad_bitwise = all(np.array_equal(r["grad"], grads[0]["grad"])
+                       for r in grads)
+    if not grad_bitwise:
+        failures.append("main_path_sharded_grad: the ranks' gradients differ")
+    fixed = {"chains": B, "ranks_bitwise_equal": grad_bitwise,
+             "grad_abs_max": float(g1["weights"].abs().max()),
+             "two_calls_seconds_rank0": grads[0]["seconds"],
+             "launches_rank0": grads[0]["counts"],
+             "chains_with_a_float64_factor": int(ok64.sum())}
+
+    def rel(a_, b_):
+        return ((a_ - b_).abs() / torch.clamp(b_.abs(), min=1.0)).max(-1)[0]
+
+    for label in ("weights", "estimator"):
+        r_ = rel(g2, g1[label])
+        fixed[f"vs_1_rank_via_{label}"] = {
+            "max_rel_err": float(r_.max()), "median_rel_err":
+                float(r_.median()),
+            "chains_over_rtol": int((r_ > SHARDED_GRAD_RTOL).sum()),
+            "worst_chain": int(r_.argmax()),
+            "that_chain_1_rank_vs_float64": float(rel(
+                g1[label].double(), g64)[r_.argmax()])}
+    g1e = g1["estimator"].double()
+    slack = ((g2.double() - g64).abs() - (g1e - g64).abs()
+             - SHARDED_GRAD_RTOL * torch.clamp(g64.abs(), min=1.0))
+    fixed["vs_float64"] = {
+        "max_rel_err_2_ranks": float(rel(g2.double(), g64)[ok64].max()),
+        "max_rel_err_1_rank": float(rel(g1e, g64)[ok64].max()),
+        "median_rel_err_2_ranks": float(rel(g2.double(), g64)[ok64].median()),
+        "median_rel_err_1_rank": float(rel(g1e, g64)[ok64].median()),
+        "chains_held": int(ok64.sum()), "rtol": SHARDED_GRAD_RTOL,
+        "held_within": bool((slack[ok64] <= 0).all())}
+    if not bool(torch.isfinite(g2).all()) or int(ok64.sum()) < B // 2 or \
+            not fixed["vs_float64"]["held_within"]:
+        failures.append(f"main_path_sharded_grad: the 2-rank gradient is "
+                        f"further from the float64 one than one process's "
+                        f"plus {SHARDED_GRAD_RTOL} of max(|g|, 1): {fixed}")
+    emit({"phase": "main_path_sharded_grad", "card": smi,
+          "ranks": K_SHARDS, **done, "fixed_theta_u_gradient": fixed,
+          "spawn_seconds_with_the_laplace_phase": round(spawn_s, 1)})
+    end_phase()
+
+    # aux_slice with the Laplace proposal on the two ranks (the Newton fit
+    # replicated, the log-weights folded by the collective)
+    i_l = len(SHARDED_GRAD_RUNS) + 1
+    ranks, ests = job(i_l), job(i_l + 1)
+    bitwise = check_ranks("main_path_laplace_sharded", ranks,
+                          ("chol_panel", "threefry_launches"),
+                          estimators + ("fused_weights", "fused_rot_weights"))
+    est_bitwise = all(np.array_equal(e_["estimate"], ests[0]["estimate"])
+                      for e_ in ests)
+    if not est_bitwise:
+        failures.append("main_path_laplace_sharded: the ranks' estimates "
+                        "differ")
+    est2 = torch.as_tensor(ests[0]["estimate"], device=est1.device)
+    err = check_close("main_path_laplace_sharded", "2-rank estimate", est2,
+                      est1, SHARDED_LL_TOL)
+    r0 = ranks[0]
+    n_steps = LAPLACE_SHARDED_STEPS
+    emit({"phase": "main_path_laplace_sharded", "card": smi, "args": args_l,
+          "ranks": K_SHARDS, "backend": r0["backend"], "target": r0["target"],
+          "u_shape_per_rank": list(r0["u_shape"]),
+          "ranks_bitwise_equal": bitwise,
+          "chain_steps_per_sec": r0["summary"]["chain_steps_per_sec"],
+          "wall_s": r0["summary"]["wall"],
+          "chol_panel_launches_per_step": r0["counts"]["chol_panel"] / n_steps,
+          "collectives_per_step": r0["counts"]["collectives"] / n_steps,
+          "collective_ms_per_step": r0["counts"]["collective_ms"] / n_steps,
+          "peak_memory_gb_rank0": r0["peak_mem_gb"],
+          "ess_u/moved": r0["windows"][-1]["ess_u/moved"],
+          "slice_theta/n_probe": r0["windows"][-1]["slice_theta/n_probe"],
+          "launches": [r["counts"] for r in ranks],
+          "fixed_theta_u_estimate": {
+              "chains": LAPLACE_SHARDED_CHAINS,
+              "ranks_bitwise_equal": est_bitwise,
+              "max_abs_err_vs_1_rank": err, "tol": SHARDED_LL_TOL,
+              "bitwise_equal_to_1_rank": bool(torch.equal(est2, est1))}})
+    del per_rank, grads, g1, g2, g64
+    torch.cuda.empty_cache()
+    end_phase()
+
+
+def laplace_grad_phase(torch, np, smi, x, y_np, run_cli, counters,
+                       read_counts, failures, end_phase):
+    """main_path_laplace_grad (see ``gradient_phases``)."""
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.models.laplace import (
+        laplace_fit,
+        laplace_log_weight_terms,
+    )
+    from auxpm_tpu_torch.models.likelihoods import LIKELIHOODS
+    from auxpm_tpu_torch.ops import cholesky
+    from auxpm_tpu_torch.ops.gram import se_gram_iso
+    from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+    from auxpm_tpu_torch.samplers import hmc as hmc_mod
+    from auxpm_tpu_torch.samplers import nuts as nuts_mod
+
+    # ------------------------------------- HMC and NUTS on a Laplace target
+    # --proposal laplace --n-importance 16 on one card: aux_hmc at 64
+    # chains, aux_nuts at 16, no warm-up, at a step size of the order that
+    # dual averaging finds on config 2's target (at the default 0.3 most
+    # trajectories diverge, to theta where the f32 fit overflows); no
+    # gradient row may be non-finite (the padded rows' w = 0 is where the
+    # reference's gradient is NaN at every theta).  Then at the aux_hmc
+    # run's final (theta, u): ms, panel launches, jitter escalations and
+    # peak memory of a gradient call, and on 8 chains the gradient against
+    # float64 central differences at step 1e-4 of the plain path on the CPU
+    # (as grad_parity), on the chains whose factorisations took no extra
+    # jitter.
+    log("main path (laplace gradients)")
+    real_vg = hmc_mod.value_and_grad
+    nonfinite = []
+
+    def counting_vg(target_, u_):
+        vg_ = real_vg(target_, u_)
+
+        def vg(theta_, rows=None):
+            pe_, g_ = vg_(theta_, rows)
+            bad_ = ~torch.isfinite(g_).all(-1)
+            nonfinite.append(torch.stack([bad_.sum(),
+                                          (bad_ & torch.isfinite(pe_)).sum()]))
+            return pe_, g_
+
+        return vg
+
+    impl = cholesky._robust_cholesky_impl
+    extras = []
+
+    def recording_impl(gram_, *a_, **kw_):
+        l_, extra_ = impl(gram_, *a_, **kw_)
+        extras.append(extra_)
+        return l_, extra_
+
+    lap_runs, final = {}, None
+    for sampler, (chains, steps) in LAPLACE_GRAD_RUNS.items():
+        args = ["--preset", "pima_aux_slice", "--proposal", "laplace",
+                "--n-importance", str(S_LAPLACE), "--sampler", sampler,
+                "--chains", str(chains), "--nuts-step-size",
+                str(LAPLACE_GRAD_STEP), "--warmup-windows", "0",
+                "--window-steps", str(steps), "--steps", str(steps)]
+        log(f"main path (laplace, {sampler}):", " ".join(args))
+        nonfinite.clear()
+        calls0 = hmc_mod.grad_calls
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9   # by earlier phases
+        t0 = time.time()
+        with mock.patch.object(hmc_mod, "value_and_grad", counting_vg), \
+                mock.patch.object(nuts_mod, "value_and_grad", counting_vg):
+            res, cnt = run_cli(args, ("chol_panel", "threefry"),
+                               [k_ for k_ in counters
+                                if k_ not in ("chol_panel", "threefry")])
+        run_s = time.time() - t0
+        st = res["states"]
+        n_bad, n_bad_finite_u = (int(v_) for v_ in
+                                 torch.stack(nonfinite).sum(0))
+        n_calls = hmc_mod.grad_calls - calls0
+        if n_bad:
+            failures.append(f"main_path_laplace_grad/{sampler}: {n_bad} "
+                            f"non-finite gradient rows ({n_bad_finite_u} "
+                            "with a finite potential)")
+        if not (res["target"].name.endswith("_laplace")
+                and st.u.shape == (chains, S_LAPLACE, N)
+                and np.isfinite(res["theta"]).all()
+                and bool(torch.isfinite(st.log_lik_hat).all())):
+            failures.append(f"main_path_laplace_grad/{sampler}: target "
+                            f"{res['target'].name}, u {tuple(st.u.shape)}, "
+                            "or non-finite theta / log L-hat")
+        group = sampler[4:]
+        win = res["windows"][-1]
+        lap_runs[sampler] = {
+            "args": args, "chains": chains, "steps": steps,
+            "launches": cnt, "nonfinite_gradient_rows": n_bad,
+            "nonfinite_gradient_rows_with_a_finite_potential":
+                n_bad_finite_u,
+            "gradient_calls": n_calls,
+            "gradient_calls_per_step": n_calls / steps,
+            "chol_panel_launches_per_step": cnt["chol_panel"] / steps,
+            "chain_steps_per_sec": res["summary"]["chain_steps_per_sec"],
+            "wall_s": run_s,
+            "peak_memory_gb_above_the_start":
+                torch.cuda.max_memory_allocated() / 1e9 - held_gb,
+            **{k_: win[k_] for k_ in win if k_.startswith(group + "/")}}
+        if sampler == "aux_hmc":
+            final = (res["target"], st)
+        del res
+    tgt, st = final
+    vg = real_vg(tgt, st.u)
+    vg(st.theta)
+    torch.cuda.synchronize()
+    n_time = 3
+    t0 = time.time()
+    for _ in range(n_time):
+        vg(st.theta)
+    torch.cuda.synchronize()
+    grad_ms = (time.time() - t0) * 1e3 / n_time
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
+    extras.clear()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with mock.patch.object(cholesky, "_robust_cholesky_impl",
+                           recording_impl):
+        vg(st.theta)
+    torch.cuda.synchronize()
+    peak_grad = torch.cuda.max_memory_allocated() / 1e9 - held_gb
+    panels = read_counts()["chol_panel"]
+    escalated = [int((e_ > 0).sum()) for e_ in extras]
+    call = {"chains": st.theta.shape[0], "ms_per_gradient_call": grad_ms,
+            "chol_panel_launches_per_gradient_call": panels,
+            "factorisations_per_gradient_call": panels / (N // 128),
+            "robust_cholesky_calls_per_gradient_call": len(extras),
+            "calls_with_an_escalated_jitter": sum(e_ > 0 for e_ in escalated),
+            "matrices_with_an_escalated_jitter": sum(escalated),
+            "peak_memory_gb_above_the_start": peak_grad}
+    # float64 central differences of the plain path, on the CPU, at the
+    # final state's first chains: held at LAPLACE_JITTER (as the prepare
+    # parity of main_path_laplace), reported at the CLI's 1e-5, where the
+    # f32 Laplace fit of a near-singular K is off the float64 one by up to a
+    # nat (the estimate, not only its gradient)
+    b8 = LAPLACE_FD_CHAINS
+    theta8, u8 = st.theta[:b8].clone(), st.u[:b8].clone()
+    n_pad = N - len(x)
+    x64 = np.asarray(x, np.float64)
+    sq = np.full((N, N), 1e30)
+    sq[:len(x), :len(x)] = ((x64[:, None] - x64[None]) ** 2).sum(-1)
+    np.fill_diagonal(sq, 0.0)
+    sq64 = torch.as_tensor(sq)
+    y64 = torch.as_tensor(np.concatenate([y_np, np.ones(n_pad)]))
+    mask64 = torch.as_tensor(np.concatenate([np.ones(len(x)),
+                                             np.zeros(n_pad)]))
+    u64 = u8.double().cpu()
+    fd_check = {}
+    for jitter in (LAPLACE_JITTER, 1e-5):
+        tgt_j = make_gp_classification(x, y_np, n_importance=S_LAPLACE,
+                                       proposal="laplace", jitter=jitter,
+                                       device="cuda")
+        extras.clear()
+        with mock.patch.object(cholesky, "_robust_cholesky_impl",
+                               recording_impl), torch.enable_grad():
+            th = theta8.clone().requires_grad_(True)
+            (g_k,) = torch.autograd.grad(tgt_j.log_lik_est(th, u8).sum(), th)
+        clean = torch.ones(b8, dtype=torch.bool, device=g_k.device)
+        for e_ in extras:
+            clean &= e_ == 0
+
+        def ll64(th_):
+            r_ = se_gram_iso(sq64, th_[:, 0], 0.0, jitter)
+            k_ = torch.exp(2.0 * th_[:, 1])[:, None, None] * r_
+            chol_k = torch.exp(th_[:, 1])[:, None, None] * \
+                cholesky.robust_cholesky(r_, jitter0=jitter)
+            f_hat, chol_q, hl = laplace_fit(k_, y64, mask64, "logistic", 6)
+            f_, extra = laplace_log_weight_terms(chol_k, f_hat, chol_q, hl,
+                                                 u64)
+            lw = LIKELIHOODS["logistic"](f_, y64, mask64) + extra
+            return blocked_logsumexp(lw, 8) - math.log(S_LAPLACE)
+
+        th64 = theta8.double().cpu().requires_grad_(True)
+        with torch.enable_grad():
+            (g64,) = torch.autograd.grad(ll64(th64).sum(), th64)
+        fd = torch.zeros_like(g64)
+        with torch.no_grad():
+            for i_ in range(2):
+                step_ = torch.zeros_like(fd)
+                step_[:, i_] = FD_STEP_F64
+                fd[:, i_] = (ll64(th64.detach() + step_)
+                             - ll64(th64.detach() - step_)) / (2 * FD_STEP_F64)
+        keep = clean.cpu() & torch.isfinite(g64).all(-1)
+        scale = torch.clamp(fd.abs(), min=1.0)
+        rel_k = ((g_k.double().cpu() - fd).abs() / scale).max(-1).values
+        rel_64 = ((g64 - fd).abs() / scale).max(-1).values
+        held = jitter == LAPLACE_JITTER
+        fd_check[f"jitter_{jitter:g}"] = {
+            "held": held, "chains": b8, "chains_held": int(keep.sum()),
+            "step": FD_STEP_F64,
+            "kernel_vs_f64_fd_rel_err_per_chain": rel_k.tolist(),
+            "f64_grad_vs_f64_fd_max_rel_err": float(rel_64.max()),
+            "rtol": FD_RTOL, "f64_rtol": FD_F64_RTOL,
+            "grad_abs_max": float(g_k.abs().max())}
+        if held and (int(keep.sum()) < b8 // 2
+                     or not float(rel_k[keep].max()) < FD_RTOL
+                     or not float(rel_64[keep].max()) < FD_F64_RTOL):
+            failures.append(f"main_path_laplace_grad: finite differences "
+                            f"{fd_check}")
+        del tgt_j
+    emit({"phase": "main_path_laplace_grad", "card": smi, **lap_runs,
+          "gradient_call": call, "fd_check": fd_check})
+    del vg, final, tgt, st, theta8, u8
+    torch.cuda.empty_cache()
+    end_phase()
 
 
 def _ulps(torch, a, b):

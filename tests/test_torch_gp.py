@@ -201,16 +201,18 @@ def test_unported_options_stop_loudly(kwargs):
         with pytest.raises(ValueError, match="prior proposal"):
             tmake(x, y, n_importance=S, device="cpu", **kwargs)
         return
-    # the Laplace proposal is ported unsharded (tests/test_torch_laplace.py);
-    # on a particle-sharded target it is not yet
+    # the Laplace proposal on a particle-sharded target is ported: it builds
+    # (the collectives run only when it estimates, on two ranks in
+    # tests/test_torch_sharded_grad.py)
     from auxpm_tpu_torch.parallel.mesh import Mesh
 
     mesh = Mesh(rank=0, world=2, n_chain_shards=1, n_particle_shards=2,
                 chain_index=0, particle_index=0, particle_group=None,
                 chain_group=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmake(x, y, n_importance=S, device="cpu",
-              **{**kwargs, "particle_axis": mesh})
+    target = tmake(x, y, n_importance=S, device="cpu",
+                   **{**kwargs, "particle_axis": mesh})
+    assert target.name.endswith("_laplace@particles")
+    assert target.make_sharded is None and target.ess_sweep_factory is None
 
 
 def test_cuda_device_without_a_gpu_raises(monkeypatch):

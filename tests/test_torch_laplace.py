@@ -21,6 +21,21 @@ Then the four checks of ``tests/test_laplace_proposal.py`` on the port: the
 Newton mode is stationary, the Laplace estimator is unbiased with a lower
 variance than the prior's, padding is exact, and ``aux_slice`` with the
 Laplace proposal finds the prior proposal's posterior at a small size.
+
+Reverse mode (HMC and NUTS on a Laplace target): each step the gradient runs
+through (``robust_cholesky``, the unrolled Newton fit with its
+``cholesky_solve`` calls, ``gaussian_half_logdet``, the weight terms) under
+``torch.autograd.gradcheck`` in float64 at n = 6 with a padded row; the
+target's gradient against ``jax.grad`` of the reference's on unpadded Pima
+(n = 40, S = 16), iso and ARD, logistic and probit, 1e-4 relative to the
+largest entry (measured up to 8.6e-6: f32 sums in other orders through six
+Newton iterations); on a padded target the port's gradient is finite and
+equal to the unpadded one within ``test_laplace_padding_exact``'s bar
+(5e-2 of max(|g|, 1); measured ~2e-6), where the reference's is NaN (known
+difference 8 of ROADMAP.md: ``jnp.sqrt``'s derivative at w = 0); ``aux_hmc``
+and ``aux_nuts`` from one seed on an unpadded Laplace target key for key
+with the reference for 2 steps; the CLI of both gradient samplers on the
+Laplace proposal, the sharded SMC with NUTS rejuvenation included.
 """
 
 import jax
@@ -29,6 +44,7 @@ import numpy as np
 import pytest
 import torch
 
+from auxpm_tpu.core.state import init_chain_states as j_init
 from auxpm_tpu.models import laplace as j_laplace
 from auxpm_tpu.models.datasets import load as jload
 from auxpm_tpu.models.exact import make_mvn_target as j_mvn
@@ -36,6 +52,8 @@ from auxpm_tpu.models.gp_classification import (
     make_gp_classification as jmake,
 )
 from auxpm_tpu.models.likelihoods import LIKELIHOOD_GRAD_HESS as J_GH
+from auxpm_tpu.samplers.chain import run_chains as j_run_chains
+from auxpm_tpu.samplers.composite import SAMPLERS as J_SAMPLERS
 from auxpm_tpu_torch import run as trun
 from auxpm_tpu_torch.core.state import init_chain_states as t_init
 from auxpm_tpu_torch.models import laplace as t_laplace
@@ -46,7 +64,11 @@ from auxpm_tpu_torch.models.gp_classification import (
 from auxpm_tpu_torch.models.likelihoods import LIKELIHOOD_GRAD_HESS as T_GH
 from auxpm_tpu_torch.ops.gram import pairwise_sqdist, se_gram_iso
 from auxpm_tpu_torch.samplers.chain import run_chains
-from auxpm_tpu_torch.samplers.composite import make_aux_slice
+from auxpm_tpu_torch.ops.cholesky import robust_cholesky
+from auxpm_tpu_torch.parallel import rank_jobs
+from auxpm_tpu_torch.parallel.launch import spawn
+from auxpm_tpu_torch.parallel.mesh import Mesh
+from auxpm_tpu_torch.samplers.composite import SAMPLERS, make_aux_slice
 
 S, JITTER, NEWTON = 16, 1e-3, 6
 THETAS = np.float32([[0.0, 0.0], [-0.6, 0.4], [0.7, -0.5]])
@@ -279,9 +301,15 @@ def test_cli_runs_the_laplace_proposal_on_cpu():
     assert out["target"].name.endswith("_laplace")
     assert out["states"].extras == {}   # no carried factor to carry
     assert np.isfinite(out["theta"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trun.main(["--device", "cpu", "--proposal", "laplace", "--sharded",
-                   "true", "--particle-shards", "2"])
+    # on a particle axis the Laplace target builds (its Newton fit
+    # replicated, its log-weights through the collective fold; run on two
+    # ranks in tests/test_torch_sharded_grad.py)
+    mesh = Mesh(rank=0, world=2, n_chain_shards=1, n_particle_shards=2,
+                chain_index=0, particle_index=0, particle_group=None,
+                chain_group=None)
+    sharded = out["target"].make_sharded(mesh)
+    assert sharded.name.endswith("_laplace@particles")
+    assert sharded.make_sharded is None and sharded.log_lik_est_rot is None
 
 
 def test_mvn_target_matches_jax():
@@ -299,3 +327,208 @@ def test_mvn_target_matches_jax():
     assert torch.equal(tt.log_lik_est(_t(theta), u), torch.zeros(7))
     np.testing.assert_allclose(tt.posterior_mean.numpy(), mean, rtol=1e-6)
     np.testing.assert_allclose(tt.posterior_cov.numpy(), cov, rtol=1e-6)
+
+
+# ------------------------------------------------------------- reverse mode
+
+
+def _tiny_k(theta, pad=True):
+    """``sigma^2 (R(ell) + 1e-3 I)`` in float64 at n = 6, the last row a
+    padded one (zero covariance, unit variance) as the target pads."""
+    rng = np.random.default_rng(7)
+    x = torch.as_tensor(rng.standard_normal((6, 2)))
+    sq = pairwise_sqdist(x)
+    if pad:
+        sq[-1, :] = 1e30
+        sq[:, -1] = 1e30
+        sq[-1, -1] = 0.0
+    r = se_gram_iso(sq, theta[:, 0], 0.0, 1e-3)
+    return torch.exp(2.0 * theta[:, 1])[:, None, None] * r
+
+
+_Y6 = torch.tensor([1.0, -1.0, -1.0, 1.0, 1.0, 1.0], dtype=torch.float64)
+_MASK6 = torch.tensor([1.0, 1.0, 1.0, 1.0, 1.0, 0.0], dtype=torch.float64)
+_U6 = torch.as_tensor(np.random.default_rng(8).standard_normal((2, 3, 6)))
+
+
+def _fit6(theta, likelihood="logistic"):
+    return t_laplace.laplace_fit(_tiny_k(theta), _Y6, _MASK6, likelihood, 4)
+
+
+_PIECES = {
+    "robust_cholesky": lambda th: robust_cholesky(_tiny_k(th)),
+    "gaussian_half_logdet": lambda th: t_laplace.gaussian_half_logdet(
+        robust_cholesky(_tiny_k(th))),
+    "laplace_fit_logistic": lambda th: _fit6(th),
+    "laplace_fit_probit": lambda th: _fit6(th, "probit"),
+    "laplace_log_weight_terms": lambda th: t_laplace.laplace_log_weight_terms(
+        robust_cholesky(_tiny_k(th)), *_fit6(th), _U6)[1],
+}
+
+
+@pytest.mark.parametrize("piece", sorted(_PIECES))
+def test_laplace_pieces_pass_gradcheck(piece):
+    """Each step of the Laplace gradient in float64 against central
+    differences (``torch.autograd.gradcheck``), at n = 6 with a padded row:
+    w = 0 there, where ``_sqrt_w`` takes its limit as the derivative."""
+    theta = torch.tensor([[0.2, 0.1], [-0.4, 0.3]], dtype=torch.float64,
+                         requires_grad=True)
+    assert torch.autograd.gradcheck(_PIECES[piece], (theta,), eps=1e-6,
+                                    atol=1e-6, rtol=1e-5)
+
+
+def test_sqrt_w_is_sqrt_with_a_finite_derivative_at_zero():
+    w = torch.tensor([0.0, -0.0, 1e-30, 0.25, 3.0, float("nan")],
+                     requires_grad=True)
+    sw = t_laplace._sqrt_w(w)
+    ref = torch.sqrt(w.detach())
+    assert torch.equal(sw.detach().view(torch.int32)[:5],
+                       ref.view(torch.int32)[:5])         # bitwise
+    assert torch.isnan(sw[5])
+    (g,) = torch.autograd.grad(sw[:5].sum(), w)
+    assert g[0] == 0 and g[1] == 0 and torch.isfinite(g).all()
+    np.testing.assert_allclose(g[3:5].numpy(), [1.0, 0.5 / 3.0 ** 0.5],
+                               rtol=1e-6)
+
+
+LAP_S = 16
+
+
+@pytest.fixture(scope="module")
+def pima40():
+    return jload("pima", subsample=40)
+
+
+def _grad_t(target, theta, u):
+    th = _t(theta).requires_grad_(True)
+    (g,) = torch.autograd.grad(target.log_lik_est(th, _t(u)).sum(), th)
+    return g.numpy()
+
+
+@pytest.mark.parametrize("likelihood", ["logistic", "probit"])
+@pytest.mark.parametrize("ard", [False, True], ids=["iso", "ard"])
+def test_laplace_gradient_matches_jax(pima40, ard, likelihood):
+    """d log L-hat / d theta of the Laplace target against ``jax.grad`` of
+    the reference's on the same theta and u, unpadded (n = 40)."""
+    x, y = pima40
+    kw = dict(n_importance=LAP_S, proposal="laplace", ard=ard,
+              likelihood=likelihood, jitter=JITTER, pad_to_tiles=False)
+    tj, tt = jmake(x, y, **kw), tmake(x, y, device="cpu", **kw)
+    rng = np.random.default_rng(4)
+    theta = (rng.standard_normal((3, tt.d)) * 0.4).astype(np.float32)
+    u = rng.standard_normal((3, *tt.u_shape)).astype(np.float32)
+    gj = np.asarray(jax.jit(jax.vmap(jax.grad(tj.log_lik_est)))(
+        jnp.asarray(theta), jnp.asarray(u)))
+    gt = _grad_t(tt, theta, u)
+    rel = np.abs(gt - gj).max() / np.abs(gj).max()
+    assert rel < 1e-4, rel
+
+
+@pytest.fixture(scope="module")
+def padded_pair(pima40):
+    """The Laplace target on Pima n = 40 unpadded and padded to 128, u equal
+    on the real coordinates."""
+    x, y = pima40
+    kw = dict(n_importance=8, proposal="laplace", jitter=JITTER)
+    t_raw = tmake(x, y, pad_to_tiles=False, device="cpu", **kw)
+    t_pad = tmake(x, y, pad_to_tiles=True, device="cpu", **kw)
+    rng = np.random.default_rng(2)
+    u_raw = rng.standard_normal((3, *t_raw.u_shape)).astype(np.float32)
+    u_pad = rng.standard_normal((3, *t_pad.u_shape)).astype(np.float32)
+    u_pad[:, :, : u_raw.shape[-1]] = u_raw
+    theta = np.float32([[0.1, 0.2], [-0.3, 0.4], [0.5, -0.2]])
+    return x, y, kw, theta, (t_raw, u_raw), (t_pad, u_pad)
+
+
+def test_laplace_gradient_is_finite_on_a_padded_target(padded_pair):
+    """Padded rows have w = 0: the port's gradient there is finite and the
+    unpadded one, within the bar of ``test_laplace_padding_exact``."""
+    *_, theta, (t_raw, u_raw), (t_pad, u_pad) = padded_pair
+    assert t_pad.u_shape[1] == 128
+    g_pad, g_raw = _grad_t(t_pad, theta, u_pad), _grad_t(t_raw, theta, u_raw)
+    assert np.isfinite(g_pad).all()
+    assert np.all(np.abs(g_pad - g_raw) < 5e-2 * np.maximum(np.abs(g_raw),
+                                                             1.0))
+
+
+def test_reference_laplace_gradient_is_nan_on_a_padded_target(padded_pair):
+    """The known difference (ROADMAP.md, known difference 8): the
+    reference's ``jnp.sqrt(w)`` has an infinite derivative at the padded
+    rows' w = 0, which meets a cotangent of exactly 0 there."""
+    x, y, kw, theta, _, (_, u_pad) = padded_pair
+    tj = jmake(x, y, pad_to_tiles=True, **kw)
+    gj = np.asarray(jax.jit(jax.grad(tj.log_lik_est))(
+        jnp.asarray(theta[0]), jnp.asarray(u_pad[0])))
+    assert np.isnan(gj).all()
+
+
+GRAD_KEY_STEPS = 2
+GRAD_KEY_PARAMS = {"aux_hmc": {"ess_u": {}, "hmc": {"step_size": 0.15,
+                                                    "n_leapfrog": 6}},
+                   "aux_nuts": {"ess_u": {}, "nuts": {"step_size": 0.3}}}
+GRAD_KEY_DECISIONS = {
+    "aux_hmc": ("ess_u/moved", "ess_u/n_shrink", "hmc/accept",
+                "hmc/diverged"),
+    "aux_nuts": ("ess_u/moved", "ess_u/n_shrink", "nuts/depth",
+                 "nuts/n_leapfrog", "nuts/diverged"),
+}
+
+
+@pytest.mark.parametrize("sampler", ["aux_hmc", "aux_nuts"])
+def test_gradient_sampler_on_laplace_matches_the_reference(pima40, sampler):
+    """From one seed on the unpadded Laplace target (n = 40, S = 8, 4
+    chains), both packages free-running for 2 steps: keys bitwise, the
+    decisions identical, theta within 5e-4 and log L-hat within 1e-2 (the
+    bars ``tests/test_torch_keys.py`` holds ``aux_hmc`` to on the prior
+    proposal: a trajectory integrates f32 gradient differences)."""
+    x, y = pima40
+    kw = dict(n_importance=8, proposal="laplace", jitter=JITTER,
+              pad_to_tiles=False)
+    tj, tt = jmake(x, y, **kw), tmake(x, y, device="cpu", **kw)
+    sj = j_init(jax.random.key(3), tj, 4, jitter_scale=0.3)
+    st = t_init(3, tt, 4, jitter_scale=0.3)
+    step_j, step_t = J_SAMPLERS[sampler](tj), SAMPLERS[sampler](tt)
+    pt = GRAD_KEY_PARAMS[sampler]
+    for k in range(GRAD_KEY_STEPS):
+        sj, _, info_j = j_run_chains(step_j, sj, pt, 1)
+        st, info_t = step_t(st, pt)
+        np.testing.assert_array_equal(
+            st.key.numpy(),
+            np.asarray(jax.random.key_data(sj.key)).astype(np.int64))
+        for name in GRAD_KEY_DECISIONS[sampler]:
+            np.testing.assert_array_equal(info_t[name].numpy(),
+                                          np.asarray(info_j[name])[:, 0],
+                                          err_msg=f"step {k} {name}")
+        np.testing.assert_allclose(st.theta.numpy(), np.asarray(sj.theta),
+                                   rtol=0, atol=5e-4, err_msg=f"step {k}")
+        np.testing.assert_allclose(st.log_lik_hat.numpy(),
+                                   np.asarray(sj.log_lik_hat), rtol=0,
+                                   atol=1e-2, err_msg=f"step {k}")
+
+
+LAP_CLI = ["--device", "cpu", "--proposal", "laplace", "--subsample", "40",
+           "--n-importance", "8"]
+
+
+def test_cli_runs_aux_nuts_on_the_laplace_proposal():
+    out = {}
+    assert trun.main(LAP_CLI + ["--sampler", "aux_nuts", "--chains", "2",
+                                "--steps", "2", "--window-steps", "1",
+                                "--warmup-windows", "1"], result=out) == 0
+    assert out["target"].name.endswith("_laplace")
+    assert np.isfinite(out["theta"]).all() and out["theta"].shape == (2, 2, 2)
+    assert 0 < out["params"]["nuts"]["step_size"] < 10
+
+
+def test_cli_runs_the_sharded_smc_with_nuts_on_the_laplace_proposal():
+    """``--sampler smc --sharded true --smc-rejuvenation aux_nuts`` on a
+    world of one gloo rank: u carried, NUTS on the tempered Laplace
+    target."""
+    (r,) = spawn(rank_jobs.cli, 1, LAP_CLI + [
+        "--sampler", "smc", "--sharded", "true", "--smc-rejuvenation",
+        "aux_nuts", "--particles", "16", "--smc-n-mcmc", "1"],
+        timeout_s=300)
+    s = r["summary"]
+    assert r["target"].endswith("_laplace")
+    assert s["phase"] == "smc_summary" and s["betas"][-1] == 1.0
+    assert np.isfinite(s["log_z"]) and np.isfinite(r["theta"]).all()

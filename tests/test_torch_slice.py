@@ -402,9 +402,36 @@ def test_cli_lists_presets(capsys):
     {"proposal": "laplace", "sharded": True, "particle_shards": 2},
 ])
 def test_config_refuses_unported_parts(overrides):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        unsupported(RunConfig().replace(**overrides))
-    # sharding on one host is ported; it needs a world to run in
+    """Each combination that the port refused until the gradient samplers
+    took particle-sharded and Laplace targets now passes ``unsupported``,
+    and its step (or sharded SMC) builds on the CPU: on a particle axis of
+    two (the mesh only; its collectives run on two ranks in
+    tests/test_torch_sharded_grad.py), or on a flat mesh for the SMC."""
+    from auxpm_tpu_torch.parallel.mesh import Mesh
+    from auxpm_tpu_torch.samplers.smc_sharded import make_smc_sharded
+
+    cfg = RunConfig().replace(**overrides)
+    unsupported(cfg)
+    x, y = jload("pima", subsample=32)
+    target = tmake(x, y, n_importance=S, proposal=cfg.proposal,
+                   device="cpu")
+    k = cfg.particle_shards
+    mesh = Mesh(rank=0, world=k, n_chain_shards=1, n_particle_shards=k,
+                chain_index=0, particle_index=0, particle_group=None,
+                chain_group=None)
+    if cfg.sampler == "smc":
+        run = make_smc_sharded(target, SAMPLERS[cfg.smc_rejuvenation], 16,
+                               mesh)
+        assert callable(run)
+    else:
+        if k > 1:
+            target = target.make_sharded(mesh)
+            assert target.name.endswith("@particles")
+        step = SAMPLERS[cfg.sampler](target,
+                                     particle_axis=mesh if k > 1 else None)
+        assert step.stage_names[0] == "ess_u"
+    assert ("_laplace" in target.name) == (cfg.proposal == "laplace")
+    # sharding needs a world to run in; --particle-shards alone is an error
     unsupported(RunConfig().replace(sharded=True, particle_shards=2))
     with pytest.raises(ValueError, match="--sharded"):
         unsupported(RunConfig().replace(particle_shards=2))
