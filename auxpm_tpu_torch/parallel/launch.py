@@ -15,6 +15,8 @@ outlasts ``timeout_s``, ends every rank and raises here.
 
 The command line does not need this: ``torchrun --nproc-per-node K -m
 auxpm_tpu_torch.run --sharded true --particle-shards K`` starts the ranks.
+``on_world`` runs a function on the launcher's world when there is one and
+spawns one otherwise (the ``utils`` entry points).
 """
 
 from __future__ import annotations
@@ -80,3 +82,13 @@ def spawn(fn, world, *args, timeout_s=600, threads=1, nodes=1):
             with open(Path(tmp) / f"rank{rank}.pkl", "rb") as fh:
                 out.append(pickle.load(fh))
         return out
+
+
+def on_world(fn, world, *args, timeout_s=3600, threads=1):
+    """``fn(*args)`` on the launcher's world where this process is one of its
+    ranks (``RANK`` and ``WORLD_SIZE`` set, as ``torchrun`` sets them), else
+    on ``world`` ranks started by ``spawn``.  Returns this rank's result, or
+    rank 0's of the spawned ones."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return fn(*args)
+    return spawn(fn, world, *args, timeout_s=timeout_s, threads=threads)[0]

@@ -12,8 +12,9 @@ in fresh processes:
 
 ``chip_smoke.py`` drives the sharded path on the card through them and the
 CPU tests hold it to the reference through them: the estimate, its gradient
-(``grad``), one ``aux_slice`` step, one HMC or NUTS ``apply`` and whole CLI
-runs, on one spawned world.
+(``grad``), one ``aux_slice`` step, one HMC or NUTS ``apply``, one keyed
+step of any sampler (``keyed_step``), whole CLI runs and the chain-scaling
+measurement (``scaling``), on one spawned world.
 
 ``target_spec``: ``("gp", x, y, kwargs)`` for ``make_gp_classification`` or
 ``("gaussian_toy", kwargs)`` for ``make_gaussian_toy``.
@@ -63,17 +64,21 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
-def _counts():
+def counts():
     """Launches of the estimator kernels, collectives entered (and their
-    ms), plain threefry calls and threefry kernel launches, so far."""
+    ms), plain threefry calls and threefry kernel launches, and the host
+    reads that HMC / NUTS (step counts, the chains still going) and
+    ``robust_cholesky`` (its retry flag) count, so far on this rank."""
     from auxpm_tpu_torch.ops import (
         chol_hopper,
+        cholesky,
         ess_sweep,
         sigma_sweep,
         threefry,
     )
     from auxpm_tpu_torch.ops import fused_estimator as fe
     from auxpm_tpu_torch.parallel import collectives
+    from auxpm_tpu_torch.samplers import hmc
 
     return {"fused_weights": fe.launches_w,
             "fused_rot_weights": fe.launches_rot_w,
@@ -85,21 +90,24 @@ def _counts():
             "collectives": collectives.calls,
             "collective_ms": 1e3 * collectives.seconds,
             "threefry_calls": threefry.plain_calls,
-            "threefry_launches": threefry.launches}
+            "threefry_launches": threefry.launches,
+            "host_reads": hmc.host_syncs + cholesky.host_syncs}
 
 
 def run_all(jobs, n_particle_shards, device="cuda"):
     """Several jobs on one world: ``jobs`` is a list of ``("estimate",
     target_spec, theta, u)``, ``("grad", target_spec, theta, u)``,
     ``("step", target_spec, state, rows, params [, sampler_kwargs,
-    log_probes, return_cache])`` and ``("apply", target_spec, kernel, state,
-    rows, params [, kernel_kwargs])`` tuples (the arguments of the functions
-    below) and ``("cli", argv)`` (``cli``); returns their results in
-    order."""
+    log_probes, return_cache])``, ``("apply", target_spec, kernel, state,
+    rows, params [, kernel_kwargs])`` and ``("keyed_step", target_spec,
+    sampler, state, params [, sampler_kwargs])`` tuples (the arguments of
+    the functions below), ``("cli", argv)`` (``cli``) and ``("scaling",
+    argv)`` (``scaling``); returns their results in order."""
     dev, mesh = _join(n_particle_shards, device)
     kinds = {"estimate": _estimate, "grad": _grad, "step": _step,
-             "apply": _apply}
+             "apply": _apply, "keyed_step": _keyed_step}
     return [cli(*job[1:]) if job[0] == "cli"
+            else scaling(*job[1:]) if job[0] == "scaling"
             else kinds[job[0]](dev, mesh, *job[1:]) for job in jobs]
 
 
@@ -117,7 +125,7 @@ def _estimate(dev, mesh, target_spec, theta, u):
         torch.as_tensor(share["u"], dtype=torch.float32, device=dev))
     return {"rank": mesh.rank, "chain_index": mesh.chain_index,
             "particle_index": mesh.particle_index, "target": target.name,
-            "estimate": _np(est), "counts": _counts()}
+            "estimate": _np(est), "counts": counts()}
 
 
 def _grad(dev, mesh, target_spec, theta, u):
@@ -137,7 +145,7 @@ def _grad(dev, mesh, target_spec, theta, u):
                               mesh.n_particle_shards)[mesh.rank]
     u_t = torch.as_tensor(share["u"], dtype=torch.float32, device=dev)
     th = torch.as_tensor(share["theta"], dtype=torch.float32, device=dev)
-    before = _counts()
+    before = counts()
     t0 = time.perf_counter()
     with torch.enable_grad():
         z = th.clone().requires_grad_(True)
@@ -149,7 +157,7 @@ def _grad(dev, mesh, target_spec, theta, u):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.perf_counter() - t0
-    after = _counts()
+    after = counts()
     return {"rank": mesh.rank, "chain_index": mesh.chain_index,
             "particle_index": mesh.particle_index, "target": target.name,
             "estimate": _np(est), "grad": _np(g), "grad_post": _np(g_post),
@@ -191,6 +199,35 @@ def _apply(dev, mesh, target_spec, kernel, state, rows, params,
             "grad_collectives": hmc.grad_collectives - coll0}
 
 
+def _keyed_step(dev, mesh, target_spec, sampler, state, params,
+                sampler_kwargs=None):
+    """One step of ``SAMPLERS[sampler]`` on this rank's share of a whole
+    state (keys included), its rows drawn from each chain's key as the
+    unsharded step draws them (the rank's rows of every u-shaped draw).
+    Returns the rank's new theta and log L-hat, the per-chain infos and the
+    kernel launches and collectives of the step."""
+    from auxpm_tpu_torch import convert
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+
+    target = _sharded_target(target_spec, mesh, dev)
+    k = mesh.n_particle_shards
+    share = convert.shard_numpy_state(state, mesh.n_chain_shards,
+                                      k)[mesh.rank]
+    st = convert.chain_states_from_numpy(share, device=str(dev))
+    par = convert.params_from_numpy(params, device=str(dev))
+    step = SAMPLERS[sampler](target, particle_axis=mesh if k > 1 else None,
+                             **(sampler_kwargs or {}))
+    before = counts()
+    out, info = step(st, par)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    after = counts()
+    return {"rank": mesh.rank, "theta": _np(out.theta),
+            "log_lik_hat": _np(out.log_lik_hat),
+            "info": {k_: _np(v) for k_, v in info.items()},
+            "counts": {k_: after[k_] - before[k_] for k_ in after}}
+
+
 def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
           log_probes=False, return_cache=True):
     """One ``aux_slice`` step on this rank's share of a whole state, fed the
@@ -227,14 +264,14 @@ def _step(dev, mesh, target_spec, state, rows, params, sampler_kwargs=None,
     rows_s = tuple(t(r[cs]) for r in rows["reps"])
     probe_log = [] if log_probes else None
     extra = {} if probe_log is None else {"probe_log": probe_log}
-    before = _counts()
+    before = counts()
     mid, info_e = step.stages["ess_u"].apply(
         st, rows_e, {**par.get("ess_u", {}), **extra})
     out, info_s = step.stages["slice_theta"].apply(
         mid, rows_s, {**par.get("slice_theta", {}), **extra})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    after = _counts()
+    after = counts()
     result = {
         "rank": mesh.rank, "chain_index": mesh.chain_index,
         "particle_index": mesh.particle_index,
@@ -273,7 +310,7 @@ def cli(argv, profile_steps=0):
     def on_stage(stage, beta):
         """Launches, collectives and threefry time of the init (stage -1)
         and of each stage, on this rank."""
-        now = _counts()
+        now = counts()
         prev = stages[-1]["_at"] if stages else before
         stages.append({"stage": stage, "beta": beta,
                        "threefry_ms": prng.stop_timing(),
@@ -281,7 +318,7 @@ def cli(argv, profile_steps=0):
         prng.start_timing()
 
     result = {"on_stage": on_stage}
-    before = _counts()
+    before = counts()
     grad0 = (hmc.grad_calls, hmc.grad_collectives)
     prng.start_timing()
     for count in fe.active_counts.values():
@@ -296,7 +333,7 @@ def cli(argv, profile_steps=0):
     states, mesh = result["states"], result["mesh"]
     if states.u.is_cuda:
         torch.cuda.synchronize(states.u.device)
-    after = _counts()
+    after = counts()
     active_share = fe.active_counts["rot_weights"].share()
     out = {
         "rank": mesh.rank, "chain_index": mesh.chain_index,
@@ -333,6 +370,14 @@ def cli(argv, profile_steps=0):
     return out
 
 
+def scaling(argv):
+    """``utils/scaling`` on this world (``argv``: its flags): rank 0 returns
+    the JSON line as a dict, the other ranks None."""
+    from auxpm_tpu_torch.utils import scaling as scaling_bench
+
+    return scaling_bench.rank_run(scaling_bench.parse_args(list(argv)))
+
+
 def _smc_out(result, stages, before, backend):
     """What ``cli`` returns for a sharded SMC run: the rank's final
     population (u as key words, or its shape where u is carried), the
@@ -344,7 +389,7 @@ def _smc_out(result, stages, before, backend):
     states, mesh, target = result["states"], result["mesh"], result["target"]
     if states.u.is_cuda:
         torch.cuda.synchronize(states.u.device)
-    after = _counts()
+    after = counts()
     out = {
         "rank": mesh.rank, "target": target.name,
         "device": str(states.u.device), "backend": backend,

@@ -29,11 +29,24 @@ import torch
 
 from auxpm_tpu_torch.parallel import collectives
 
+# the positions (u + k) / N take k as a float32 count, exact up to 2^24
+MAX_PARTICLES = 2**24
+
+
+def check_particles(n):
+    """Raise past ``MAX_PARTICLES``."""
+    if n > MAX_PARTICLES:
+        raise ValueError(
+            f"{n} particles: systematic resampling counts its positions in "
+            f"float32, exact only up to {MAX_PARTICLES}")
+
 
 def systematic_resample_indices(log_w, u01):
     """``log_w (n,)`` unnormalised log-weights and one uniform ``u01`` in
-    [0, 1) -> ``(n,)`` int64 source indices, non-decreasing."""
+    [0, 1) -> ``(n,)`` int64 source indices, non-decreasing.  ``n`` at
+    most ``MAX_PARTICLES``."""
     n = log_w.shape[0]
+    check_particles(n)
     w = torch.exp(log_w - log_w.max())
     cdf = torch.cumsum(w, 0)
     pos = (u01 + torch.arange(n, dtype=log_w.dtype, device=log_w.device)) \
@@ -46,10 +59,12 @@ def distributed_systematic_resample_indices(log_w_local, u01, mesh):
     slots; ``log_w_local (n_local,)`` is this rank's block of the population
     (ranks of ``mesh.chain_group`` in order).  Equals
     ``systematic_resample_indices`` on the concatenated weights (same
-    ``u01``) up to the rounding of the cumulative sums."""
+    ``u01``) up to the rounding of the cumulative sums.  The global count
+    at most ``MAX_PARTICLES``: the slot numbers ``k`` are float32."""
     n_local = log_w_local.shape[0]
     p, r = mesh.n_chain_shards, mesh.chain_index
     n_global = n_local * p
+    check_particles(n_global)
     m = collectives.pmax(log_w_local.max(), mesh)
     local_cum = torch.cumsum(torch.exp(log_w_local - m), 0)
     all_cum = collectives.allgather_chains(local_cum, mesh).view(p, n_local)

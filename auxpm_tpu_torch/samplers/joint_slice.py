@@ -42,7 +42,8 @@ Params (groups "joint_slice" / "joint_mh"):
   max_step_out / max_shrink: loop caps, as in slice_theta (8 / 32).
   step_size: joint-MH random-walk scale (0.3).
   rho: joint-MH u-rotation angle (0.3).
-  probe_log: optional list, as in slice_theta.
+  probe_log: optional list, as in slice_theta (joint MH: its one accept
+    decision, ``(all chains, log a - log U)``).
 """
 
 from __future__ import annotations
@@ -168,6 +169,10 @@ def make_joint_mh(target, particle_axis=None):
         log_a = (target.log_prior(theta_p) + ll_p
                  - target.log_prior(state.theta) - state.log_lik_hat)
         accept = rows["log_unif"] < log_a
+        probe_log = params.get("probe_log")
+        if probe_log is not None:
+            probe_log.append((torch.ones_like(accept),
+                              log_a - rows["log_unif"]))
         new_state = _accepted(state, target, accept, theta_p, u_p, ll_p)
         return new_state, {"accept": accept.to(torch.float32)}
 

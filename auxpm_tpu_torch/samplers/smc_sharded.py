@@ -55,6 +55,7 @@ from auxpm_tpu_torch.core.state import ChainState
 from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 from auxpm_tpu_torch.parallel import collectives
 from auxpm_tpu_torch.parallel.resampling import (
+    check_particles,
     distributed_systematic_resample_indices,
     gather_resampled,
 )
@@ -95,7 +96,8 @@ def make_smc_sharded(target, make_rejuvenation, n_particles, mesh, n_mcmc=2,
                      rejuv_dispatches=1, u_blocks=1, checkpoint_dir=None,
                      checkpoint_every=1):
     """Build the sharded SMC runner on this rank's ``mesh``
-    (``parallel.mesh.make_mesh(1)``).
+    (``parallel.mesh.make_mesh(1)``) for at most ``2^24`` particles (the
+    resampling counts its positions in float32).
 
     Args:
       make_rejuvenation: ``(tempered_target) -> transition``; with
@@ -119,6 +121,7 @@ def make_smc_sharded(target, make_rejuvenation, n_particles, mesh, n_mcmc=2,
     n_shards = mesh.n_chain_shards
     if n_particles % n_shards:
         raise ValueError(f"{n_particles} particles not divisible by {n_shards}")
+    check_particles(n_particles)      # before an init of that many
     n_local = n_particles // n_shards
     g0 = mesh.chain_index * n_local          # this rank's first global slot
     if u_blocks > 1:

@@ -13,7 +13,10 @@ holding 32 of every chain's 64 importance samples; config 3's
 on config 2's target and the config-1 preset ``toy_pm_mh``; a checkpointed
 resume; config 4's preset ``gp_4096_sharded``; HMC and NUTS on two
 particle-sharded ranks and on the Laplace proposal, and the Laplace proposal
-on two ranks) and holds each of its
+on two ranks; the stepping-out theta slices, Laplace on the ARD target, the
+joint samplers on particle shards, ``utils/scaling``, ``utils/dryrun`` and
+config 5 at 2^20 key-as-u particles through ``utils/smc_scale``) and holds
+each of its
 eleven hand-written CUDA kernels (the ten TPU kernels' and the threefry
 PRNG's) against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
@@ -69,9 +72,11 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   kernel, and end with bitwise the same theta and log L-hat;
                   the mean share of chains active per rotated-weights
                   launch; then a short profiled window on rank 0;
-8. ``path_parity_sharded`` one step from phase 3's final state on the same
-                  rows, two ranks against the unsharded per-probe path: equal
-                  counts, values within 1e-4, the two ranks bitwise equal;
+8. ``path_parity_sharded`` (its two ranks' step in phase 7's spawn since
+                  phases 27-32) one step from phase 3's final state on the
+                  same rows, two ranks against the unsharded per-probe path:
+                  equal counts, values within 1e-4, the two ranks bitwise
+                  equal;
 9. ``chol_variants`` ``utils/chol_bench.bench`` (``torch.linalg.cholesky`` and
                   the v1, v2, v3 routes at B=128, n=640) and ``cholesky_fast``
                   at n=532: each backward error below 1e-5 relative, each
@@ -116,12 +121,14 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   forward and backward ms of each Function;
 17. ``main_path_hmc_nuts`` ``--sampler aux_hmc`` and ``aux_nuts`` (128
                   chains, dual averaging and the mass over 2 x 10 warm-up
-                  steps, 20 steps); ``path_parity_hmc_nuts`` one theta move
+                  steps, 10 steps; 20 until phases 27-32);
+                  ``path_parity_hmc_nuts`` one theta move
                   of each on the same draws through the estimator kernel and
                   its plain version: accept bits (HMC), depth, n_leapfrog
                   and the chosen point (NUTS) equal outside the margins;
 18. ``main_path_smc`` ``--sampler smc`` with ``aux_slice`` rejuvenation at
-                  1024 particles and ``aux_nuts`` at 256, one rejuvenation
+                  512 particles (1024 until phases 27-32) and ``aux_nuts`` at
+                  256, one rejuvenation
                   step per stage (cut from 2 to keep the script under ten
                   minutes): logZ finite, the
                   last beta 1, no sweep kernel on the tempered target, the
@@ -134,12 +141,13 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   chunk's u, (256, 32, 640);
 20. ``main_path_smc_sharded`` the sharded SMC on two spawned ranks sharing
                   the card (gloo) through ``rank_jobs.cli``, the three runs
-                  in one spawn: (a) ``--preset smc_gp_nuts`` at 512
+                  in one spawn: (a) ``--preset smc_gp_nuts`` at 256
                   particles (the preset's 4096 cut to fit the time; 1024
-                  until phases 24-26), (b) the blocked refresh
-                  (``--smc-u-blocks 8``, S = 64, ``aux_mh`` -> ``mh_theta``,
-                  one proposal per block) at 512, (c) ``--smc-carry-u true``
-                  with ``aux_slice`` at 256 (512 until phases 24-26): logZ
+                  until phases 24-26, 512 until phases 27-32), (b) the
+                  blocked refresh (``--smc-u-blocks 8``, S = 64, ``aux_mh``
+                  -> ``mh_theta``, one proposal per block) at 512, (c)
+                  ``--smc-carry-u true`` with ``aux_slice`` at 128 (512
+                  until phases 24-26, 256 until phases 27-32): logZ
                   finite, the last beta 1,
                   kernels 1 and 2 launched in (a) and (c), 6 in (b), run
                   (b)'s last-stage refresh acceptance at least the
@@ -170,8 +178,8 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   spawned rank at 4096 chains, 2 steps (no warm-up; 4 until
                   phases 24-26): wall per step, peak memory, launches; then
                   at 256 chains x 5 steps on that rank against two ranks
-                  sharing the card (gloo): records and log L-hat bitwise
-                  equal;
+                  sharing the card (gloo; in phase 7's spawn since phases
+                  27-32): records and log L-hat bitwise equal;
 24. ``main_path_sharded_grad`` ``--sharded true --particle-shards 2`` with
                   ``aux_hmc`` (128 chains) and ``aux_nuts`` (64), one
                   warm-up window each, on two spawned ranks sharing the card:
@@ -196,7 +204,56 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   spawned ranks (64 chains, 3 steps): the ranks bitwise
                   equal, only the panel and threefry kernels launched; the
                   estimate at a fixed (theta, u) within 1e-4 of one
-                  process's.
+                  process's;
+27. ``main_path_stepout_theta`` ``aux_slice_rd``, ``aux_slice_joint`` and
+                  ``joint_slice`` with ``--max-step-out 8`` (128 chains,
+                  1 x 3 warm-up + 3): finite, moving; each estimator launch
+                  recorded by its batch: the step-out probe one launch of
+                  2B = 256 chains, never more; peak memory; then one step
+                  from each final state on the same rows, kernels against
+                  the plain estimator, ESS and sigma sweeps (panel shared):
+                  decisions equal outside 2e-3 of their levels (at most 16
+                  chains inside), values at ``path_parity_theta_samplers``'
+                  bars;
+28. ``main_path_laplace_ard`` ``--preset pima_ard_aux --proposal laplace
+                  --n-importance 16`` at 32 chains, 2 steps: the ARD Gram and
+                  panel kernels launched and no other of the package but
+                  threefry, no non-finite estimate; the estimate at the
+                  final (theta, u), jitter 1e-3, through the ARD Gram kernel
+                  against the plain Gram (panel shared) within 1e-2 (half
+                  log|Sigma_q|'s bar in ``main_path_laplace``) on the chains
+                  whose every factorisation took the same jitter (known
+                  difference 3), at least half of them;
+29. ``main_path_joint_sharded`` ``joint_mh`` and ``aux_slice_joint`` with
+                  ``--sharded true --particle-shards 2`` on two spawned ranks
+                  (1 x 3 + 6 steps): ranks bitwise equal, the weights
+                  kernels launched (the rotated one with the ESS), no
+                  estimator or sweep kernel; one keyed step of 128 chains
+                  from a fixed state on the two ranks against the unsharded
+                  per-probe path on the same rows: counts equal outside 1e-4
+                  of the levels (at most 2 chains inside), theta and log
+                  L-hat within 1e-4;
+30. ``scaling_path`` ``utils/scaling`` (32 chains per rank, 2 + 5 steps) on
+                  the same two ranks: the reference's keys plus
+                  ``ranks_per_card`` (2: the ranks share the card, so the
+                  ratio checks the code path and is not scaling
+                  efficiency), both throughputs positive;
+31. ``dryrun_mesh`` ``utils/dryrun.dryrun_mesh(4)`` on four spawned ranks
+                  sharing the card: one ``aux_slice`` step on a 2 x 2 mesh
+                  of chains by particles with finite theta, then the key-as-u
+                  sharded SMC on the toy (256 particles) with the last beta
+                  1, finite logZ, theta and log L-hat, u as int64 key words;
+                  the ranks agree on the betas and logZ;
+32. ``main_path_smc_scale`` ``utils/smc_scale`` on a world of one rank:
+                  (i) the toy at 2^20 particles, ``aux_slice``, |logZ -
+                  closed form| at most 0.02, beside ``SMC_1M_toy.json``;
+                  (ii) config 5's GP path (Pima subsample 32, S = 32,
+                  ``aux_nuts``, padded) at ``SMC_SCALE_GP_PARTICLES``: the
+                  last beta 1, logZ finite, the last stage's refresh
+                  acceptance at least 0.2, the estimator, panel and threefry
+                  kernels launched in every stage; stage walls, peak memory,
+                  the chunk; then one stage of a one-chunk population
+                  profiled: its launches and host syncs.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -236,6 +293,7 @@ import os
 import subprocess
 import sys
 import time
+import types
 from unittest import mock
 
 B, S, N, N_ESS, N_SIGMA = 128, 64, 640, 4, 2
@@ -269,15 +327,15 @@ SHARDED_CLI_ARGS = [
     "--max-shrink-chol", "3", "--warmup-windows", "1", "--window-steps", "3",
     "--steps", "6",
 ]
-ARD_CLI_ARGS = [
-    "--preset", "pima_ard_aux", "--warmup-windows", "1", "--window-steps", "5",
-    "--steps", "10",
+ARD_CLI_ARGS = [              # 1 x 5 + 10 until phases 27-32 (time)
+    "--preset", "pima_ard_aux", "--warmup-windows", "1", "--window-steps", "3",
+    "--steps", "6",
 ]
 B3, N3 = 32, 1024              # config 3: abalone_aux (subsample 1024)
 N_FULL = 4224                  # abalone_aux --subsample 0: 4177 -> 4224
-CONFIG3_CLI_ARGS = [
-    "--preset", "abalone_aux", "--warmup-windows", "1", "--window-steps", "5",
-    "--steps", "10",
+CONFIG3_CLI_ARGS = [          # 1 x 5 + 10 until phases 27-32 (time)
+    "--preset", "abalone_aux", "--warmup-windows", "1", "--window-steps", "3",
+    "--steps", "6",
 ]
 CONFIG3_MAX_AMBIGUOUS = 4      # of 32 chains, ARD_MAX_AMBIGUOUS's share
 TRACE_KERNELS = ("fused_estimate_kernel", "chol_panel_kernel", "threefry_kernel",
@@ -305,7 +363,7 @@ S_LAPLACE, LAPLACE_JITTER = 16, 1e-3
 LAPLACE_CLI_ARGS = [
     "--preset", "pima_aux_slice", "--proposal", "laplace", "--n-importance",
     str(S_LAPLACE), "--chains", str(B), "--warmup-windows", "1",
-    "--window-steps", "3", "--steps", "6",
+    "--window-steps", "2", "--steps", "2",   # 1 x 3 + 6 before 27-32
 ]
 LAPLACE_F_TOL, LAPLACE_CHOL_TOL, LAPLACE_LOGDET_TOL = 1e-3, 5e-3, 1e-2
 GRAD_RTOL = 5e-2               # kernel vs plain forwards, of max(|g|, 1)
@@ -315,13 +373,15 @@ FD_STEP_F64, FD_F64_RTOL = 1e-4, 1e-3  # float64 differences at full width
 HMC_WINDOW = 10
 HMC_CLI_ARGS = [               # aux_hmc / aux_nuts on config 2's target
     "--preset", "pima_aux_slice", "--chains", str(B), "--warmup-windows", "2",
-    "--window-steps", str(HMC_WINDOW), "--steps", str(2 * HMC_WINDOW),
-]
+    "--window-steps", str(HMC_WINDOW), "--steps", str(HMC_WINDOW),
+]                              # 2 x HMC_WINDOW sampled steps before
+                               # phases 27-32
 HMC_DECISION_TOL = 5e-3        # accept margin |delta H - log u|, and the
                                # takes' |u - p|: twice the estimator's bar
 UTURN_DECISION_TOL = 1e-6      # U-turn dot over its norms
 GRAD_PATH_THETA_TOL = 1e-6     # theta after a trajectory, same gradients
-SMC_RUNS = (("aux_slice", 1024), ("aux_nuts", 256))   # rejuvenation, particles
+SMC_RUNS = (("aux_slice", 512), ("aux_nuts", 256))   # rejuvenation, particles
+                                # (aux_slice at 1024 before 27-32)
 SMC_CLI_ARGS = ["--preset", "pima_aux_slice", "--sampler", "smc",
                 "--smc-n-mcmc", "1"]   # depth cut from 2 (script time)
 PRNG_CHUNK = (256, 32, 640)    # one key-as-u chunk's u: particles, S, n
@@ -339,22 +399,23 @@ THREEFRY_INT_OPS = 71
 THREEFRY_OUT_OPS = {"words": 0, "bits": 1, "uniform": 3, "normal": 3}
 INT32_OPS = 132 * 64 * 1.98e9  # H100 SXM: SMs x INT32 lanes x boost clock
 SMC_SHARDED_RUNS = {           # run -> (args, kernels that must launch);
-    # particles of (a) and (c) halved to make room for phases 24-26
-    "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "512"],
+    # particles of (a) and (c) halved for phases 24-26 and again for 27-32
+    "a_smc_gp_nuts": (["--preset", "smc_gp_nuts", "--particles", "256"],
                       ("fused_estimator", "chol_panel")),
     "b_u_blocks": (["--preset", "smc_gp_nuts", "--smc-u-blocks", "8",
                     "--n-importance", "64", "--smc-rejuvenation", "aux_mh",
                     "--smc-n-u-mh", "1", "--particles", "512"],
                    ("fused_weights",)),
     "c_carry_u": (["--sharded", "true", "--sampler", "smc",
-                   "--smc-rejuvenation", "aux_slice", "--particles", "256"],
+                   "--smc-rejuvenation", "aux_slice", "--particles", "128"],
                   ("fused_estimator", "chol_panel")),
 }
 U_BLOCKS_ACCEPT_FLOOR = 0.2    # the reference's floor (tests/test_smc.py)
 SMC_PARITY_PARTICLES, SMC_PARITY_S = 256, 32
 CONFIG4_CHAINS, CONFIG4_STEPS = 4096, 2
 CONFIG4_CLI_ARGS = [           # the preset; depth cut: no warm-up, 2 steps
-                               # (4 until the gradient phases took the time)
+                               # (4 until the gradient phases took the time;
+                               # the summary's split R-hat needs 2)
     "--preset", "gp_4096_sharded", "--warmup-windows", "0",
     "--window-steps", "2", "--steps", str(CONFIG4_STEPS)]
 CONFIG4_SMALL_CHAINS, CONFIG4_SMALL_STEPS = 256, 5
@@ -366,14 +427,47 @@ SMC_MAX_AMBIGUOUS = 64         # of 256 particles: each takes two refresh
                                # decisions and two NUTS trees, ~4x the
                                # decisions of a chain in path_parity_hmc_nuts
 SHARDED_GRAD_RUNS = {          # sampler -> chains, window steps, steps,
-    "aux_hmc": (B, 3, 6, 2),   # profiled steps: one warm-up window (the
+    "aux_hmc": (B, 3, 6, 1),   # profiled steps: one warm-up window (the
     "aux_nuts": (64, 3, 3, 1),  # CLI's window length is shared by warm-up
-}                              # and sampling)
+}                              # and sampling; aux_hmc profiled 2 steps
+                               # before phases 27-32)
 SHARDED_GRAD_RTOL = 1e-4       # 2 ranks vs 1, of max(|g|, 1)
 LAPLACE_GRAD_RUNS = {"aux_hmc": (64, 3), "aux_nuts": (16, 2)}   # no warm-up
 LAPLACE_GRAD_STEP = 0.05       # of the order dual averaging finds (0.064)
 LAPLACE_FD_CHAINS = 8          # float64 differences on the CPU
 LAPLACE_SHARDED_CHAINS, LAPLACE_SHARDED_STEPS = 64, 3
+STEPOUT_SAMPLERS = ("aux_slice_rd", "aux_slice_joint", "joint_slice")
+STEPOUT_STEPS = 3 + 3          # 1 x 3 warm-up + 3
+STEPOUT_CLI_ARGS = [           # THETA_CLI_ARGS with stepping out on
+    "--preset", "pima_aux_slice", "--chains", str(B), "--max-step-out", "8",
+    "--n-ess", str(N_ESS), "--n-sigma-extra", str(N_SIGMA - 1),
+    "--max-shrink-chol", "3", "--warmup-windows", "1", "--window-steps", "3",
+    "--steps", "3"]
+LAPLACE_ARD_CHAINS, LAPLACE_ARD_STEPS = 32, 2   # no warm-up
+LAPLACE_ARD_CLI_ARGS = [
+    "--preset", "pima_ard_aux", "--proposal", "laplace", "--n-importance",
+    str(S_LAPLACE), "--chains", str(LAPLACE_ARD_CHAINS), "--warmup-windows",
+    "0", "--window-steps", str(LAPLACE_ARD_STEPS), "--steps",
+    str(LAPLACE_ARD_STEPS)]
+JOINT_SHARDED_SAMPLERS = ("joint_mh", "aux_slice_joint")
+DRYRUN_RANKS = 4
+SCALING_ARGS = ["--chains-per-device", "32", "--warm", "2", "--steps", "5"]
+SMC_SCALE_TOY_BATCH = 2**16    # the toy's u is 128 B: 16 chunks of 2^20
+SMC_SCALE_GP_PARTICLES = 2**18   # 2^17 took 16.6 s in 8 chunks of 2^14
+                                 # (2^20: 0.61-0.73 s a chunk), so 2^19
+                                 # would take 65-110 s
+SMC_SCALE_GP_BATCH = 2**14
+SMC_SCALE_RUNS = {             # utils/smc_scale argv
+    "toy": ["--target", "toy", "--particles", str(2**20), "--rejuv",
+            "aux_slice", "--rejuv-batch", str(SMC_SCALE_TOY_BATCH)],
+    "gp": ["--target", "gp", "--subsample", "32", "--n-importance", "32",
+           "--rejuv", "aux_nuts", "--particles", str(SMC_SCALE_GP_PARTICLES),
+           "--rejuv-batch", str(SMC_SCALE_GP_BATCH)],
+}
+SMC_SCALE_TOY_LOGZ_TOL = 0.02  # |logZ - closed form| at 2^20 particles
+SMC_1M_TOY_RECORD = {          # the reference's SMC_1M_toy.json
+    "log_z": -3.5603, "log_z_true": -3.5588, "log_z_abs_err": 0.0015,
+    "betas": [0.0, 0.2144, 1.0], "u_mh_accept": [0.8402, 0.67]}
 
 
 def log(*a):
@@ -1777,8 +1871,10 @@ def main():
         if not cache_err_a <= CHOL_TOL:
             raise AssertionError(f"ARD carried factor off by {cache_err_a:.3e}")
         # launches and host synchronisations per step, from a profiled window
-        _, prof = profile_steps(step_a, st_a, par_a, 3)
-        n_steps = 15                      # 1 x 5 warm-up + 10 sampled
+        # (one step, three before phases 27-32: the traced steps took ~18 s
+        # a mode)
+        _, prof = profile_steps(step_a, st_a, par_a, 1)
+        n_steps = 9                       # 1 x 3 warm-up + 6 sampled
         ard[mode] = {
             "launches": cnt, "summary": res["summary"],
             "chain_steps_per_sec": res["summary"]["chain_steps_per_sec"],
@@ -1933,10 +2029,60 @@ def main():
     from auxpm_tpu_torch.parallel import rank_jobs
     from auxpm_tpu_torch.parallel.launch import spawn
 
+    # The same spawn then runs path_parity_sharded's step: one step from
+    # the first path's final state, on the same random rows, the sharded
+    # path (two ranks) against the unsharded per-probe path (loop
+    # elliptical-slice update, per-probe log_sigma: the same algorithm with
+    # the estimator kernel where the sharded path has the weights kernel and
+    # the collective), computed here first.
+    import dataclasses
+
+    tgt_loop = dataclasses.replace(tgt, ess_sweep_factory=None,
+                                   sigma_sweep_factory=None)
+    step_l = port_run_step(tgt_loop)
+    ess_l, sl_l = step_l.stages["ess_u"], step_l.stages["slice_theta"]
+    if ess_l.uses_sweep:
+        raise AssertionError("sharded parity: the unsharded side took the "
+                             "sweep")
+    rows_el, _ = ess_l.draw(states)
+    rows_sl, _ = sl_l.draw(states)
+    probe_log = []
+    mid_l, info_el = ess_l.apply(states, rows_el,
+                                 {**params["ess_u"], "probe_log": probe_log})
+    out_l, info_sl = sl_l.apply(mid_l, rows_sl, {**params["slice_theta"],
+                                                 "probe_log": probe_log})
+    torch.cuda.synchronize()
+    info_l = {**{f"ess_u/{k_}": v_ for k_, v_ in info_el.items()},
+              **{f"slice_theta/{k_}": v_ for k_, v_ in info_sl.items()}}
+    amb_sh = torch.zeros(B, dtype=torch.bool, device=dev)
+    for counted, margin in probe_log:
+        amb_sh |= counted & (margin.abs() <= SHARDED_LL_TOL)
+
+    def to_np(a):
+        return a.detach().cpu().numpy()
+
+    state_np = {"theta": to_np(states.theta), "u": to_np(states.u),
+                "log_lik_hat": to_np(states.log_lik_hat),
+                "chol_r": to_np(states.extras["target_cache"]["chol_r"])}
+    rows_np = {"scal": to_np(rows_el["scal"]), "v": to_np(rows_el["v"]),
+               "reps": tuple(to_np(r) for r in rows_sl)}
+    params_np = {g: {k_: (to_np(v_) if torch.is_tensor(v_) else v_)
+                     for k_, v_ in sub.items()} for g, sub in params.items()}
     t0 = time.time()
-    ranks = spawn(rank_jobs.cli, K_SHARDS, SHARDED_CLI_ARGS, 3,
-                  timeout_s=400, threads=0)
+    per_rank_sh = spawn(       # 1 profiled step (3 before phases 27-32)
+        rank_jobs.run_all, K_SHARDS,
+        [("cli", SHARDED_CLI_ARGS, 1),
+         ("step", ("gp", x, y_np, {"n_importance": S}), state_np, rows_np,
+          params_np, {"n_ess": N_ESS, "n_sigma_extra": N_SIGMA - 1}, False,
+          False),                       # no probe log, no factor back
+         ("cli", CONFIG4_SMALL_ARGS)],  # main_path_config4's two ranks
+        K_SHARDS, "cuda", timeout_s=600, threads=0)
     spawn_s = time.time() - t0
+    del state_np, rows_np
+    ranks = [r[0] for r in per_rank_sh]
+    sh = [r[1] for r in per_rank_sh]
+    config4_two_ranks = [r[2] for r in per_rank_sh]
+    del per_rank_sh
     n_steps_sh = 3 + 6                    # 1 x 3 warm-up + 6 sampled
     r0 = ranks[0]
     shares = torch.cuda.device_count() < K_SHARDS    # one card for both
@@ -1999,52 +2145,8 @@ def main():
     end_phase()
 
     # ------------------------------------------------ sharded path parity
-    # One step from the first path's final state, on the same random rows:
-    # the sharded path (two ranks) against the unsharded per-probe path
-    # (loop elliptical-slice update, per-probe log_sigma: the same algorithm
-    # with the estimator kernel where the sharded path has the weights
-    # kernel and the collective).
+    # (the two ranks' step ran in phase 7's spawn, above)
     log("path parity (sharded)")
-    import dataclasses
-
-    tgt_loop = dataclasses.replace(tgt, ess_sweep_factory=None,
-                                   sigma_sweep_factory=None)
-    step_l = port_run_step(tgt_loop)
-    ess_l, sl_l = step_l.stages["ess_u"], step_l.stages["slice_theta"]
-    if ess_l.uses_sweep:
-        raise AssertionError("sharded parity: the unsharded side took the "
-                             "sweep")
-    rows_el, _ = ess_l.draw(states)
-    rows_sl, _ = sl_l.draw(states)
-    probe_log = []
-    mid_l, info_el = ess_l.apply(states, rows_el,
-                                 {**params["ess_u"], "probe_log": probe_log})
-    out_l, info_sl = sl_l.apply(mid_l, rows_sl, {**params["slice_theta"],
-                                                 "probe_log": probe_log})
-    torch.cuda.synchronize()
-    info_l = {**{f"ess_u/{k_}": v_ for k_, v_ in info_el.items()},
-              **{f"slice_theta/{k_}": v_ for k_, v_ in info_sl.items()}}
-    amb_sh = torch.zeros(B, dtype=torch.bool, device=dev)
-    for counted, margin in probe_log:
-        amb_sh |= counted & (margin.abs() <= SHARDED_LL_TOL)
-
-    def to_np(a):
-        return a.detach().cpu().numpy()
-
-    state_np = {"theta": to_np(states.theta), "u": to_np(states.u),
-                "log_lik_hat": to_np(states.log_lik_hat),
-                "chol_r": to_np(states.extras["target_cache"]["chol_r"])}
-    rows_np = {"scal": to_np(rows_el["scal"]), "v": to_np(rows_el["v"]),
-               "reps": tuple(to_np(r) for r in rows_sl)}
-    params_np = {g: {k_: (to_np(v_) if torch.is_tensor(v_) else v_)
-                     for k_, v_ in sub.items()} for g, sub in params.items()}
-    sh = [r[0] for r in spawn(
-        rank_jobs.run_all, K_SHARDS,
-        [("step", ("gp", x, y_np, {"n_importance": S}), state_np, rows_np,
-          params_np, {"n_ess": N_ESS, "n_sigma_extra": N_SIGMA - 1}, False,
-          False)],                      # no probe log, no factor back
-        K_SHARDS, "cuda", timeout_s=400, threads=0)]
-    del state_np, rows_np
     group_bitwise = all(np.array_equal(r["theta"], sh[0]["theta"])
                         and np.array_equal(r["log_lik_hat"],
                                            sh[0]["log_lik_hat"]) for r in sh)
@@ -2162,7 +2264,7 @@ def main():
     step3 = SAMPLERS["aux_slice"](tgt3)
     if not step3.stages["ess_u"].uses_sweep:
         raise AssertionError("config 3: the step did not take the ESS sweep")
-    _, prof3 = profile_steps(step3, st3, par3, 3)
+    _, prof3 = profile_steps(step3, st3, par3, 1)   # 3 before 27-32
     emit({"phase": "main_path_config3", "card": smi, "args": CONFIG3_CLI_ARGS,
           "B": B3, "S": S, "n": N3, "launches": cnt3,
           "summary": res3["summary"],
@@ -2189,13 +2291,14 @@ def main():
     # panel below, at n = 1024 through the blocked factorisation.
     def step_parity(phase, step_, tgt_, state, par_, y_, mask_,
                     plain_sigma=False, max_ambiguous=CONFIG3_MAX_AMBIGUOUS):
-        """One step of an ``aux_slice``-family composite from ``state`` on the
-        same rows (every stage's, drawn up front) through the kernels and
-        through the plain estimator and ESS sweep (and the plain sigma sweep
-        with ``plain_sigma``); records failures and returns the comparison.
-        The ESS stage's u' and log L-hat (same theta, same factor on both
-        sides) are held at the kernels' bars, the whole step's at the path
-        bars, and the kernel step's log L-hat at the plain estimate of its
+        """One step of a composite from ``state`` on the same rows (every
+        stage's, drawn up front) through the kernels and through the plain
+        estimator and ESS sweep (and the plain sigma sweep with
+        ``plain_sigma``); records failures and returns the comparison.  The
+        ESS stage's u' and log L-hat (same theta, same factor on both sides;
+        where there is an ESS stage) are held at the kernels' bars, the
+        whole step's at the path bars (the carried factor where there is
+        one), and the kernel step's log L-hat at the plain estimate of its
         own state at the estimator's bar."""
         b_ = state.theta.shape[0]
         stages = list(step_.stages.items())
@@ -2251,29 +2354,30 @@ def main():
                             "whose margins were all outside the tolerance")
         if not bool(agree.any()):
             raise AssertionError(f"{phase}: no chain's decisions agree")
-        parity = {
-            "ess_u": check_close(phase, "u after the ESS sweep", mid_k.u,
-                                 mid_p.u, U_TOL, agree),
-            "ess_ll": check_close(phase, "ll after the ESS sweep",
-                                  mid_k.log_lik_hat, mid_p.log_lik_hat,
-                                  LL_TOL, agree, LL_RTOL),
-            "theta": check_close(phase, "theta", out_k.theta, out_p.theta,
-                                 SIGMA_TOL, agree),
-            "u": check_close(phase, "u", out_k.u, out_p.u, U_TOL, agree),
-            "chol_r": check_close(phase, "chol_r",
-                                  out_k.extras["target_cache"]["chol_r"],
-                                  out_p.extras["target_cache"]["chol_r"],
-                                  PATH_CHOL_TOL, agree),
-            "ll": check_close(phase, "ll", out_k.log_lik_hat,
-                              out_p.log_lik_hat, ARD_PATH_LL_TOL, agree),
-            "ll_vs_plain_estimate_of_own_state": check_close(
-                phase, "ll of own state", out_k.log_lik_hat,
-                fe._ref_estimate(
-                    tgt_.prepare_c(out_k.theta,
-                                   out_k.extras["target_cache"]),
-                    out_k.u, y_, mask_, "logistic", 8),
-                LL_TOL, None, LL_RTOL),
-        }
+        parity = {}
+        if mid_k is not None:     # a composite with an ESS stage
+            parity["ess_u"] = check_close(phase, "u after the ESS sweep",
+                                          mid_k.u, mid_p.u, U_TOL, agree)
+            parity["ess_ll"] = check_close(phase, "ll after the ESS sweep",
+                                           mid_k.log_lik_hat,
+                                           mid_p.log_lik_hat, LL_TOL, agree,
+                                           LL_RTOL)
+        parity["theta"] = check_close(phase, "theta", out_k.theta,
+                                      out_p.theta, SIGMA_TOL, agree)
+        parity["u"] = check_close(phase, "u", out_k.u, out_p.u, U_TOL, agree)
+        cache_k = out_k.extras.get("target_cache")
+        if cache_k is not None:   # the carried factor of the aux_slice family
+            parity["chol_r"] = check_close(
+                phase, "chol_r", cache_k["chol_r"],
+                out_p.extras["target_cache"]["chol_r"], PATH_CHOL_TOL, agree)
+        parity["ll"] = check_close(phase, "ll", out_k.log_lik_hat,
+                                   out_p.log_lik_hat, ARD_PATH_LL_TOL, agree)
+        own = (tgt_.prepare(out_k.theta) if cache_k is None
+               else tgt_.prepare_c(out_k.theta, cache_k))
+        parity["ll_vs_plain_estimate_of_own_state"] = check_close(
+            phase, "ll of own state", out_k.log_lik_hat,
+            fe._ref_estimate(own, out_k.u, y_, mask_, "logistic", 8),
+            LL_TOL, None, LL_RTOL)
         stats = {"decisions_logged": len(probe_log),
                  "ess_decisions_logged": len(ess_log),
                  "chains_with_a_decision_inside_tolerance": n_amb_,
@@ -2513,10 +2617,10 @@ def main():
     # Each new sampler through the CLI on config 2's target at full width
     # (CLI_ARGS: 128 chains, shrinkage-only slices, four ESS repeats, one
     # extra log_sigma update, max_shrink_chol 3; 1 x 5 warm-up + 10 steps),
-    # then a 3-step profile from its final state: wall and busy time, and
-    # the launches of each kernel per step (profile_steps runs its steps
+    # then an n_prof-step profile from its final state: wall and busy time,
+    # and the launches of each kernel per step (profile_steps runs its steps
     # twice, untraced for the wall time, then traced).
-    n_prof = 3
+    n_prof = 1                     # 3 before phases 27-32 (script time)
     theta_runs, finals = {}, {}
     for sampler, move_key in THETA_SAMPLERS.items():
         aux = sampler.startswith("aux_slice")
@@ -2629,7 +2733,7 @@ def main():
     win_l = res_l["windows"][-1]
     if not (win_l["ess_u/moved"] > 0.5 and win_l["slice_theta/n_probe"] > 0):
         raise AssertionError(f"laplace: sampler health {win_l}")
-    n_prof_l = 2
+    n_prof_l = 1                   # 2 before phases 27-32 (script time)
     for m, attr in counters.values():
         setattr(m, attr, 0)
     _, prof_l = profile_steps(res_l["step"], st_l, res_l["params"], n_prof_l)
@@ -2969,10 +3073,14 @@ def main():
 
     # ---------------------------------------------- HMC and NUTS, main path
     # --sampler aux_hmc, then aux_nuts, through the CLI on config 2's target
-    # at 128 chains (2 warm-up windows of 10 steps with dual averaging and
-    # the mass, then 20 steps): the estimator, the panel and the ESS sweep
-    # must launch, no other kernel; then a 3-step profile from the final
-    # state (profile_steps runs its steps twice).
+    # at 128 chains (2 warm-up windows of HMC_WINDOW steps with dual
+    # averaging and the mass, then HMC_WINDOW steps): the estimator, the
+    # panel and the ESS sweep
+    # must launch, no other kernel; then a one-step profile from the final
+    # state (profile_steps runs its steps twice; 3 steps before phases
+    # 27-32: a NUTS step traced takes ~20 s, more where the state asks for
+    # deeper trees).
+    n_prof_h = 1
     hmc_runs, finals_h = {}, {}
     for sampler, group in (("aux_hmc", "hmc"), ("aux_nuts", "nuts")):
         args = HMC_CLI_ARGS + ["--sampler", sampler]
@@ -3010,9 +3118,9 @@ def main():
         hmc_mod.grad_calls = hmc_mod.grad_rows = hmc_mod.host_syncs = 0
         syncs0 = cholesky.host_syncs
         st_p, prof_h = profile_steps(res_h["step"], st_h, res_h["params"],
-                                     n_prof)
+                                     n_prof_h)
         torch.cuda.synchronize()
-        n_run = 2 * n_prof
+        n_run = 2 * n_prof_h
         cnt_p = read_counts()
         hmc_runs[sampler] = {
             "launches": cnt_h,
@@ -3439,7 +3547,8 @@ def main():
 
     torch.cuda.empty_cache()    # the child needs the card's memory
     # one rank runs the preset at 4096 chains, then 256 chains for the
-    # layout check (one start-up); two ranks run the 256 chains
+    # layout check (one start-up); two ranks ran the 256 chains in phase 7's
+    # spawn (one start-up fewer)
     ((c4, small1),) = spawn(rank_jobs.run_all, 1,
                             [("cli", CONFIG4_CLI_ARGS),
                              ("cli", CONFIG4_SMALL_ARGS)], 1, "cuda",
@@ -3453,8 +3562,7 @@ def main():
             not np.isfinite(rec4).all():
         failures.append(f"main_path_config4: records {rec4.shape}, finite "
                         f"{bool(np.isfinite(rec4).all())}")
-    layouts = {1: [small1],
-               2: spawn(rank_jobs.cli, 2, CONFIG4_SMALL_ARGS, timeout_s=600)}
+    layouts = {1: [small1], 2: config4_two_ranks}   # (phase 7's spawn)
     rec1 = layouts[1][0]["recorded_theta"]
     invariance = {
         "records_1_vs_2_ranks_bitwise": bool(
@@ -3484,8 +3592,19 @@ def main():
     end_phase()
 
     # ------------------- the fourteenth slice: gradients through the fold
-    gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
-                    check_close, failures, end_phase)
+    # (its two-rank spawn also runs the fifteenth slice's two-rank jobs)
+    ctx = types.SimpleNamespace(
+        torch=torch, np=np, smi=smi, x=x, y_np=y_np, y=y, mask=mask,
+        run_cli=run_cli, counters=counters, read_counts=read_counts,
+        step_parity=step_parity, check_close=check_close, failures=failures,
+        end_phase=end_phase)
+    jobs15, local15 = joint_sharded_jobs(ctx)
+    per_rank15, spawn_s15 = gradient_phases(
+        torch, np, smi, x, y_np, run_cli, counters, read_counts, check_close,
+        failures, end_phase, extra_jobs=jobs15)
+
+    # ---------- the fifteenth slice: paths the card had not run, config 5
+    scale_phases(ctx, local15, per_rank15, spawn_s15)
 
     # ---------------------------------------------------------------- result
     emit({"kernels": [
@@ -3503,12 +3622,14 @@ def main():
 
 
 def gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
-                    check_close, failures, end_phase):
+                    check_close, failures, end_phase, extra_jobs=()):
     """main_path_laplace_grad, main_path_sharded_grad and
     main_path_laplace_sharded (phases 24-26 of the module note), with
     ``main``'s helpers: the launch counters and the CLI runner, the failure
     list and the closing check of a phase.  The two sharded phases share one
-    spawn of two ranks (one start-up)."""
+    spawn of two ranks (one start-up), which also runs ``extra_jobs`` (of
+    later phases) after theirs; returns their results per rank and the
+    spawn's seconds."""
     import dataclasses
 
     from auxpm_tpu_torch.core.state import init_chain_states
@@ -3597,10 +3718,12 @@ def gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
              ("estimate", ("gp", x, y_np, {"n_importance": S_LAPLACE,
                                            "proposal": "laplace"}),
               theta_l, u_l)]
+    n_own = len(jobs)
     t0 = time.time()
-    per_rank = spawn(rank_jobs.run_all, K_SHARDS, jobs, K_SHARDS, "cuda",
-                     timeout_s=600, threads=0)
+    per_rank = spawn(rank_jobs.run_all, K_SHARDS, jobs + list(extra_jobs),
+                     K_SHARDS, "cuda", timeout_s=900, threads=0)
     spawn_s = time.time() - t0
+    extra = [r[n_own:] for r in per_rank]
     del u_np, u_l
     shares = torch.cuda.device_count() < K_SHARDS    # one card for both
     done = {}
@@ -3772,6 +3895,7 @@ def gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
     del per_rank, grads, g1, g2, g64
     torch.cuda.empty_cache()
     end_phase()
+    return extra, spawn_s
 
 
 def laplace_grad_phase(torch, np, smi, x, y_np, run_cli, counters,
@@ -3981,6 +4105,504 @@ def laplace_grad_phase(torch, np, smi, x, y_np, run_cli, counters,
     del vg, final, tgt, st, theta8, u8
     torch.cuda.empty_cache()
     end_phase()
+
+
+def scale_phases(c, local, per_rank, spawn_s):
+    """Phases 27-32 of the module note (the fifteenth slice), with ``main``'s
+    helpers in the namespace ``c``: the launch counters and the CLI runner,
+    the step parity of the theta samplers, the failure list and the closing
+    check of a phase; ``local``, ``per_rank`` and ``spawn_s``: this
+    process's side and the ranks' results of ``joint_sharded_jobs``."""
+    stepout_theta_phase(c)
+    laplace_ard_phase(c)
+    scaling_phase(c, joint_sharded_phase(c, local, per_rank, spawn_s))
+    dryrun_phase(c)
+    smc_scale_phase(c)
+
+
+def stepout_theta_phase(c):
+    """main_path_stepout_theta: ``aux_slice_rd``, ``aux_slice_joint`` and
+    ``joint_slice`` with stepping out on (``--max-step-out 8``) at 128 chains
+    through the CLI (1 x 3 warm-up + 3 steps): finite, moving; every
+    estimator launch recorded by its batch, the step-out probe (both ends of
+    every chain, two different u's each for the joint slice) one launch of
+    2B chains, never more (two calls only past ``MAX_PROBE_BATCH``, far
+    above 2B = 256); peak memory of each run.  Then one step from each
+    final state on the same rows through the kernels and through the plain
+    estimator, ESS and sigma sweeps (the panel kernel shared), held as in
+    ``path_parity_theta_samplers``."""
+    torch, np = c.torch, c.np
+    from auxpm_tpu_torch.models.base import MAX_PROBE_BATCH
+    from auxpm_tpu_torch.ops import fused_estimator as fe
+
+    if 2 * B > MAX_PROBE_BATCH:
+        raise AssertionError("the step-out probe would be two calls")
+    runs, parity = {}, {}
+    for sampler in STEPOUT_SAMPLERS:
+        move_key = THETA_SAMPLERS[sampler]
+        aux = sampler.startswith("aux_slice")
+        # the sigma sweep serves shrinkage-only slices: not launched here
+        must = (("fused_estimator", "chol_panel", "threefry")
+                + (("ess_sweep",) if aux else ()))
+        args = STEPOUT_CLI_ARGS + ["--sampler", sampler]
+        log(f"main path (stepping out, {sampler}):", " ".join(args))
+        batches = []
+        real = fe._cuda_estimate
+
+        def recording(chol, u, *a, **kw):
+            batches.append(int(u.shape[0]))
+            return real(chol, u, *a, **kw)
+
+        torch.cuda.reset_peak_memory_stats()
+        with mock.patch.object(fe, "_cuda_estimate", recording):
+            res, cnt = c.run_cli(args, must,
+                                 [k_ for k_ in c.counters if k_ not in must])
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        st = res["states"]
+        if st.u.shape != (B, S, N) or not st.u.is_cuda:
+            raise AssertionError(f"{sampler} did not run at full width on "
+                                 "the GPU")
+        if not np.isfinite(res["theta"]).all() or \
+                not bool(torch.isfinite(st.log_lik_hat).all()):
+            raise AssertionError(f"{sampler}: non-finite theta or log L-hat")
+        moved = [w_[move_key] for w_ in res["windows"]]
+        if not max(moved) > 0:
+            raise AssertionError(f"{sampler} never moved: {move_key} {moved}")
+        by_batch = {str(b_): batches.count(b_) for b_ in sorted(set(batches))}
+        n_probe_2b = batches.count(2 * B)
+        if n_probe_2b == 0 or max(batches) > 2 * B:
+            c.failures.append(f"main_path_stepout_theta/{sampler}: estimator "
+                              f"launches by batch {by_batch}: the step-out "
+                              f"probe is not one launch of {2 * B} chains")
+        win = res["windows"][-1]
+        runs[sampler] = {
+            "launches": cnt, "estimator_launches_by_batch": by_batch,
+            "step_out_probe_launches": n_probe_2b,
+            "step_out_probe_launches_per_step": n_probe_2b / STEPOUT_STEPS,
+            "peak_memory_gb": peak,
+            "chain_steps_per_sec": res["summary"]["chain_steps_per_sec"],
+            f"{move_key}_per_window": moved,
+            **{k_: win[k_] for k_ in win if k_.endswith("n_probe")}}
+        phase = f"main_path_stepout_theta/{sampler}"
+        par, stats = c.step_parity(phase, res["step"], res["target"], st,
+                                   res["params"], c.y, c.mask,
+                                   plain_sigma=True,
+                                   max_ambiguous=THETA_MAX_AMBIGUOUS)
+        parity[sampler] = {**stats, "max_abs_err": par}
+        del res, st
+    emit({"phase": "main_path_stepout_theta", "card": c.smi,
+          "args": STEPOUT_CLI_ARGS, **runs, "step_parity": parity})
+    c.end_phase()
+
+
+def laplace_ard_phase(c):
+    """main_path_laplace_ard: ``--preset pima_ard_aux --proposal laplace
+    --n-importance 16`` (stepping out, theta of 8) through the CLI: the ARD
+    Gram kernel and the panel launch, nothing else of the package but the
+    threefry kernel; no non-finite estimate.  Then the estimate at the final
+    (theta, u) through the kernels against the plain ARD Gram (the panel
+    shared), both at jitter 1e-3: held on the chains whose every
+    factorisation settled on the same jitter on both sides (known
+    difference 3), at ``main_path_laplace``'s widest bar, half
+    log|Sigma_q|'s, which the estimate carries."""
+    torch, np = c.torch, c.np
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.ops import cholesky
+    from auxpm_tpu_torch.ops import gram as gr
+
+    must = ("se_gram_ard", "chol_panel", "threefry")
+    log("main path (laplace, ARD):", " ".join(LAPLACE_ARD_CLI_ARGS))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res, cnt = c.run_cli(LAPLACE_ARD_CLI_ARGS, must,
+                         [k_ for k_ in c.counters if k_ not in must])
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = res["states"]
+    if st.u.shape != (LAPLACE_ARD_CHAINS, S_LAPLACE, N) or \
+            not res["target"].name.endswith("_laplace"):
+        raise AssertionError(f"laplace ARD: u {tuple(st.u.shape)}, target "
+                             f"{res['target'].name}")
+    if not np.isfinite(res["theta"]).all() or \
+            not bool(torch.isfinite(st.log_lik_hat).all()):
+        raise AssertionError("laplace ARD: non-finite theta or estimate")
+    tgt = make_gp_classification(c.x, c.y_np, n_importance=S_LAPLACE,
+                                 ard=True, proposal="laplace",
+                                 jitter=LAPLACE_JITTER, device="cuda")
+    impl = cholesky._robust_cholesky_impl
+    boosts = []
+
+    def recording_impl(gram_, *a_, **kw_):
+        l_, extra_ = impl(gram_, *a_, **kw_)
+        boosts.append(extra_)
+        return l_, extra_
+
+    with torch.no_grad(), mock.patch.object(
+            cholesky, "_robust_cholesky_impl", recording_impl):
+        before = c.read_counts()["se_gram_ard"]
+        est_k = tgt.log_lik_est(st.theta, st.u)
+        if c.read_counts()["se_gram_ard"] == before:
+            raise AssertionError("laplace ARD: the estimate never launched "
+                                 "the ARD Gram kernel")
+        boosts_k, boosts[:] = list(boosts), []
+        with mock.patch.object(gr, "_cuda_se_gram_ard",
+                               gr.se_gram_ard_masked):
+            before = c.read_counts()["se_gram_ard"]
+            est_p = tgt.log_lik_est(st.theta, st.u)
+            if c.read_counts()["se_gram_ard"] != before:
+                raise AssertionError("laplace ARD: the plain side launched "
+                                     "the ARD Gram kernel")
+        boosts_p = list(boosts)
+    torch.cuda.synchronize()
+    if len(boosts_k) != len(boosts_p) or len(boosts_k) < 9:
+        raise AssertionError(f"laplace ARD: {len(boosts_k)} and "
+                             f"{len(boosts_p)} factorisations")
+    same = torch.ones(LAPLACE_ARD_CHAINS, dtype=torch.bool, device=st.u.device)
+    for bk, bp in zip(boosts_k, boosts_p):
+        same &= bk == bp
+    if int(same.sum()) < LAPLACE_ARD_CHAINS // 2:
+        raise AssertionError(f"laplace ARD: only {int(same.sum())} chains "
+                             "settled on the same jitters")
+    if not bool(torch.isfinite(est_k).all()):
+        c.failures.append("laplace ARD: non-finite estimate at the fixed "
+                          "(theta, u)")
+    err = c.check_close("main_path_laplace_ard", "estimate", est_k, est_p,
+                        LAPLACE_LOGDET_TOL, same)
+    summary = res["summary"]
+    emit({"phase": "main_path_laplace_ard", "card": c.smi,
+          "args": LAPLACE_ARD_CLI_ARGS, "chains": LAPLACE_ARD_CHAINS,
+          "launches": cnt, "wall_s_with_set_up": wall,
+          "chain_steps_per_sec": summary["chain_steps_per_sec"],
+          "run_wall_s": summary["wall"],
+          "ard_gram_launches_per_step": cnt["se_gram_ard"]
+          / LAPLACE_ARD_STEPS,
+          "chol_panel_launches_per_step": cnt["chol_panel"]
+          / LAPLACE_ARD_STEPS,
+          "peak_memory_gb": peak,
+          "slice_theta/n_probe": res["windows"][-1]["slice_theta/n_probe"],
+          "fixed_theta_u_estimate": {
+              "jitter": LAPLACE_JITTER,
+              "factorisations": len(boosts_k),
+              "chains_with_the_same_jitters": int(same.sum()),
+              "max_abs_err_kernel_vs_plain_gram": err,
+              "tol": LAPLACE_LOGDET_TOL}})
+    del res, st, tgt
+    torch.cuda.empty_cache()
+    c.end_phase()
+
+
+def joint_sharded_jobs(c):
+    """The two-rank jobs of main_path_joint_sharded and scaling_path, and
+    this process's side of the joint samplers' keyed step: ``joint_mh`` and
+    ``aux_slice_joint`` through the CLI with ``--sharded true
+    --particle-shards 2``; one keyed step of each from a fixed state of 128
+    chains (``rank_jobs`` job ``keyed_step``: each rank draws its rows from
+    the chains' keys), whose reference, the unsharded per-probe path (the
+    loop ESS and the per-probe log_sigma) on the same rows, runs here now;
+    then ``utils/scaling`` (job ``scaling``).  They run in the spawn of
+    phases 24-26 (one start-up).  Returns ``(jobs, local)``."""
+    torch = c.torch
+    import dataclasses
+
+    from auxpm_tpu_torch.core.state import init_chain_states
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.samplers.composite import SAMPLERS
+    from auxpm_tpu_torch.utils.config import PRESETS, initial_params
+
+    tgt = make_gp_classification(c.x, c.y_np, n_importance=S, device="cuda")
+    tgt_loop = dataclasses.replace(tgt, ess_sweep_factory=None,
+                                   sigma_sweep_factory=None)
+    spec = ("gp", c.x, c.y_np, {"n_importance": S})
+    local, jobs = {}, []
+    for i, sampler in enumerate(JOINT_SHARDED_SAMPLERS):
+        kw = ({"n_ess": N_ESS, "n_sigma_extra": N_SIGMA - 1}
+              if sampler.startswith("aux_slice") else {})
+        cfg = PRESETS["pima_aux_slice"].replace(
+            sampler=sampler, max_step_out=0, max_shrink_chol=3)
+        st = init_chain_states(41 + i, tgt, B, jitter_scale=0.3,
+                               with_cache=sampler.startswith("aux_slice"))
+        par = initial_params(cfg, tgt)
+        # the unsharded per-probe step on the rows the chains' keys give
+        step = SAMPLERS[sampler](tgt_loop, **kw)
+        probe_log, info = [], {}
+        s_ = st
+        for name, stage in step.stages.items():
+            rows, key = stage.draw(s_)
+            s_, i_ = stage.apply(s_, rows, {**par[name],
+                                            "probe_log": probe_log})
+            s_ = s_.replace(key=key)
+            info.update({f"{name}/{k_}": v_ for k_, v_ in i_.items()})
+        local[sampler] = (s_, info, probe_log)
+        state_np = {"theta": st.theta.cpu().numpy(), "u": st.u.cpu().numpy(),
+                    "log_lik_hat": st.log_lik_hat.cpu().numpy(),
+                    "key": st.key.cpu().numpy()}
+        if "target_cache" in st.extras:
+            state_np["chol_r"] = \
+                st.extras["target_cache"]["chol_r"].cpu().numpy()
+        par_np = {g: {k_: (v_.cpu().numpy() if torch.is_tensor(v_) else v_)
+                      for k_, v_ in sub.items()} for g, sub in par.items()}
+        jobs.append(("cli", SHARDED_CLI_ARGS + ["--sampler", sampler]))
+        jobs.append(("keyed_step", spec, sampler, state_np, par_np, kw))
+        del st
+    jobs.append(("scaling", SCALING_ARGS))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return jobs, local
+
+
+def joint_sharded_phase(c, local, per_rank, spawn_s):
+    """main_path_joint_sharded: the ranks' results ``per_rank`` of
+    ``joint_sharded_jobs``' jobs: theta and log L-hat bitwise equal on both
+    ranks, the weights kernels launched (the rotated one where an ESS runs)
+    and no estimator or sweep kernel; each keyed step against this
+    process's ``local`` one: equal counts on the chains whose decisions all
+    sat further than 1e-4 from their levels, theta and log L-hat within
+    1e-4.  Returns the scaling job's line for ``scaling_phase``."""
+    torch, np = c.torch, c.np
+    shares = torch.cuda.device_count() < K_SHARDS
+    estimators = ("fused_estimator", "fused_estimator_rot", "ess_sweep",
+                  "sigma_sweep")
+    out = {}
+    n_steps = 3 + 6                       # 1 x 3 warm-up + 6, as phase 7
+    for i, sampler in enumerate(JOINT_SHARDED_SAMPLERS):
+        phase = f"main_path_joint_sharded/{sampler}"
+        ranks = [r[2 * i] for r in per_rank]
+        steps = [r[2 * i + 1] for r in per_rank]
+        must = ("fused_weights",) + (("fused_rot_weights",)
+                                     if sampler.startswith("aux_slice")
+                                     else ())
+        for r in ranks + steps:
+            cnt = r["counts"]
+            for name in must:
+                if cnt[name] <= 0:
+                    c.failures.append(f"{phase}: rank {r['rank']} never "
+                                      f"launched {name}")
+            for name in estimators:
+                if cnt[name] != 0:
+                    c.failures.append(f"{phase}: rank {r['rank']} launched "
+                                      f"{name}")
+        for r in ranks:
+            if r["u_shape"] != (B, S_LOCAL, N) or \
+                    (shares and r["backend"] != "gloo"):
+                c.failures.append(f"{phase}: rank {r['rank']} u "
+                                  f"{r['u_shape']} over {r['backend']}")
+            if not (np.isfinite(r["recorded_theta"]).all()
+                    and np.isfinite(r["log_lik_hat"]).all()):
+                c.failures.append(f"{phase}: non-finite theta or log L-hat")
+        bitwise = all(np.array_equal(r[k_], ranks[0][k_]) for r in ranks
+                      for k_ in ("theta", "log_lik_hat", "recorded_theta"))
+        step_bitwise = all(np.array_equal(r[k_], steps[0][k_]) for r in steps
+                           for k_ in ("theta", "log_lik_hat"))
+        if not (bitwise and step_bitwise):
+            c.failures.append(f"{phase}: the two ranks differ in theta or "
+                              "log L-hat")
+        s_, info, probe_log = local[sampler]
+        amb = torch.zeros(B, dtype=torch.bool, device=s_.u.device)
+        for counted, margin in probe_log:
+            amb |= counted & (margin.abs() <= SHARDED_LL_TOL)
+        agree = torch.ones_like(amb)
+        for k_, v_ in info.items():
+            agree &= v_ == torch.as_tensor(steps[0]["info"][k_],
+                                           device=v_.device)
+        n_amb, n_bad = int(amb.sum()), int((~agree & ~amb).sum())
+        if n_bad:
+            c.failures.append(f"{phase}: counts differ on {n_bad} chains "
+                              "whose margins were all outside the tolerance")
+        if n_amb > MAX_AMBIGUOUS:
+            c.failures.append(f"{phase}: {n_amb} chains had a decision "
+                              "inside the tolerance")
+        th2 = torch.as_tensor(steps[0]["theta"], device=s_.u.device)
+        ll2 = torch.as_tensor(steps[0]["log_lik_hat"], device=s_.u.device)
+        r0 = ranks[0]
+        out[sampler] = {
+            "args": SHARDED_CLI_ARGS + ["--sampler", sampler],
+            "backend": r0["backend"], "target": r0["target"],
+            "ranks_bitwise_equal": bitwise,
+            "chain_steps_per_sec": r0["summary"]["chain_steps_per_sec"],
+            "launches": [r["counts"] for r in ranks],
+            "launches_per_step": {
+                k_: round(r0["counts"][k_] / n_steps, 2)
+                for k_ in ("fused_weights", "fused_rot_weights",
+                           "chol_panel", "collectives")},
+            "peak_memory_gb_rank0": r0["peak_mem_gb"],
+            "keyed_step_vs_unsharded": {
+                "chains": B, "ranks_bitwise_equal": step_bitwise,
+                "decisions_logged": len(probe_log),
+                "chains_with_a_decision_inside_tolerance": n_amb,
+                "chains_with_a_differing_count": int((~agree).sum()),
+                "of_those_outside_tolerance": n_bad,
+                "max_abs_err": {
+                    "theta": c.check_close(phase, "theta", th2, s_.theta,
+                                           SHARDED_LL_TOL, agree),
+                    "ll": c.check_close(phase, "ll", ll2, s_.log_lik_hat,
+                                        SHARDED_LL_TOL, agree)},
+                "tol": SHARDED_LL_TOL,
+                "launches_rank0": steps[0]["counts"]}}
+    emit({"phase": "main_path_joint_sharded", "card": c.smi,
+          "ranks": K_SHARDS, **out,
+          "spawn_seconds_with_phases_24_to_26_and_scaling_path":
+              round(spawn_s, 1)})
+    c.end_phase()
+    return per_rank[0][-1]
+
+
+def dryrun_phase(c):
+    """dryrun_mesh: ``utils/dryrun.dryrun_mesh(4)`` on four spawned ranks
+    sharing the card (gloo): one ``aux_slice`` step on a 2 x 2 mesh of
+    chains by particles, then the key-as-u sharded SMC on the toy over a
+    chain-only mesh of the four ranks; each rank raises where the
+    reference's dry run asserts; the ranks agree on the betas and logZ."""
+    from auxpm_tpu_torch.parallel.launch import spawn
+    from auxpm_tpu_torch.utils import dryrun
+
+    log("dryrun_mesh: 4 ranks")
+    t0 = time.time()
+    ranks = spawn(dryrun.dryrun_mesh, DRYRUN_RANKS, DRYRUN_RANKS, "cuda",
+                  timeout_s=300, threads=0)
+    spawn_s = time.time() - t0
+    r0 = ranks[0]
+    for r in ranks:
+        if r["mesh"] != [DRYRUN_RANKS // 2, 2] or \
+                r["smc"]["betas"] != r0["smc"]["betas"] or \
+                r["smc"]["log_z"] != r0["smc"]["log_z"]:
+            c.failures.append(f"dryrun_mesh: rank {r['rank']}: {r}")
+        if c.torch.cuda.device_count() < DRYRUN_RANKS and \
+                r["backend"] != "gloo":
+            c.failures.append(f"dryrun_mesh: rank {r['rank']} on "
+                              f"{r['backend']}")
+    emit({"phase": "dryrun_mesh", "card": c.smi, "ranks": DRYRUN_RANKS,
+          "mesh": r0["mesh"], "backend": r0["backend"],
+          "devices": [r["device"] for r in ranks],
+          "step_theta_shape": r0["step_theta_shape"], "smc": r0["smc"],
+          "spawn_seconds": round(spawn_s, 1)})
+    c.end_phase()
+
+
+def scaling_phase(c, out):
+    """scaling_path: ``utils/scaling`` on the two ranks of phases 24-26's
+    spawn, sharing the card (32 chains per rank, 2 + 5 steps): rank 0's
+    line ``out`` has the reference's JSON keys plus
+    ``ranks_per_card`` (2 here), both throughputs positive.  Ranks that
+    share a card check the code path; the ratio is not scaling
+    efficiency."""
+    want = K_SHARDS / c.torch.cuda.device_count()
+    if not (out["tput_1dev"] > 0 and out["tput_ndev"] > 0
+            and out["n_devices"] == K_SHARDS and out["platform"] == "gpu"
+            and out["ranks_per_card"] == max(want, 1.0)):
+        c.failures.append(f"scaling_path: {out}")
+    emit({"phase": "scaling_path", "card": c.smi, "args": SCALING_ARGS,
+          "line": out,
+          "note": "ranks sharing one card: a check of the code path, not "
+                  "scaling efficiency"})
+    c.end_phase()
+
+
+def smc_scale_phase(c):
+    """main_path_smc_scale: ``utils/smc_scale.main`` on a world of one rank
+    in this process: (i) the toy at 2^20 particles with ``aux_slice`` (the
+    reference's ``SMC_1M_toy.json`` run), |logZ - closed form| at most
+    0.02; (ii) config 5's GP path (Pima subsample 32, S = 32, ``aux_nuts``,
+    padded) at ``SMC_SCALE_GP_PARTICLES``: the last beta 1, logZ finite,
+    the last stage's refresh acceptance at least the reference's floor of
+    0.2, and the estimator, panel and threefry kernels launched in every
+    stage; stage walls, peak memory, the chunk used.  Then one stage of a
+    one-chunk population under ``torch.profiler``: its kernel launches and
+    host syncs, what a chunk of (ii) costs."""
+    torch, np = c.torch, c.np
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from auxpm_tpu_torch.models.datasets import load
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.parallel.mesh import (
+        INIT_METHOD_ENV,
+        distributed_init,
+        make_mesh,
+    )
+    from auxpm_tpu_torch.samplers.composite import THETA_ONLY
+    from auxpm_tpu_torch.samplers.smc_sharded import make_smc_sharded
+    from auxpm_tpu_torch.utils import smc_scale
+
+    world_dir = tempfile.mkdtemp(prefix="auxpm_world_")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1",
+           INIT_METHOD_ENV: f"file://{world_dir}/rendezvous"}
+    torch.cuda.empty_cache()
+    runs = {}
+    try:
+        with mock.patch.dict(os.environ, env):
+            for name, argv in SMC_SCALE_RUNS.items():
+                log(f"main path (smc_scale, {name}):", " ".join(argv))
+                result = {}
+                with contextlib.redirect_stdout(sys.stderr):   # its line
+                    rc = smc_scale.main(argv, result=result)
+                if rc != 0:
+                    raise AssertionError(f"smc_scale returned {rc}")
+                runs[name] = result
+                torch.cuda.empty_cache()
+            mesh1 = make_mesh(1)
+        toy, gp = runs["toy"], runs["gp"]
+        err = abs(toy["diag"]["log_z"] - smc_scale.toy_log_evidence())
+        for name, r in runs.items():
+            if r["out"]["betas"][-1] != 1.0 or \
+                    not math.isfinite(r["diag"]["log_z"]):
+                c.failures.append(f"main_path_smc_scale/{name}: betas "
+                                  f"{r['out']['betas']}, logZ "
+                                  f"{r['diag']['log_z']}")
+        if not err <= SMC_SCALE_TOY_LOGZ_TOL:
+            c.failures.append(f"main_path_smc_scale/toy: |logZ - closed "
+                              f"form| = {err:.4f} > {SMC_SCALE_TOY_LOGZ_TOL}")
+        if not gp["diag"]["u_mh_accept"][-1] >= U_BLOCKS_ACCEPT_FLOOR:
+            c.failures.append(f"main_path_smc_scale/gp: last-stage refresh "
+                              f"acceptance {gp['diag']['u_mh_accept'][-1]}")
+        for st in gp["out"]["per_stage"][1:]:
+            for k_ in ("fused_estimator", "chol_panel", "threefry_launches"):
+                if st[k_] <= 0:
+                    c.failures.append(f"main_path_smc_scale/gp: stage "
+                                      f"{st['stage']} never launched {k_}")
+        # one stage of a one-chunk population, profiled
+        x32, y32 = load("pima", subsample=32, seed=0)
+        tgt = make_gp_classification(x32, y32, n_importance=32,
+                                     device="cuda")
+        chunk = gp["out"]["rejuv_batch"]
+        run1 = make_smc_sharded(tgt, THETA_ONLY["nuts"], chunk, mesh1,
+                                n_mcmc=1, carry_u=False, n_u_mh=2,
+                                rejuv_batch=chunk)
+        st0, k_loop = run1.init_states(1)
+        beta0 = torch.zeros((), dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run1.stage(st0, beta0, k_loop, 0)
+            torch.cuda.synchronize()
+        launches = syncs = 0
+        busy_ms = 0.0
+        for evt in prof.key_averages():
+            if evt.key == "aten::_local_scalar_dense":
+                syncs += evt.count
+            if evt.device_type == DeviceType.CUDA:
+                launches += evt.count
+                busy_ms += evt.self_device_time_total / 1e3
+        del run1, st0
+    finally:
+        dist.destroy_process_group()
+    line = {name: {k_: r["out"][k_] for k_ in (
+        "target", "particles", "n_stages", "wall_total", "init_wall",
+        "stage_wall", "log_z", "betas", "u_mh_accept", "posterior_mean",
+        "posterior_std", "rejuv_batch", "chunks_per_stage", "peak_memory_gb",
+        "per_stage")} for name, r in runs.items()}
+    line["toy"].update(log_z_true=toy["out"]["log_z_true"],
+                       log_z_abs_err=err, tol=SMC_SCALE_TOY_LOGZ_TOL,
+                       record=SMC_1M_TOY_RECORD)
+    emit({"phase": "main_path_smc_scale", "card": c.smi,
+          "args": SMC_SCALE_RUNS, **line,
+          "one_chunk_stage_profiled": {
+              "particles": chunk, "kernel_launches": launches,
+              "host_syncs": syncs, "device_busy_ms": busy_ms}})
+    c.end_phase()
 
 
 def _ulps(torch, a, b):

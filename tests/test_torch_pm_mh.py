@@ -358,3 +358,57 @@ def test_particle_sharded_run_matches_the_unsharded_run(sampler):
     np.testing.assert_allclose(ranks[0]["log_lik_hat"],
                                whole["states"].log_lik_hat.numpy(), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("sampler", ["joint_mh", "aux_slice_joint"])
+def test_keyed_step_job_on_two_ranks_matches_one_process(sampler):
+    """``rank_jobs`` job ``keyed_step`` (what ``chip_smoke.py``'s
+    ``main_path_joint_sharded`` runs on the card): one step from a fixed
+    state on two particle-sharded gloo ranks, each rank's rows drawn from
+    the chains' keys, against the same step in one process: both ranks
+    bitwise equal, every per-chain count equal and theta / log L-hat within
+    1e-4 (the bar of the sharded path parity), with stepping out on."""
+    from auxpm_tpu_torch.parallel import rank_jobs
+    from auxpm_tpu_torch.parallel.launch import spawn
+    from auxpm_tpu_torch.utils.config import PRESETS, initial_params
+
+    x, y = jload("pima", subsample=60)
+    tt = tmake(x, y, n_importance=S, device="cpu")
+    st = t_init(3, tt, CHAINS, jitter_scale=0.3)
+    cfg = PRESETS["pima_aux_slice"].replace(sampler=sampler, max_step_out=8)
+    par = initial_params(cfg, tt)
+    par_np = {g: {k: (v.numpy() if torch.is_tensor(v) else v)
+                  for k, v in sub.items()} for g, sub in par.items()}
+    state_np = {"theta": st.theta.numpy(), "u": st.u.numpy(),
+                "log_lik_hat": st.log_lik_hat.numpy(), "key": st.key.numpy()}
+    ranks = [r[0] for r in spawn(
+        rank_jobs.run_all, 2,
+        [("keyed_step", ("gp", x, y, {"n_importance": S}), sampler,
+          state_np, par_np)], 2, "cpu", timeout_s=180)]
+    whole, info = SAMPLERS[sampler](tt)(st, par)
+    for r in ranks:
+        np.testing.assert_array_equal(r["theta"], ranks[0]["theta"])
+        np.testing.assert_array_equal(r["log_lik_hat"],
+                                      ranks[0]["log_lik_hat"])
+        assert r["counts"]["collectives"] > 0
+    assert set(ranks[0]["info"]) == set(info)
+    for k, v in info.items():
+        np.testing.assert_array_equal(ranks[0]["info"][k], v.numpy(), k)
+    np.testing.assert_allclose(ranks[0]["theta"], whole.theta.numpy(),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(ranks[0]["log_lik_hat"],
+                               whole.log_lik_hat.numpy(), rtol=0, atol=1e-4)
+
+
+def test_joint_mh_logs_its_accept_margin():
+    x, y = jload("pima", subsample=60)
+    tt = tmake(x, y, n_importance=S, device="cpu")
+    st = t_init(4, tt, CHAINS, jitter_scale=0.3)
+    step = SAMPLERS["joint_mh"](tt).stages["joint_mh"]
+    rows, _ = step.draw(st)
+    log = []
+    _, info = step.apply(st, rows, {"step_size": 0.3, "probe_log": log})
+    (counted, margin), = log
+    assert bool(counted.all())
+    np.testing.assert_array_equal((margin > 0).numpy(),
+                                  info["accept"].numpy() > 0)

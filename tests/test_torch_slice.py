@@ -466,7 +466,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     for new in ("core/prng.py", "samplers/smc_sharded.py",
-                "parallel/resampling.py", "parallel/collectives.py"):
+                "parallel/resampling.py", "parallel/collectives.py",
+                "utils/smc_scale.py", "utils/smc_init.py", "utils/scaling.py",
+                "utils/dryrun.py"):
         assert REPO / "auxpm_tpu_torch" / new in files
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "auxpm_tpu"}
