@@ -18,15 +18,19 @@
 // 0).  A chain's probes follow each other in consecutive rounds, so the
 // number of rounds is the largest probe count of any chain.
 //
-// State between rounds lives in a small global workspace (the wrapper's):
-// per chain kState floats (repeat, shrinks so far, angle, bracket, ll, log y,
+// State between rounds lives in a small global workspace (the wrapper's): per
+// chain kState floats (repeat, shrinks so far, angle, bracket, ll, log y,
 // counts, active flag) in two buffers, read in one round and written for the
-// next; the tile sums rowsum[chain][tile][64]; last, the number of rounds the
-// launch took.  In phase B a chain has max(1, grid / B) blocks: each folds
-// and decides (the same floats give the same decision), the first writes the
-// next state, and each rewrites its slice of u' (float4, through L2): a
-// first version left the rewrite (492 KB of traffic per accepted chain) to
-// one block per chain.  u_out is the working buffer, as in the reference.
+// next; the tile sums rowsum[chain][tile][S]; last, the number of rounds the
+// launch took.  Phase B folds a chain's S log-weights in the block's idle
+// ring.  Any S up to kMaxSamples (row blocks of 64, C streamed once per block)
+// and n a multiple of 64 (the wrapper's gate: only a padded target gets a
+// sweep, as in the reference).  In phase B a chain has max(1, grid / B)
+// blocks: each folds and decides (the same floats give the same decision),
+// the first writes the next state, and each rewrites its slice of u' (float4,
+// through L2): a first version left the rewrite (492 KB of traffic per
+// accepted chain) to one block per chain.  u_out is the working buffer, as
+// in the reference.
 //
 // Bound: operations.  S n (n + 64) / 2 FMAs per probe with the triangle
 // skipped (the least work is S n (n + 1) FLOPs), against one read of (C, u,
@@ -59,7 +63,7 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int sn = S * n;
-  const int n_tiles = n / kCols;
+  const int n_tiles = col_tiles(n);
 
   init_smem(sm);
 
@@ -93,7 +97,7 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
   const int per_chain = max(1, int(gridDim.x) / B);
   const int chains_per_pass = int(gridDim.x) / per_chain;
   const int slice = int(blockIdx.x) % per_chain;
-  const int sn4 = sn / 4;
+  const int sn4 = sn / 4;   // 64 divides n
   const int slice_len = (sn4 + per_chain - 1) / per_chain;
 
   Ring ring;
@@ -139,7 +143,8 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
       }
       if (tid < 32) {
         const float ll_p =
-            fold_estimate(sm, rowsum, b, n_tiles, S, n_blocks, log_s);
+            fold_estimate(idle_ring(sm), rowsum, b, n_tiles, S, n_blocks,
+                        log_s);
         if (tid == 0) {
           int r = int(__ldcg(st + kRep)), i = int(__ldcg(st + kShrink));
           float a = __ldcg(st + kA), a_min = __ldcg(st + kAMin);
@@ -222,7 +227,8 @@ ess_sweep_kernel(const float* __restrict__ chol, const float* __restrict__ u,
           uo[idx] = x;
         }
       }
-      __syncthreads();   // sm.bcast and sm.lw are reused by the next chain
+      __syncthreads();   // sm.bcast and the folded weights are reused by
+                         // the next chain
     }
     grid.sync();
   }
@@ -281,7 +287,7 @@ extern "C" int auxpm_ess_sweep(const void* chol, const void* u,
   float* stats_ = static_cast<float*>(stats);
   float* state_ = static_cast<float*>(workspace);
   float* rowsum_ = state_ + 2 * size_t(B) * kState;
-  float* rounds_ = rowsum_ + size_t(B) * (n / sweep::kCols) * kRows;
+  float* rounds_ = rowsum_ + size_t(B) * sweep::col_tiles(n) * S;
   void* args[] = {&chol_,  &u_,     &scal_,   &v_,      &y_,      &mask_,
                   &u_out_, &stats_, &state_,  &rowsum_, &rounds_, &B,
                   &S,      &n,      &R,       &n_blocks, &log_s};

@@ -9,18 +9,21 @@
 // (_pallas_rot_weights).  Each TPU kernel walks column blocks of C on a
 // sequential grid and carries the per-sample accumulator in scratch from one
 // grid step to the next; blocks on this card run in no order.  Here the
-// (chain, 64-column tile) items of the call's chains, the triangle of C
-// skipped, are spread over a grid of resident blocks (two per SM), each
-// item's row sums go to a global slot rowsum[chain][tile][64], and the block
-// that completes a chain's LAST item folds the chain's tiles in tile order
-// (fold_when_last).  It finds out by a per-chain arrival counter (its stores
-// fenced, then atomicAdd): one launch that need not be cooperative, with no
-// grid barrier to wait at and each chain's fold overlapping the other
+// (chain, 64-row block, 64-column tile) items of the call's chains, the
+// triangle of C skipped, are spread over a grid of resident blocks (two per
+// SM), each item's row sums go to a global slot rowsum[chain][tile][S], and
+// the block that completes a chain's LAST item folds the chain's tiles in tile
+// order (fold_when_last).  It finds out by a per-chain arrival counter (its
+// stores fenced, then atomicAdd): one launch that need not be cooperative,
+// with no grid barrier to wait at and each chain's fold overlapping the other
 // chains' items.  The fold's order does not depend on which block folds, and
 // each row's arithmetic (the sum over k in one accumulator, 8 columns and a
 // shuffle tree per row, the tile-order fold) is that row's alone: a chain's
 // result does not depend on the other chains of its call, nor a row's weight
-// on the rows that share its call.
+// on the rows that share its call.  Any S from 1 to kMaxSamples and any n: the
+// TPU kernels hold the whole (S, n) block of u in VMEM, here S is a loop over
+// row blocks (C streamed once per block) and a partial last tile is masked
+// (sweep_body.cuh).
 //
 //   entry                 probe                    items           fold
 //   fused_estimate        u                        every chain     estimate
@@ -41,9 +44,11 @@
 //   the number of active chains to `active_total` (or nothing if it is
 //   null): the wrappers' running count.  The list is uint16: the wrappers
 //   split more than sweep::kMaxChains chains into several launches.
-// * "estimate": warp 0 of the folding block runs the fixed 8-block
-//   log-sum-exp minus log S (fold_estimate) and writes out[b].  "rows": it
-//   writes the chain's S row sums out[b][0..S) (fold_rows), with no
+// * "estimate": warp 0 of the folding block folds the chain's rows into
+//   shared memory (S <= 64) or in place into the chain's tile-0 slots of
+//   rowsum (lane s reads and writes only row s), runs the fixed 8-block
+//   log-sum-exp minus log S over them (fold_estimate) and writes out[b].  "rows": it folds
+//   the chain's S row sums straight into out[b][0..S) (fold_rows), with no
 //   log-sum-exp: the local half of the particle-sharded estimator, where a
 //   rank scores its own S_local = S / K rows against the replicated factor
 //   and a collective folds the blocked partials of all ranks.  The K ranks
@@ -61,9 +66,10 @@
 // that is 23 (rotated) to 27 FLOPs per byte, above the card's FP32 balance
 // of about 20: bound by operations; at S_local = 32 (the weights) 13 to 15:
 // bound by bytes.  What holds the kernels back in fact is the body's rate
-// and, at a few active chains, the longest item (sweep_body.cuh).
+// and, at a few active chains, the longest item (sweep_body.cuh); past 64
+// rows also the re-reads of C, once per row block.
 //
-// workspace of every entry: rowsum (B * n / 64 * 64 floats), then B int
+// workspace of every entry: rowsum (B * ceil(n / 64) * S floats), then B int
 // arrival counters that must be 0 at the launch.  active and active_total
 // may be null.
 #include "sweep_body.cuh"
@@ -102,7 +108,8 @@ __device__ inline void one_round(
     const float* __restrict__ mask, float* rowsum, int* arrivals,
     int* active_total, int B, int S, int n, Zero zero, Fold fold) {
   using namespace sweep;
-  const int n_tiles = n / kCols;
+  const int n_tiles = col_tiles(n);
+  const int items = n_tiles * row_blocks(S);   // per chain
   int n_active = B;
   if (active != nullptr) {
     for (int b = blockIdx.x; b < B; b += gridDim.x)
@@ -113,7 +120,7 @@ __device__ inline void one_round(
     atomicAdd(active_total, n_active);
   // the grid never exceeds the items of every chain; with an active list
   // the blocks past the active chains' items have nothing to do
-  if (active != nullptr && int(blockIdx.x) >= n_active * n_tiles) return;
+  if (active != nullptr && int(blockIdx.x) >= n_active * items) return;
 
   init_smem(sm);
   Ring ring;
@@ -122,7 +129,7 @@ __device__ inline void one_round(
       [&](int j) { return active == nullptr ? j : int(sm.list[j]); },
       [&](int b) { return probe_of(u, v, chol, angle, b, S, n); },
       [&](int b, int) {
-        fold_when_last(arrivals, b, n_tiles, [&] { fold(b); });
+        fold_when_last(arrivals, b, items, [&] { fold(b); });
       });
 }
 
@@ -135,7 +142,7 @@ __device__ inline void estimate_round(
     const float* __restrict__ y, const float* __restrict__ mask,
     float* __restrict__ out, float* rowsum, int* arrivals,
     int* active_total, int B, int S, int n, int n_blocks, float log_s) {
-  const int n_tiles = n / sweep::kCols;
+  const int n_tiles = sweep::col_tiles(n);
   one_round<LIK, BF16, RPT>(
       sm, u, v, chol, angle, active, y, mask, rowsum, arrivals, active_total,
       B, S, n,
@@ -143,8 +150,9 @@ __device__ inline void estimate_round(
         if (threadIdx.x == 0) out[b] = 0.0f;
       },
       [&](int b) {
-        const float est =
-            sweep::fold_estimate(sm, rowsum, b, n_tiles, S, n_blocks, log_s);
+        float* lw = S <= kRows ? sm.lw : rowsum + size_t(b) * n_tiles * S;
+        const float est = sweep::fold_estimate(lw, rowsum, b, n_tiles, S,
+                                               n_blocks, log_s);
         if (threadIdx.x == 0) out[b] = est;
       });
 }
@@ -158,17 +166,17 @@ __device__ inline void weights_round(
     const float* __restrict__ y, const float* __restrict__ mask,
     float* __restrict__ out, float* rowsum, int* arrivals,
     int* active_total, int B, int S, int n) {
-  const int n_tiles = n / sweep::kCols;
+  const int n_tiles = sweep::col_tiles(n);
   const int tid = threadIdx.x;
   one_round<LIK, BF16, RPT>(
       sm, u, v, chol, angle, active, y, mask, rowsum, arrivals, active_total,
       B, S, n,
       [&](int b) {
-        if (tid < S) out[size_t(b) * S + tid] = 0.0f;
+        for (int s = tid; s < S; s += blockDim.x)
+          out[size_t(b) * S + s] = 0.0f;
       },
       [&](int b) {
-        sweep::fold_rows(sm, rowsum, b, n_tiles, S);
-        for (int s = tid; s < S; s += 32) out[size_t(b) * S + s] = sm.lw[s];
+        sweep::fold_rows(out + size_t(b) * S, rowsum, b, n_tiles, S);
       });
 }
 
@@ -254,13 +262,14 @@ cudaError_t launch_round(K kernel, int items, void* stream, Args... args) {
   return cudaGetLastError();
 }
 
+// rowsum[B][ceil(n / 64)][S], arrivals[B]
 struct Workspace {
   float* rowsum;
   int* arrivals;
-  Workspace(void* base, int B, int n)
+  Workspace(void* base, int B, int S, int n)
       : rowsum(static_cast<float*>(base)),
         arrivals(reinterpret_cast<int*>(
-            rowsum + size_t(B) * (n / sweep::kCols) * kRows)) {}
+            rowsum + size_t(B) * sweep::col_tiles(n) * S)) {}
 };
 
 }  // namespace auxpm
@@ -277,14 +286,22 @@ struct Workspace {
 
 #define F(p) static_cast<const float*>(p)
 
+// ops/_build.py compiles this file once per entry, AUXPM_ENTRY = 0..3 (the
+// four entries' 28 kernels took 50 s in one nvcc, the other sources at most
+// 16 s); without it every entry is compiled.
+#ifndef AUXPM_ENTRY
+#define AUXPM_ENTRY -1
+#endif
+
+#if AUXPM_ENTRY < 0 || AUXPM_ENTRY == 0
 extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
                                     const void* y, const void* mask, void* out,
                                     void* workspace, int B, int S, int n,
                                     int n_blocks, float log_s, int likelihood,
                                     int bf16, void* stream) {
   using namespace auxpm;
-  const Workspace ws(workspace, B, n);
-  const int items = B * (n / sweep::kCols);
+  const Workspace ws(workspace, B, S, n);
+  const int items = B * sweep::col_tiles(n) * sweep::row_blocks(S);
   cudaError_t err = cudaSuccess;
 #define CALL(LIK, BF)                                                     \
   err = launch_round(fused_estimate_kernel<LIK, BF>, items, stream,       \
@@ -294,7 +311,9 @@ extern "C" int auxpm_fused_estimate(const void* chol, const void* u,
 #undef CALL
   return static_cast<int>(err);
 }
+#endif
 
+#if AUXPM_ENTRY < 0 || AUXPM_ENTRY == 1
 extern "C" int auxpm_fused_estimate_rot(const void* chol, const void* u,
                                         const void* v, const void* angle,
                                         const void* active, const void* y,
@@ -304,8 +323,8 @@ extern "C" int auxpm_fused_estimate_rot(const void* chol, const void* u,
                                         float log_s, int likelihood, int bf16,
                                         void* stream) {
   using namespace auxpm;
-  const Workspace ws(workspace, B, n);
-  const int items = B * (n / sweep::kCols);
+  const Workspace ws(workspace, B, S, n);
+  const int items = B * sweep::col_tiles(n) * sweep::row_blocks(S);
   cudaError_t err = cudaSuccess;
 #define CALL(LIK, BF, RPT)                                                \
   err = launch_round(fused_estimate_rot_kernel<LIK, BF, RPT>, items,      \
@@ -321,14 +340,16 @@ extern "C" int auxpm_fused_estimate_rot(const void* chol, const void* u,
 #undef CALL
   return static_cast<int>(err);
 }
+#endif
 
+#if AUXPM_ENTRY < 0 || AUXPM_ENTRY == 2
 extern "C" int auxpm_fused_weights(const void* chol, const void* u,
                                    const void* y, const void* mask, void* out,
                                    void* workspace, int B, int S, int n,
                                    int likelihood, int bf16, void* stream) {
   using namespace auxpm;
-  const Workspace ws(workspace, B, n);
-  const int items = B * (n / sweep::kCols);
+  const Workspace ws(workspace, B, S, n);
+  const int items = B * sweep::col_tiles(n) * sweep::row_blocks(S);
   cudaError_t err = cudaSuccess;
 #define CALL(LIK, BF, RPT)                                                 \
   err = launch_round(fused_weights_kernel<LIK, BF, RPT>, items, stream,    \
@@ -342,7 +363,9 @@ extern "C" int auxpm_fused_weights(const void* chol, const void* u,
 #undef CALL
   return static_cast<int>(err);
 }
+#endif
 
+#if AUXPM_ENTRY < 0 || AUXPM_ENTRY == 3
 extern "C" int auxpm_fused_rot_weights(const void* chol, const void* u,
                                        const void* v, const void* angle,
                                        const void* active, const void* y,
@@ -351,8 +374,8 @@ extern "C" int auxpm_fused_rot_weights(const void* chol, const void* u,
                                        int B, int S, int n, int likelihood,
                                        int bf16, void* stream) {
   using namespace auxpm;
-  const Workspace ws(workspace, B, n);
-  const int items = B * (n / sweep::kCols);
+  const Workspace ws(workspace, B, S, n);
+  const int items = B * sweep::col_tiles(n) * sweep::row_blocks(S);
   cudaError_t err = cudaSuccess;
 #define CALL(LIK, BF, RPT)                                                 \
   err = launch_round(fused_rot_weights_kernel<LIK, BF, RPT>, items, stream, \
@@ -367,6 +390,7 @@ extern "C" int auxpm_fused_rot_weights(const void* chol, const void* u,
 #undef CALL
   return static_cast<int>(err);
 }
+#endif
 
 #undef F
 #undef AUXPM_DISPATCH_RPT

@@ -14,7 +14,8 @@
 
 namespace auxpm {
 
-constexpr int kRows = 64;     // most importance samples a block can hold
+constexpr int kRows = 64;     // rows of u in one work item (a row block)
+constexpr int kMaxSamples = 4096;  // most importance samples S of a probe
 constexpr int kMaxShrink = 32;
 
 enum Likelihood { kLogistic = 0, kProbit = 1 };

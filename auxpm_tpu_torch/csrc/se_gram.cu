@@ -36,9 +36,12 @@
 //     with no bank conflict and the staging needs no integer division;
 //   * a thread computes 4 rows x 4 consecutive columns of a tile and stores
 //     each row's 4 as one streaming float4 (__stcs), 16 threads covering a
-//     256-byte row segment; an off-diagonal tile is also written at its
-//     mirror position: the tile goes through shared memory (pitch 65),
-//     transposed, so the mirror's stores are whole row segments too;
+//     256-byte row segment (where 4 does not divide n, the kernel's other
+//     instantiation: rows start unaligned and the four go out one by one,
+//     columns past n left out; the reference pads any n to its tiles); an
+//     off-diagonal tile is also written at its mirror position: the tile
+//     goes through shared memory (pitch 65), transposed, so the mirror's
+//     stores are whole row segments too;
 //   * every element keeps the expression of the full-square kernel this
 //     replaced (one 64 x 64 tile per block, both triangles computed):
 //     fmaf over k ascending for the cross term and for sq, fmaxf(sq_i + sq_j
@@ -66,6 +69,24 @@ inline size_t gram_smem_bytes(int n, int d) {
          (size_t(gram_pad(n)) * (d + 2) + size_t(kGramTile) * kGramLdT);
 }
 
+// Columns j .. j + 3 of one output row, those below n: one streaming float4
+// where 4 divides n (kQuads: the row then starts 16-byte aligned), else
+// float by float.  The values are stored as given.
+template <bool kQuads>
+__device__ __forceinline__ void store_quad(float* dst, const float* v, int j,
+                                           int n) {
+  if constexpr (kQuads) {
+    if (j < n)   // all four columns or none
+      __stcs(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2],
+                                                         v[3]));
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (j + c < n) __stcs(dst + c, v[c]);
+  }
+}
+
+template <bool kQuads>
 __global__ void __launch_bounds__(kGramThreads)
 se_gram_ard_kernel(const float* __restrict__ x,         // (n, d)
                    const float* __restrict__ log_ells,  // (B, d), row stride
@@ -161,9 +182,8 @@ se_gram_ard_kernel(const float* __restrict__ x,         // (n, d)
         res[c] = v;
         if (mirror) tt[(c0 + c) * kGramLdT + r] = vt;
       }
-      if (gi < n && j0 + c0 < n)   // n % 4 == 0: all four columns or none
-        __stcs(reinterpret_cast<float4*>(ob + size_t(gi) * n + j0 + c0),
-               make_float4(res[0], res[1], res[2], res[3]));
+      if (gi < n)
+        store_quad<kQuads>(ob + size_t(gi) * n + j0 + c0, res, j0 + c0, n);
     }
     if (mirror) {                  // uniform in the block
       __syncthreads();
@@ -171,10 +191,9 @@ se_gram_ard_kernel(const float* __restrict__ x,         // (n, d)
       for (int rr = 0; rr < 4; ++rr) {
         const int jr = r0 + 16 * rr;
         const float* src = tt + jr * kGramLdT + c0;
-        if (j0 + jr < n && i0 + c0 < n)
-          __stcs(reinterpret_cast<float4*>(ob + size_t(j0 + jr) * n + i0 +
-                                           c0),
-                 make_float4(src[0], src[1], src[2], src[3]));
+        if (j0 + jr < n)
+          store_quad<kQuads>(ob + size_t(j0 + jr) * n + i0 + c0, src, i0 + c0,
+                             n);
       }
       __syncthreads();             // tt is rewritten by the next item
     }
@@ -191,32 +210,34 @@ se_gram_ard_kernel(const float* __restrict__ x,         // (n, d)
 }  // namespace auxpm
 
 // x (n, d), log_ells (B, d) with row stride le_stride, mask (n,) or null
-// -> out (B, n, n).  n % 4 == 0 (float4 stores) and gram_smem_bytes(n, d)
-// within a block's shared memory (the wrapper checks both).
+// -> out (B, n, n), any n with gram_smem_bytes(n, d) within a block's
+// shared memory (the wrapper checks it).
 extern "C" int auxpm_se_gram_ard(const void* x, const void* log_ells,
                                  const void* mask, void* out, int B, int n,
                                  int d, int le_stride, float jitter,
                                  void* stream) {
   using namespace auxpm;
+  // float4 stores where 4 divides n, else float by float
+  const auto kernel =
+      n % 4 == 0 ? se_gram_ard_kernel<true> : se_gram_ard_kernel<false>;
   const size_t smem = gram_smem_bytes(n, d);
   cudaError_t err = cudaFuncSetAttribute(
-      se_gram_ard_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   int dev = 0, sms = 0, per_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, se_gram_ard_kernel, kGramThreads, smem);
+        &per_sm, kernel, kGramThreads, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int pad_tiles = gram_pad(n) / kGramTile;
   const long long items =
       (long long)B * (pad_tiles * (pad_tiles + 1) / 2);
   long long grid = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   if (items < grid) grid = items;
-  se_gram_ard_kernel<<<int(grid), kGramThreads, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<int(grid), kGramThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(log_ells),
       static_cast<const float*>(mask), static_cast<float*>(out), B, n, d,
       le_stride, jitter);

@@ -35,7 +35,10 @@
 // kState floats (repeat, probes in this repeat, bracket, candidate, point,
 // lp, ll, log y, counts, active flag) in two buffers, read in one round and
 // written for the next (a chain that finishes clears its flag in both); the
-// tile sums rowsum[chain][tile][64]; last, the number of rounds.
+// tile sums rowsum[chain][tile][S]; last, the number of rounds.  Phase B
+// folds a chain's S log-weights in the block's idle ring.  Any S up to
+// kMaxSamples and n a multiple of 64 (the wrapper's gate, as the ESS
+// sweep's).
 //
 // Bound: operations.  S n (n + 64) / 2 FMAs per probe with the triangle
 // skipped (the least work is S n (n + 1) FLOPs), against one read of the
@@ -69,7 +72,7 @@ sigma_sweep_kernel(const float* __restrict__ chol0,
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
   const int sn = S * n;
-  const int n_tiles = n / kCols;
+  const int n_tiles = col_tiles(n);
 
   init_smem(sm);
 
@@ -130,7 +133,8 @@ sigma_sweep_kernel(const float* __restrict__ chol0,
     for (int j = blockIdx.x; j < n_active && tid < 32; j += gridDim.x) {
       const int b = sm.list[j];
       const float ll_x =
-          fold_estimate(sm, rowsum, b, n_tiles, S, n_blocks, log_s);
+          fold_estimate(idle_ring(sm), rowsum, b, n_tiles, S, n_blocks,
+                        log_s);
       if (tid != 0) continue;
       const float* ch = chain + size_t(b) * 8;
       const float w = ch[3], mu = ch[4], hiv = ch[5], lp_rest = ch[6];
@@ -214,7 +218,7 @@ extern "C" int auxpm_sigma_sweep(const void* chol0, const void* u,
   float* stats_ = static_cast<float*>(stats);
   float* state_ = static_cast<float*>(workspace);
   float* rowsum_ = state_ + 2 * size_t(B) * kState;
-  float* rounds_ = rowsum_ + size_t(B) * (n / sweep::kCols) * kRows;
+  float* rounds_ = rowsum_ + size_t(B) * sweep::col_tiles(n) * S;
   void* args[] = {&chol0_, &u_,     &chain_,  &rep_, &y_, &mask_,
                   &stats_, &state_, &rowsum_, &rounds_, &B, &S,
                   &n,      &R,      &n_blocks, &log_s};

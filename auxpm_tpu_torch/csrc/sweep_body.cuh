@@ -16,49 +16,72 @@
 // fused_estimator.cu are one such round with no barrier: the block that
 // completes a chain's last item folds it (fold_when_last).
 //
-// Phase A.  A work item is (active chain, 64-column tile t of f = left C^T).
-// C is lower-triangular, so tile t contracts only k < 64 (t + 1): the terms
-// dropped are exact zeros (fmaf(a, 0, acc) == acc), and the work is
-// S n (n + 64) / 2 FMAs per probe instead of S n^2.  Items are dealt to blocks
-// in a fixed order, largest k range first (t descending, then chains in
-// ascending index), block g taking items g, g + grid, ...  A block is one
-// producer warp and four consumer warps:
+// Phase A.  A work item is (active chain, block of up to 64 rows of u,
+// 64-column tile t of f = left C^T): S importance samples make
+// ceil(S / 64) row blocks, and n columns ceil(n / 64) tiles, the last one
+// partial when 64 does not divide n (its columns j >= n are left out of
+// the likelihood).  C is lower-triangular, so tile t contracts only
+// k < min(64 (t + 1), n): the terms dropped are exact zeros
+// (fmaf(a, 0, acc) == acc), and the work is about S n (n + 64) / 2 FMAs
+// per probe instead of S n^2.  C is streamed once per row block, so at
+// S > 64 a probe reads it ceil(S / 64) times (PERF.md).  Items are dealt to
+// blocks in a fixed order, largest k range first (t descending, then
+// chains in ascending index, then row blocks ascending), block g taking
+// items g, g + grid, ...  A block is one producer warp and four consumer
+// warps:
 //   * the producer streams 32-deep chunks of u, v (if the probe rotates) and
-//     C (16-byte cp.async copies through L2, up to 48 per lane per chunk)
-//     into a ring of kStages shared-memory stages; each stage has a `full`
-//     mbarrier (one arrival per producer lane when its copies have landed)
-//     and an `empty` one (the 128 consumer threads).  C is read with an
-//     evict-first L2 policy: it is streamed once per probe, while u and v
-//     are re-read by every tile of the probe.  A first version issued one
-//     128-byte bulk copy (cp.async.bulk) per row, 192 per chunk, and took
-//     10.4 ms for config 2's sweep against 5.5 with these copies (PERF.md);
+//     C (16-byte cp.async copies through L2 at a fixed stride, up to 48 per
+//     lane per chunk) into a ring of kStages shared-memory stages.  A chunk
+//     that holds columns past n, rows of C past n (the last tile) or rows
+//     that do not start 16-byte aligned (4 does not divide n) goes through
+//     copy_ragged_chunk instead, out of line: copies cut at n (4 bytes each
+//     where unaligned), the rest zero-filled by the copy itself (src-size
+//     below its size).  With those cut copies inline in the common loop,
+//     every kernel of the body took up to 2x as long at config 2's shapes
+//     (PERF.md).
+//     Each stage has a `full` mbarrier (one arrival per producer lane when
+//     its copies have landed) and an `empty` one (the 128 consumer threads).
+//     C is read with an evict-first L2 policy: it is streamed once per
+//     probe and row block, while u and v are re-read by every tile of the
+//     probe.  A first version issued one 128-byte bulk copy (cp.async.bulk)
+//     per row, 192 per chunk, and took 10.4 ms for config 2's sweep against
+//     5.5 with these copies (PERF.md);
 //   * the consumers form the rotated operand u cos a + v sin a in place as
 //     each chunk arrives, and scale C by the probe's c_scale in place (one
 //     consumer barrier per chunk when either happens; operands rounded to
 //     bf16 for whiten_dtype="bfloat16", as round_operand does), then run a
 //     4 x 8 register tile each: per 4-deep step 4 + 8 float4 shared loads
 //     feed 128 FMAs.  Rows of u and C are padded to 36 floats so that
-//     neither operand's loads conflict.
-//   * the likelihood is applied to the finished 64 x 64 tile and each row's
-//     sum over the tile's columns goes to a global slot rowsum[chain][t][s];
-//     the caller's `done(chain, t)` then runs on the consumers (the
-//     estimator counts arrivals there, the sweeps do nothing).
+//     neither operand's loads conflict.  The rows of a stage past the row
+//     block's last are left as they are and their results are not stored;
+//   * the likelihood is applied to the finished 64 x 64 tile (columns
+//     j < n) and each row's sum over the tile's columns goes to a global
+//     slot rowsum[chain][t][s] (S slots a tile); the caller's `done(chain,
+//     t)` then runs on the consumers (the estimator counts arrivals there,
+//     the sweeps do nothing).
 // Each f element is the sum over k in ascending order in one accumulator,
 // each row's sum over a tile's columns is one shuffle tree, and the tiles
 // fold in tile order (fold_rows): a row of a given probe has the same bits
-// in every kernel of the body, whichever rows share its call.  The plain
-// PyTorch versions sum in other orders and agree to rounding, not bitwise.
+// in every kernel of the body, whichever rows share its call and whichever
+// row block holds it.  The plain PyTorch versions sum in other orders and
+// agree to rounding, not bitwise.
 //
-// Shared memory does not depend on n (a stage is 26 KB), so two blocks share
-// an SM; the grid is that occupancy times the SM count.  Tried and not kept
-// (PERF.md): 128-column items on 256 consumer threads (one block per SM;
-// the same time), 8 x 8 register tiles on 128-column items (spills,
-// slower), and a bulk L2 prefetch (cp.async.bulk.prefetch.L2) of each
-// streamed row's next 4, 8 or 20 chunks, so that DRAM reads whole row
-// segments and not 128-byte pieces (every kernel of the body slower or no
-// faster).  What bounds the body now: a round lasts at least as long as its
-// longest item (20 chunks of tile 9 at n = 640), and in full rounds each
-// chunk moves 24.5 KB (16 KB without v) for 131 k FMAs.
+// Shared memory depends on neither n nor S (a stage is 26 KB), so two blocks
+// share an SM; the grid is that occupancy times the SM count.  A chain's S
+// folded log-weights go to a buffer the caller names: the output (weights);
+// for the estimate sm.lw at S <= 64, else the chain's own tile-0 row sums, in
+// place (one folding block a chain; the log-sum-exp's reads of global memory
+// made the estimate 3 % slower at S = 64, PERF.md); or the idle ring in phase
+// B of a sweep, where several blocks fold the same chain (at most kMaxSamples
+// floats).  Tried and not kept (PERF.md):
+// 128-column items on 256 consumer threads (one block per SM; the same
+// time), 8 x 8 register tiles on 128-column items (spills, slower), and a
+// bulk L2 prefetch (cp.async.bulk.prefetch.L2) of each streamed row's next 4,
+// 8 or 20 chunks, so that DRAM reads whole row segments and not 128-byte
+// pieces (every kernel of the body slower or no faster).  What bounds the
+// body now: a round lasts at least as long as its longest item (20 chunks of
+// tile 9 at n = 640), and in full rounds each chunk moves 24.5 KB (16 KB
+// without v) for 131 k FMAs.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -89,15 +112,23 @@ struct Smem {
   uint64_t full[kStages];
   uint64_t empty[kStages];
   uint16_t list[kMaxChains]; // active chains of the round, ascending
-  float lw[kRows];           // phase B: one chain's folded log-weights
+  float lw[kRows];           // the estimate's folded log-weights, S <= 64
   float bcast[4];            // phase B: decision broadcast
   int warp_count[kThreads / 32];
 };
 
+// Phase B of a sweep folds a chain's S log-weights into the ring, idle
+// between phase A's last chunk and the next round's first.
+static_assert(sizeof(Stage) * kStages >= sizeof(float) * kMaxSamples,
+              "the ring must hold a chain's folded log-weights");
+__device__ __forceinline__ float* idle_ring(Smem& sm) {
+  return reinterpret_cast<float*>(sm.stage);
+}
+
 // One probe of one chain: f = left (c_scale C)^T with left = u (v == nullptr)
-// or u cos a + v sin a; rows S..63 of a stage stay zero.
+// or u cos a + v sin a.
 struct ProbeSpec {
-  const float* u;   // (S, n)
+  const float* u;   // (S, n), S importance samples
   const float* v;   // (S, n) or nullptr
   const float* c;   // (n, n) lower-triangular
   float ca, sa;     // rotation
@@ -157,6 +188,83 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
           smem_addr(dst)),
       "l"(src), "l"(policy)
       : "memory");
+}
+
+// The two with a source size: the first `bytes` are copied, the rest
+// zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes, uint64_t policy) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+// 4 bytes global -> shared (zero-filled if `bytes` is 0): the copies of a
+// row that does not start 16-byte aligned (n % 4 != 0).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// Four consecutive floats of one row, k .. k + 3, into dst: the elements
+// at k >= n are zero-filled and never read (the source address is clamped
+// to the row's start).  `aligned`: 4 divides n, one 16-byte copy.
+template <bool kHint>
+__device__ __forceinline__ void copy_quad(float* dst, const float* row, int k,
+                                          int n, bool aligned,
+                                          uint64_t policy) {
+  if (aligned) {
+    const int bytes = k < n ? 16 : 0;    // n - k is a multiple of 4
+    const float* src = k < n ? row + k : row;
+    if constexpr (kHint) {
+      cp_async16(dst, src, bytes, policy);
+    } else {
+      cp_async16(dst, src, bytes);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool in = k + e < n;
+      cp_async4(dst + e, in ? row + k + e : row, in ? 4 : 0);
+    }
+  }
+}
+
+// One producer lane's copies of one chunk that holds a column k >= n, a row
+// of C past n or a row start that is not 16-byte aligned: the quads are
+// cut at n and zero-filled (copy_quad).  Kept out of line, away from the
+// strided copies of the common case.
+static __device__ __noinline__ void copy_ragged_chunk(
+    float* u_dst, float* v_dst, float* c_dst, const float* u_rows,
+    const float* v_rows, const float* c_rows, const float* c, int r4, int k0,
+    int n, int rows, int c_row0, bool aligned, uint64_t policy) {
+  for (int j = 0; j < kRows / 4; ++j) {
+    const int r = r4 + 4 * j;
+    if (r < rows) {
+      copy_quad<false>(u_dst + j * 4 * kLdp, u_rows + size_t(r) * n, k0, n,
+                       aligned, 0);
+      if (v_rows)
+        copy_quad<false>(v_dst + j * 4 * kDepth, v_rows + size_t(r) * n, k0,
+                         n, aligned, 0);
+    }
+    // rows of C past n (the last tile): zero-filled
+    const bool c_in = c_row0 + r < n;
+    copy_quad<true>(c_dst + j * 4 * kLdp, c_in ? c_rows + size_t(r) * n : c,
+                    k0, c_in ? n : 0, aligned, policy);
+  }
 }
 
 __device__ __forceinline__ uint64_t evict_first_policy() {
@@ -232,18 +340,40 @@ __device__ inline int compact_active(Smem& sm, const float* active, int stride,
   return total;
 }
 
-// Phase A of a round: every item (chain chain_of(w % nA), tile
-// nT-1 - w / nA) of this block, into rowsum[(chain * nT + t) * kRows + s].
-// `chain_of(j)` is the j-th chain of the round, `spec(b)` chain b's
-// ProbeSpec, and `done(b, t)` runs on every consumer thread once item (b, t)
-// is in rowsum.  All threads of the block call it; the rings persist across
-// rounds.  Ends with a block barrier.
+// Items of one chain's probe: row blocks x column tiles.
+__host__ __device__ __forceinline__ int row_blocks(int S) {
+  return (S + kRows - 1) / kRows;
+}
+__host__ __device__ __forceinline__ int col_tiles(int n) {
+  return (n + kCols - 1) / kCols;
+}
+
+// Item w of a round: tile t (descending), the round's j-th chain, row
+// block rb.  At one row block (S <= 64) no division by it.
+struct Item {
+  int t, j, rb;
+};
+__device__ __forceinline__ Item item_of(int w, int n_tiles, int per_tile,
+                                        int n_rb) {
+  const int q = w / per_tile;
+  const int rem = w - q * per_tile;
+  if (n_rb == 1) return {n_tiles - 1 - q, rem, 0};
+  return {n_tiles - 1 - q, rem / n_rb, rem % n_rb};
+}
+
+// Phase A of a round: every item w of this block, w = (nT - 1 - t) nA nR +
+// j nR + rb for the j-th chain of the round, row block rb and tile t, into
+// rowsum[(chain * nT + t) * S + 64 rb + r].  `chain_of(j)` is the j-th chain
+// of the round, `spec(b)` chain b's ProbeSpec, and `done(b, t)` runs on
+// every consumer thread once an item (b, ., t) is in rowsum.  All threads
+// of the block call it; the rings persist across rounds.  Ends with a block
+// barrier.
 //
-// RPT: rows of f per consumer thread, 4 (all 64 rows) or 2 (the first 32,
-// for S <= 32: half the products, none on the zero pad rows 32..63).  A
-// row's arithmetic is the same either way (the same k order per element,
-// the same 8 columns and shuffle tree per row), so a row has the same bits
-// at RPT 2 and 4.
+// RPT: rows of f per consumer thread, 4 (all 64 rows of a block) or 2 (the
+// first 32, for S <= 32: half the products).  A row's arithmetic is the
+// same either way (the same k order per element, the same 8 columns and
+// shuffle tree per row), so a row has the same bits at RPT 2 and 4, and in
+// any row block.
 template <int LIK, bool BF16, int RPT = 4, class Chain, class Spec,
           class Done>
 __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
@@ -251,45 +381,73 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
                                    const float* __restrict__ mask,
                                    float* rowsum, Chain chain_of, Spec spec,
                                    Done done) {
-  const int n_tiles = n / kCols;
-  const int n_items = n_tiles * n_active;
+  const int n_tiles = col_tiles(n);
+  const int n_rb = row_blocks(S);
+  const int per_tile = n_active * n_rb;
+  const int n_items = n_tiles * per_tile;
   const int tid = threadIdx.x;
 
   if (tid >= kConsumers) {
     // ---------------------------------------------------------- producer
     const int lane = tid - kConsumers;
     const uint64_t stream_once = evict_first_policy();
+    const bool aligned = (n & 3) == 0;
     const int r4 = lane >> 3, q4 = (lane & 7) * 4;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-      const int t = n_tiles - 1 - w / n_active;
-      const ProbeSpec p = spec(chain_of(w % n_active));
-      const int n_chunks = (t + 1) * (kCols / kDepth);
+      const Item it = item_of(w, n_tiles, per_tile, n_rb);
+      const int t = it.t, rb = it.rb;
+      const ProbeSpec p = spec(chain_of(it.j));
+      const int rows = min(kRows, S - rb * kRows);
+      const int n_chunks = (min(kCols * (t + 1), n) + kDepth - 1) / kDepth;
+      const float* u_rows = p.u + size_t(rb) * kRows * n;
+      const float* v_rows = p.v ? p.v + size_t(rb) * kRows * n : nullptr;
       const float* c_rows = p.c + size_t(t) * kCols * n;
-      for (int kc = 0; kc < n_chunks; ++kc) {
+      // 16-byte aligned rows and every row of C real: every chunk of the
+      // item takes the plain strided copies (one branch an item: with a
+      // branch a chunk, the rotated entries took 5 % longer, PERF.md)
+      const bool whole_tile = aligned && (t + 1) * kCols <= n;
+      // the next empty stage's pointers for this lane: u, v, C
+      auto next_stage = [&](float*& u_dst, float*& v_dst, float*& c_dst) {
         Stage& st = sm.stage[ring.stage];
         if (lane == 0) mbar_wait(&sm.empty[ring.stage], ring.phase ^ 1u);
         __syncwarp();
-        // 8 float4 per row of a chunk: lane (row lane / 8 + 4 j, float4
-        // lane % 8) for j = 0..15, the addresses stepping by a fixed stride
-        const int k0 = kc * kDepth + q4;
-        const float* u_src = p.u + size_t(r4) * n + k0;
-        const float* v_src = p.v ? p.v + size_t(r4) * n + k0 : nullptr;
-        const float* c_src = c_rows + size_t(r4) * n + k0;
-        float* u_dst = st.u + r4 * kLdp + q4;
-        float* v_dst = st.v + r4 * kDepth + q4;
-        float* c_dst = st.c + r4 * kLdp + q4;
+        u_dst = st.u + r4 * kLdp + q4;
+        v_dst = st.v + r4 * kDepth + q4;
+        c_dst = st.c + r4 * kLdp + q4;
+      };
+      float *u_dst, *v_dst, *c_dst;
+      if (whole_tile) {
+        for (int kc = 0; kc < n_chunks; ++kc) {
+          next_stage(u_dst, v_dst, c_dst);
+          // 4 floats per copy, 8 per row of a chunk: lane (row lane / 8 +
+          // 4 j, floats 4 (lane % 8) ..) for j = 0..15, the addresses
+          // stepping by a fixed stride
+          const int k0 = kc * kDepth + q4;
+          const float* u_src = u_rows + size_t(r4) * n + k0;
+          const float* v_src = p.v ? v_rows + size_t(r4) * n + k0 : nullptr;
+          const float* c_src = c_rows + size_t(r4) * n + k0;
 #pragma unroll
-        for (int j = 0; j < kRows / 4; ++j) {
-          if (r4 + 4 * j < S) {
-            cp_async16(u_dst + j * 4 * kLdp, u_src + size_t(j) * 4 * n);
-            if (p.v)
-              cp_async16(v_dst + j * 4 * kDepth, v_src + size_t(j) * 4 * n);
+          for (int j = 0; j < kRows / 4; ++j) {
+            if (r4 + 4 * j < rows) {
+              cp_async16(u_dst + j * 4 * kLdp, u_src + size_t(j) * 4 * n);
+              if (p.v)
+                cp_async16(v_dst + j * 4 * kDepth, v_src + size_t(j) * 4 * n);
+            }
+            cp_async16(c_dst + j * 4 * kLdp, c_src + size_t(j) * 4 * n,
+                       stream_once);
           }
-          cp_async16(c_dst + j * 4 * kLdp, c_src + size_t(j) * 4 * n,
-                     stream_once);
+          cp_async_arrive(&sm.full[ring.stage]);
+          ring.advance();
         }
-        cp_async_arrive(&sm.full[ring.stage]);
-        ring.advance();
+      } else {
+        for (int kc = 0; kc < n_chunks; ++kc) {
+          next_stage(u_dst, v_dst, c_dst);
+          copy_ragged_chunk(u_dst, v_dst, c_dst, u_rows, v_rows, c_rows, p.c,
+                            r4, kc * kDepth + q4, n, rows, t * kCols, aligned,
+                            stream_once);
+          cp_async_arrive(&sm.full[ring.stage]);
+          ring.advance();
+        }
       }
     }
   } else {
@@ -297,10 +455,12 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
     const int tx = tid & 7, ty = tid >> 3;   // rows RPT ty.., columns tx + 8 c
     const int rot_row = tid >> 1, rot_col = (tid & 1) * 16;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
-      const int t = n_tiles - 1 - w / n_active;
-      const int b = chain_of(w % n_active);
+      const Item it = item_of(w, n_tiles, per_tile, n_rb);
+      const int t = it.t, rb = it.rb;
+      const int b = chain_of(it.j);
       const ProbeSpec p = spec(b);
-      const int n_chunks = (t + 1) * (kCols / kDepth);
+      const int rows = min(kRows, S - rb * kRows);
+      const int n_chunks = (min(kCols * (t + 1), n) + kDepth - 1) / kDepth;
       const bool scale_c = BF16 || p.c_scale != 1.0f;
       float acc[RPT][8];
 #pragma unroll
@@ -313,7 +473,7 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
         mbar_wait(&sm.full[ring.stage], ring.phase);
         // the operands as the product takes them, in place
         // thread: row tid / 2, columns 16 (tid % 2) .. + 15, as float4
-        if ((p.v || BF16) && rot_row < S) {
+        if ((p.v || BF16) && rot_row < rows) {
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             float4* x = reinterpret_cast<float4*>(st.u + rot_row * kLdp +
@@ -370,26 +530,29 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
         ring.advance();
       }
 
-      // likelihood on the finished tile, summed over its 64 columns
+      // likelihood on the finished tile, summed over its columns j < n
       float rowacc[RPT];
 #pragma unroll
       for (int r = 0; r < RPT; ++r) rowacc[r] = 0.0f;
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         const int j = t * kCols + tx + 8 * c;
-        const float yj = y[j], mj = mask[j];
+        if (j < n) {
+          const float yj = y[j], mj = mask[j];
 #pragma unroll
-        for (int r = 0; r < RPT; ++r)
-          rowacc[r] += log_lik<LIK>(yj * acc[r][c]) * mj;
+          for (int r = 0; r < RPT; ++r)
+            rowacc[r] += log_lik<LIK>(yj * acc[r][c]) * mj;
+        }
       }
-      float* out = rowsum + (size_t(b) * n_tiles + t) * kRows + ty * RPT;
+      const int row0 = ty * RPT;
+      float* out = rowsum + (size_t(b) * n_tiles + t) * S + rb * kRows + row0;
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         float v = rowacc[r];
         v += __shfl_xor_sync(0xffffffffu, v, 1);
         v += __shfl_xor_sync(0xffffffffu, v, 2);
         v += __shfl_xor_sync(0xffffffffu, v, 4);
-        if (tx == 0) out[r] = v;
+        if (tx == 0 && row0 + r < rows) out[r] = v;
       }
       done(b, t);
     }
@@ -398,42 +561,46 @@ __device__ inline void probe_tiles(Smem& sm, Ring& ring, int n_active, int S,
 }
 
 // Warp 0: the chain's per-sample log-weights, each row's tile sums folded in
-// tile order, into sm.lw[0..S).  A row's weight depends on that row alone.
-__device__ inline void fold_rows(Smem& sm, const float* rowsum, int b,
+// tile order, into lw[0..S) (shared or global memory; visible to the warp
+// on return).  A row's weight depends on that row alone.  lw may be the
+// chain's tile-0 slots of rowsum: lane s reads row s's sums before it
+// writes row s, and no other lane touches row s.
+__device__ inline void fold_rows(float* lw, const float* rowsum, int b,
                                  int n_tiles, int S) {
   const int lane = threadIdx.x & 31;
-  const float* base = rowsum + size_t(b) * n_tiles * kRows;
+  const float* base = rowsum + size_t(b) * n_tiles * S;
+  __syncwarp();           // lw may still be read from the warp's last fold
   for (int s = lane; s < S; s += 32) {
     float acc = 0.0f;
 #pragma unroll 10
-    for (int t = 0; t < n_tiles; ++t) acc += __ldcg(base + t * kRows + s);
-    sm.lw[s] = acc;
+    for (int t = 0; t < n_tiles; ++t) acc += __ldcg(base + size_t(t) * S + s);
+    lw[s] = acc;
   }
   __syncwarp();
 }
 
-// Phase B helper, warp 0: fold_rows, then the blocked log-sum-exp minus
-// log S (same value on every lane).
-__device__ inline float fold_estimate(Smem& sm, const float* rowsum, int b,
+// Phase B helper, warp 0: fold_rows into lw, then the blocked log-sum-exp
+// minus log S (same value on every lane).
+__device__ inline float fold_estimate(float* lw, const float* rowsum, int b,
                                       int n_tiles, int S, int n_blocks,
                                       float log_s) {
-  fold_rows(sm, rowsum, b, n_tiles, S);
-  return blocked_lse(sm.lw, S, n_blocks) - log_s;
+  fold_rows(lw, rowsum, b, n_tiles, S);
+  return blocked_lse(lw, S, n_blocks) - log_s;
 }
 
 // The `done` hook of a one-round kernel, on the consumers: counts item
 // arrivals of chain b (its stores fenced, then atomicAdd on arrivals[b],
 // zero at the launch) and runs `fold()` on warp 0 of the block that
-// completes the chain's last item, after a second fence, so that it sees
-// the other blocks' row sums of chain b.
+// completes the chain's last of `items` items, after a second fence, so
+// that it sees the other blocks' row sums of chain b.
 template <class Fold>
-__device__ inline void fold_when_last(int* arrivals, int b, int n_tiles,
+__device__ inline void fold_when_last(int* arrivals, int b, int items,
                                       Fold fold) {
   __threadfence();        // this item's row sums, visible card-wide
   consumer_barrier();     // ... from every consumer that wrote one
   if (threadIdx.x < 32) {
     int last = 0;
-    if (threadIdx.x == 0) last = atomicAdd(arrivals + b, 1) == n_tiles - 1;
+    if (threadIdx.x == 0) last = atomicAdd(arrivals + b, 1) == items - 1;
     if (__shfl_sync(0xffffffffu, last, 0)) {
       __threadfence();    // the other blocks' row sums of chain b
       fold();

@@ -76,8 +76,12 @@ same gradient.
 Every callable of the returned ``Target`` is batched over a leading chains
 axis.  The reference's memory gates on its sweeps belong to the TPU; the
 port's factories return None where the sweep body refuses the shapes
-(``ops/fused_estimator.fits_sweep_body``: S > 64, or n not a multiple of
-64), and the step then takes the per-probe path.
+(``ops/fused_estimator.fits_sweep_body``: S past 4096, or a reduction tree
+of more than 32 blocks), and on an unpadded target (``pad_to_tiles=False``,
+or n not a multiple of 128), exactly where the reference's ``use_fused`` is
+False; the step then takes the per-probe path, whose estimates go through
+the estimator kernels for any S and n, as do the factorisation (identity
+padding, ``ops/cholesky``) and the ARD Gram.
 """
 
 from __future__ import annotations
@@ -143,8 +147,9 @@ def make_gp_classification(
         every ell probe builds its Gram with ``ops/gram.se_gram_ard_hopper``,
         through ``SeGramArd``).
       jitter: relative diagonal nugget (see the module docstring).
-      pad_to_tiles: pad the dataset axis to a multiple of 128.  The CUDA
-        kernels need the padded layout; unpadded targets run on the CPU only.
+      pad_to_tiles: pad the dataset axis to a multiple of 128.  An unpadded
+        target runs on the card too, without the sweep factories (the
+        reference's ``use_fused``).
       whiten_dtype: "float32" (exact) or "bfloat16" (both operands of the
         whiten product rounded to bf16, f32 accumulate).  Part of the
         estimator's definition.
@@ -296,10 +301,12 @@ def make_gp_classification(
         r = (theta - prior_mean) / prior_std
         return -0.5 * (r * r).sum(-1) - log_norm
 
-    # the sweeps run where the sweep body takes the shapes (S <= 64, n a
-    # multiple of 64); elsewhere the factories return None and the step takes
-    # the per-probe path, as the reference's factories do past their gates
-    sweep_fits = fits_sweep_body(n_importance, n, nb_global)
+    # the sweeps run on a padded target (the reference's use_fused) where
+    # the sweep body takes the shapes; elsewhere the factories return None
+    # and the step takes the per-probe path, as the reference's factories do
+    # past their gates
+    use_fused = pad_to_tiles and n % _TILE == 0
+    sweep_fits = use_fused and fits_sweep_body(n_importance, n, nb_global)
 
     def _ess_sweep_factory(n_repeats):
         if not sweep_fits:

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels under ``csrc/``.
 
 ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one process per source,
-all started together), links them into ``build/libauxpm_kernels.so`` next to
+and one per entry of the sources in ``_PARTS``, all started together), links
+them into ``build/libauxpm_kernels.so`` next to
 the package, and ``ctypes`` loads it.  The sources have a plain C interface:
 pointers come from ``tensor.data_ptr()``, the stream from
 ``torch.cuda.current_stream().cuda_stream``.  The build happens at first use,
@@ -21,6 +22,8 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 _LIB_NAME = "libauxpm_kernels.so"
+# sources compiled in parts, part k with -DAUXPM_ENTRY=k: source -> parts
+_PARTS = {"fused_estimator.cu": 4}
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -69,7 +72,7 @@ def _find_nvcc():
 
 
 def _source_hash(sources):
-    h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(_NVCC_FLAGS) + repr(_PARTS)).encode())
     for path in sources:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -119,10 +122,14 @@ def _build_locked(force):
     ):
         return lib_path
     nvcc = _find_nvcc()
-    objects = [_BUILD_DIR / (src.stem + ".o") for src in cu]
+    jobs = [(src, [], _BUILD_DIR / (src.stem + ".o")) for src in cu
+            if src.name not in _PARTS]
+    jobs += [(src, [f"-DAUXPM_ENTRY={k}"], _BUILD_DIR / f"{src.stem}.{k}.o")
+             for src in cu for k in range(_PARTS.get(src.name, 0))]
+    objects = [obj for _, _, obj in jobs]
     log = _run_all(
-        [[nvcc, *_NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-         for src, obj in zip(cu, objects)]
+        [[nvcc, *_NVCC_FLAGS, *defs, "-c", str(src), "-o", str(obj)]
+         for src, defs, obj in jobs]
     )
     log += _run_all(
         [[nvcc, "-shared", "-o", str(lib_path), *map(str, objects)]]

@@ -27,7 +27,8 @@ kernels, as they are in the reference's blocked loops; TF32 is off for them
 (``torch.backends.cuda.matmul.allow_tf32`` is False by default and these
 functions refuse to run with it on).  A failed factorisation shows as NaN on
 L's diagonal in all three (``ops/cholesky.robust_cholesky`` escalates on it).
-The blocked loops require n % 128 == 0; ``cholesky_fast`` pads.
+The blocked loops require n % 128 == 0; ``cholesky_fast`` (v1) and
+``cholesky_padded3`` (v3) pad with the identity.
 """
 
 from __future__ import annotations
@@ -182,16 +183,30 @@ def pad_gram(k, n_pad):
     return out
 
 
+def _padded(k, route):
+    """``route`` (a blocked driver) on ``(..., n, n)`` for any n and any
+    batch dims: identity padding to a multiple of 128, the factor sliced
+    back (contiguous) to ``(..., n, n)``."""
+    n = k.shape[-1]
+    n_pad = -(-n // BLK) * BLK
+    batch = k.shape[:-2]
+    l = route(pad_gram(k.reshape(-1, n, n), n_pad))
+    if n_pad != n:
+        l = l[:, :n, :n].contiguous()
+    return l.reshape(*batch, n, n)
+
+
 def cholesky_fast(k):
     """Batched Cholesky of ``(..., n, n)`` for any n and any batch dims: the
     v1 blocked route with identity padding to a multiple of 128.  Returns
     ``(..., n, n)``."""
-    n = k.shape[-1]
-    n_pad = -(-n // BLK) * BLK
-    batch = k.shape[:-2]
-    kk = pad_gram(k.reshape(-1, n, n), n_pad)
-    l = cholesky_batched(kk)
-    return l[:, :n, :n].reshape(*batch, n, n)
+    return _padded(k, cholesky_batched)
+
+
+def cholesky_padded3(k):
+    """The same over the v3 route (``cholesky_batched3``): what
+    ``ops/cholesky`` takes on the card for any n."""
+    return _padded(k, cholesky_batched3)
 
 
 # ---------------------------------------------------------------------------

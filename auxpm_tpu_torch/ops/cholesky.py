@@ -1,10 +1,12 @@
 """Cholesky factorisation + whitening for the GP estimator path.
 
 Counterpart of ``auxpm_tpu/ops/cholesky.py``.  A batch of Gram matrices
-``(B, n, n)`` on the card with ``n % 128 == 0`` is factored by the blocked
-loop over the hand-written panel kernel (``ops/chol_hopper.py``), as the
-reference routes a batched call to its panel kernel on the TPU; a CPU tensor
-goes to ``torch.linalg.cholesky_ex``.
+``(B, n, n)`` on the card is factored by the blocked loop over the
+hand-written panel kernel (``ops/chol_hopper.py``), as the reference routes
+a batched call to its panel kernel on the TPU; off a multiple of 128 the
+batch is padded with the identity first and the factor sliced back (the
+reference takes XLA's Cholesky there).  A CPU tensor goes to
+``torch.linalg.cholesky_ex``.
 
 Reverse mode (the reference's ``custom_vjp``): ``robust_cholesky`` is the
 ``torch.autograd.Function`` ``RobustCholesky`` on both devices.  Its forward
@@ -37,20 +39,19 @@ host_syncs = 0  # flags read by robust_cholesky's retry test
 
 
 def _chol_dispatch(a):
-    """Batched lower Cholesky; a matrix that fails has a non-finite diagonal."""
+    """Batched lower Cholesky; a matrix that fails has a non-finite diagonal.
+
+    On the card any n (``chol_hopper.cholesky_padded3``): off a multiple of
+    128 the batch is padded with the identity to the next one (chol([[K, 0],
+    [0, I]]) = [[chol(K), 0], [0, I]], exact), factored by the v3 panel route
+    and sliced back to n.  The reference takes XLA's Cholesky there; the
+    port keeps its own kernel.  ``robust_cholesky`` adds each matrix's
+    jitter before this call, so the pad rows never change it."""
     if a.device.type == "cpu":
         l, info = torch.linalg.cholesky_ex(a)
         return torch.where((info > 0)[..., None, None],
                            torch.full_like(l, float("nan")), l)
-    n = a.shape[-1]
-    if n % chol_hopper.BLK:
-        raise ValueError(
-            f"n={n}: the CUDA factorisation needs n % {chol_hopper.BLK} == 0 "
-            "(build the target with pad_to_tiles=True)"
-        )
-    batch = a.shape[:-2]
-    l = chol_hopper.cholesky_batched3(a.reshape(-1, n, n))
-    return l.reshape(*batch, n, n)
+    return chol_hopper.cholesky_padded3(a)
 
 
 def _robust_cholesky_impl(gram, jitter0=0.0, growth=10.0, max_tries=3):

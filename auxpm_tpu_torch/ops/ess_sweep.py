@@ -16,10 +16,10 @@ On CUDA tensors the sweep is ONE cooperative launch of ``csrc/ess_sweep.cu``
 over the whole card (one per slice of at most ``MAX_CHAINS`` chains): it
 advances in rounds, each active chain making its next probe in every round,
 so each chain runs exactly its own probe count and the number of rounds is
-the largest of them; any n that is a multiple of 64; on CPU tensors it is
-the plain
-batched, done-masked version ``_ref_ess_sweep``.  Cap-hit (32 shrinks) keeps
-the current state, an exact no-op move.
+the largest of them; any S up to ``MAX_SAMPLES`` and n a multiple of 64
+(``check_sweep_shapes``); on CPU tensors it is the plain batched,
+done-masked version ``_ref_ess_sweep``.  Cap-hit
+(32 shrinks) keeps the current state, an exact no-op move.
 """
 
 from __future__ import annotations
@@ -32,17 +32,19 @@ from auxpm_tpu_torch.ops import _build
 from auxpm_tpu_torch.ops.fused_estimator import (
     LIKELIHOOD_IDS,
     MAX_CHAINS,
+    TILE_N,
     WHITEN_DTYPES,
     _log_s,
     _ref_estimate,
-    check_probe_shapes,
+    check_sweep_shapes,
+    col_tiles,
     over_chain_slices,
 )
 
 MAX_SHRINK = 32
 SCAL_COLS = 3 + MAX_SHRINK
 _STATE = 16         # floats of per-chain state in the kernel's workspace
-_TILE = 64          # columns of f per work item
+_TILE = TILE_N      # columns of f per work item
 _TWO_PI = 2.0 * math.pi
 
 launches = 0  # kernel launches made by this module's wrapper
@@ -114,7 +116,7 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
             f"shape mismatch: chol {tuple(chol.shape)}, u {tuple(u.shape)}, "
             f"scal {tuple(scal.shape)}, v {tuple(v.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks)
+    check_sweep_shapes(s, n, n_blocks)
     if b < 1 or n_repeats < 1:
         raise ValueError(f"B={b}, n_repeats={n_repeats}: the sweep takes at "
                          "least one chain and one repeat")
@@ -135,7 +137,7 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
     lib = _build.load_library()
     u_out = torch.empty_like(u)
     stats = torch.empty((b, 4), dtype=torch.float32, device=device)
-    workspace = sweep_workspace(b, n, device)
+    workspace = sweep_workspace(b, s, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_ess_sweep(
             chol.data_ptr(), u.data_ptr(), scal.data_ptr(), v.data_ptr(),
@@ -151,11 +153,12 @@ def _cuda_ess_sweep(chol, u, scal, v, y, mask, likelihood, n_blocks, log_s,
     return u_out, stats[:, 0], stats[:, 1], stats[:, 2]
 
 
-def sweep_workspace(b, n, device):
+def sweep_workspace(b, s, n, device):
     """Global workspace of a round-synchronous sweep kernel
-    (``csrc/sweep_body.cuh``) on ``b`` chains: per-chain state (two buffers),
-    the tile sums rowsum[chain][tile][64], and last the number of rounds."""
-    return torch.empty(b * (2 * _STATE + (n // _TILE) * 64) + 1,
+    (``csrc/sweep_body.cuh``) on ``b`` chains of ``s`` samples: per-chain
+    state (two buffers), the tile sums rowsum[chain][tile][S], and last the
+    number of rounds."""
+    return torch.empty(b * (2 * _STATE + col_tiles(n) * s) + 1,
                        dtype=torch.float32, device=device)
 
 

@@ -11,9 +11,12 @@ Counterpart of ``auxpm_tpu/ops/fused_estimator.py`` (``_fused_kernel`` /
 On a CUDA tensor each function of this module launches one entry of the
 hand-written kernel source ``csrc/fused_estimator.cu``; on a CPU tensor it
 takes its plain version (``_ref_*``).  Every entry is ONE round of the sweep
-body ``csrc/sweep_body.cuh``: the (chain, 64-column tile) items of the call's
-chains over the whole card, the triangle of C skipped, f never stored, and
-the block that completes a chain's last tile folds it.
+body ``csrc/sweep_body.cuh``: the (chain, 64-row block, 64-column tile) items
+of the call's chains over the whole card, the triangle of C skipped, f never
+stored, and the block that completes a chain's last item folds it.  Every
+entry takes any S from 1 to ``MAX_SAMPLES`` and any n, as the reference's
+kernels do (C is re-read once per row block past 64 samples,
+and the last column tile of an n that 64 does not divide is masked).
 
 - ``fused_estimate``: the estimate at u.
 - ``fused_estimate_rot``: the same at the elliptical-slice proposal
@@ -60,9 +63,9 @@ from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
 WHITEN_DTYPES = ("float32", "bfloat16")
 LIKELIHOOD_IDS = {"logistic": 0, "probit": 1}
 
-# shapes the sweep body (csrc/sweep_body.cuh) takes
-MAX_ROWS = 64       # importance samples a block can hold
-TILE_N = 64         # n must be a multiple of the column tile
+# shapes of the sweep body (csrc/sweep_body.cuh)
+TILE_N = 64         # columns of f in one work item (64 rows of u in one)
+MAX_SAMPLES = 4096  # most importance samples S (csrc/probe.cuh kMaxSamples)
 MAX_CHAINS = 2048   # chains of one launch with an active list
                     # (csrc/sweep_body.cuh kMaxChains); wrappers split more
 
@@ -145,11 +148,15 @@ def _ref_estimate(chol, u, y, mask, likelihood, n_blocks=1, log_s=None,
 def probe_shape_error(s, n, n_blocks=None):
     """Why the sweep body does not take these shapes, or None if it does
     (``n_blocks=None``: an entry without a log-sum-exp).  Its shared memory
-    does not depend on n: any n that is a multiple of 64 goes."""
-    if n % TILE_N:
-        return f"n={n} must be a multiple of {TILE_N} (pad the target)"
-    if s < 1 or s > MAX_ROWS:
-        return f"S={s}: a block holds 1 to {MAX_ROWS} rows"
+    depends on neither S nor n: any n goes, and S up to ``MAX_SAMPLES``, the
+    most log-weights of one chain that a sweep's phase B folds in a block's
+    idle ring (16 KB of its 104 KB)."""
+    if n < 1:
+        return f"n={n}: the probe needs at least one data point"
+    if s < 1 or s > MAX_SAMPLES:
+        return (f"S={s}: the kernels take 1 to {MAX_SAMPLES} importance "
+                "samples (a sweep folds a chain's S log-weights in 16 KB of "
+                "a block's shared memory)")
     if n_blocks is not None and (n_blocks < 1 or n_blocks > 32
                                  or s % n_blocks):
         return f"n_blocks={n_blocks} must divide S={s} and be <= 32"
@@ -163,22 +170,43 @@ def check_probe_shapes(s, n, n_blocks=None):
         raise ValueError(err)
 
 
-def fits_sweep_body(s, n, n_blocks=None):
-    """Whether the kernels of the sweep body (``csrc/sweep_body.cuh``: the
-    four entries of this module and both sweeps) take S = ``s`` samples at
-    n = ``n`` with that reduction tree.  The target's sweep factories return
-    None where this is False, as the reference's return None past their
-    memory gates."""
-    return probe_shape_error(s, n, n_blocks) is None
+def sweep_shape_error(s, n, n_blocks):
+    """Why the two sweeps (``ops/ess_sweep``, ``ops/sigma_sweep``) do not
+    take these shapes, or None: the body's limits, and n a multiple of 64,
+    the only n their callers give them (the factories give sweeps to padded
+    targets alone, as the reference's ``use_fused`` does)."""
+    if n % TILE_N:
+        return (f"n={n}: the sweeps take n a multiple of {TILE_N} (a padded "
+                "target; an unpadded one takes the per-probe path)")
+    return probe_shape_error(s, n, n_blocks)
 
 
-def _round_workspace(b, n, device):
+def check_sweep_shapes(s, n, n_blocks):
+    """Raise on shapes the sweeps do not take (``sweep_shape_error``)."""
+    err = sweep_shape_error(s, n, n_blocks)
+    if err is not None:
+        raise ValueError(err)
+
+
+def fits_sweep_body(s, n, n_blocks):
+    """Whether both sweeps take S = ``s`` samples at n = ``n`` with that
+    reduction tree.  The target's sweep factories return None where this is
+    False, as the reference's return None past their memory gates."""
+    return sweep_shape_error(s, n, n_blocks) is None
+
+
+def col_tiles(n):
+    """Column tiles of f, the last one partial where 64 does not divide n."""
+    return -(-n // TILE_N)
+
+
+def _round_workspace(b, s, n, device):
     """Workspace of one round of the sweep body: the tile sums
-    rowsum[chain][tile][64], then one int32 arrival counter per chain, zero
+    rowsum[chain][tile][S], then one int32 arrival counter per chain, zero
     at the launch."""
-    rowsum = b * (n // TILE_N) * MAX_ROWS
-    workspace = torch.empty(rowsum + b, dtype=torch.float32, device=device)
-    workspace[rowsum:].zero_()
+    floats = b * col_tiles(n) * s
+    workspace = torch.empty(floats + b, dtype=torch.float32, device=device)
+    workspace[floats:].zero_()
     return workspace
 
 
@@ -213,7 +241,7 @@ def _cuda_estimate(chol, u, y, mask, likelihood, n_blocks, log_s,
     device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
     lib = _build.load_library()
     out = torch.empty((b,), dtype=torch.float32, device=device)
-    workspace = _round_workspace(b, n, device)
+    workspace = _round_workspace(b, s, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_fused_estimate(
             chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
@@ -285,7 +313,7 @@ def _cuda_estimate_rot(chol, u, v, angle, y, mask, likelihood, n_blocks,
     device = _build.require_f32_contiguous(**tensors)
     lib = _build.load_library()
     out = torch.empty((b,), dtype=torch.float32, device=device)
-    workspace = _round_workspace(b, n, device)
+    workspace = _round_workspace(b, s, n, device)
     count = active_counts["estimate_rot"]
     with torch.cuda.device(device):
         err = lib.auxpm_fused_estimate_rot(
@@ -353,7 +381,7 @@ def _cuda_weights(chol, u, y, mask, likelihood, whiten_dtype):
     device = _build.require_f32_contiguous(chol=chol, u=u, y=y, mask=mask)
     lib = _build.load_library()
     out = torch.empty((b, s), dtype=torch.float32, device=device)
-    workspace = _round_workspace(b, n, device)
+    workspace = _round_workspace(b, s, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_fused_weights(
             chol.data_ptr(), u.data_ptr(), y.data_ptr(), mask.data_ptr(),
@@ -406,7 +434,7 @@ def _cuda_rot_weights(chol, u, v, angle, y, mask, likelihood, whiten_dtype,
     device = _build.require_f32_contiguous(**tensors)
     lib = _build.load_library()
     out = torch.empty((b, s), dtype=torch.float32, device=device)
-    workspace = _round_workspace(b, n, device)
+    workspace = _round_workspace(b, s, n, device)
     count = active_counts["rot_weights"]
     with torch.cuda.device(device):
         err = lib.auxpm_fused_rot_weights(

@@ -113,8 +113,6 @@ def _cuda_se_gram_ard(x, log_ells, jitter, mask):
             f"and {tuple(log_ells.shape)}")
     n, d = x.shape
     b = log_ells.shape[0]
-    if n % 4:
-        raise ValueError(f"n={n} must be a multiple of 4 (float4 stores)")
     smem = gram_smem_bytes(n, d)
     if smem > _BLOCK_SMEM_BYTES:
         raise ValueError(f"n={n}, d={d}: a chain's staged data needs {smem} "

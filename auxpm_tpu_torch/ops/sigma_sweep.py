@@ -41,7 +41,7 @@ from auxpm_tpu_torch.ops.fused_estimator import (
     WHITEN_DTYPES,
     _log_s,
     _ref_estimate,
-    check_probe_shapes,
+    check_sweep_shapes,
     over_chain_slices,
 )
 
@@ -117,7 +117,7 @@ def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
             f"shape mismatch: chol0 {tuple(chol0.shape)}, u {tuple(u.shape)}, "
             f"chain {tuple(chain.shape)}, rep {tuple(rep.shape)}"
         )
-    check_probe_shapes(s, n, n_blocks)
+    check_sweep_shapes(s, n, n_blocks)
     if b < 1 or n_reps < 1:
         raise ValueError(f"B={b}, n_reps={n_reps}: the sweep takes at least "
                          "one chain and one repeat")
@@ -137,7 +137,7 @@ def _cuda_sigma_sweep(chol0, u, chain, rep, y, mask, likelihood, n_blocks,
                                            rep=rep, y=y, mask=mask)
     lib = _build.load_library()
     stats = torch.empty((b, 8), dtype=torch.float32, device=device)
-    workspace = sweep_workspace(b, n, device)
+    workspace = sweep_workspace(b, s, n, device)
     with torch.cuda.device(device):
         err = lib.auxpm_sigma_sweep(
             chol0.data_ptr(), u.data_ptr(), chain.data_ptr(), rep.data_ptr(),

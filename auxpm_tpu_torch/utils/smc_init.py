@@ -39,7 +39,7 @@ def rank_report(args):
     )
 
     dev = distributed_init(args.device)
-    smc_scale.check_args(args, dev)
+    smc_scale.check_args(args)
     mesh = make_mesh(1)
     if mesh.world != 1:
         raise RuntimeError("smc_init reads one rank's whole population")
@@ -87,7 +87,7 @@ def main(argv=None):
     from auxpm_tpu_torch._device import resolve_device
 
     device = resolve_device(args.device)    # no GPU: raises, never the CPU
-    smc_scale.check_args(args, device)
+    smc_scale.check_args(args)
     from auxpm_tpu_torch.parallel.launch import on_world
 
     out = on_world(rank_report, 1, args,

@@ -15,8 +15,9 @@ resume; config 4's preset ``gp_4096_sharded``; HMC and NUTS on two
 particle-sharded ranks and on the Laplace proposal, and the Laplace proposal
 on two ranks; the stepping-out theta slices, Laplace on the ARD target, the
 joint samplers on particle shards, ``utils/scaling``, ``utils/dryrun`` and
-config 5 at 2^20 key-as-u particles through ``utils/smc_scale``) and holds
-each of its
+config 5 at 2^20 key-as-u particles through ``utils/smc_scale``; config 2
+at 128 importance samples and the unpadded GP targets of ``--no-pad``) and
+holds each of its
 eleven hand-written CUDA kernels (the ten TPU kernels' and the threefry
 PRNG's) against its plain PyTorch version on the card.
 Phases, one JSON line each; any failure raises and the script exits non-zero:
@@ -223,7 +224,10 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   against the plain Gram (panel shared) within 1e-2 (half
                   log|Sigma_q|'s bar in ``main_path_laplace``) on the chains
                   whose every factorisation took the same jitter (known
-                  difference 3), at least half of them;
+                  difference 3), at least half of them; where that gap comes
+                  from: the two Grams' largest entrywise gap against float32
+                  rounding (a larger one fails: a fault of the kernel) and
+                  each one's Laplace estimate in float64;
 29. ``main_path_joint_sharded`` ``joint_mh`` and ``aux_slice_joint`` with
                   ``--sharded true --particle-shards 2`` on two spawned ranks
                   (1 x 3 + 6 steps): ranks bitwise equal, the weights
@@ -253,7 +257,30 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   acceptance at least 0.2, the estimator, panel and threefry
                   kernels launched in every stage; stage walls, peak memory,
                   the chunk; then one stage of a one-chunk population
-                  profiled: its launches and host syncs.
+                  profiled: its launches and host syncs;
+33. ``kernels_any_shape`` the six kernels of the sweep body against their
+                  plain versions at S = 72, 100 (n_blocks 1), 128 and 256
+                  (B = 128, n = 640) and at n = 32, 531, 532 and 4177 (S =
+                  64), the two sweeps at S = 128 and 512, at the bars
+                  below; rows 64-127 of both weights kernels at S_local =
+                  128 bitwise a call on those rows alone, the estimate at
+                  S = 128 bitwise the weights plus the blocked fold; the
+                  identity-padded factorisation at n = 532 and 4177 against
+                  ``torch.linalg.cholesky_ex`` (|L L^T - K|) and the ARD Gram
+                  at n = 531 and 4177 against its plain version; each with
+                  its ms and bound;
+34. ``main_path_s128`` config 2 with ``--n-importance 128`` (128 chains, the
+                  bench settings, 1 x 3 + 6 steps): both sweeps launched,
+                  no plain estimator, sweep or factorisation called on the
+                  card; steps/s, peak memory; one keyed step from the final
+                  state against the plain path on the same rows;
+35. ``main_path_unpadded`` ``utils/smc_scale --target gp --no-pad`` at
+                  n = 32 (2^14 particles, one chunk) and at the full n = 532
+                  (``UNPADDED_FULL_N_PARTICLES``): the estimator, panel and
+                  threefry kernels in every stage, no sweep, no plain call
+                  on the card, the last beta 1, logZ finite; the unpadded
+                  full-n estimate at fixed (theta, u) against the padded
+                  target's at u padded with zeros.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -453,9 +480,9 @@ JOINT_SHARDED_SAMPLERS = ("joint_mh", "aux_slice_joint")
 DRYRUN_RANKS = 4
 SCALING_ARGS = ["--chains-per-device", "32", "--warm", "2", "--steps", "5"]
 SMC_SCALE_TOY_BATCH = 2**16    # the toy's u is 128 B: 16 chunks of 2^20
-SMC_SCALE_GP_PARTICLES = 2**18   # 2^17 took 16.6 s in 8 chunks of 2^14
-                                 # (2^20: 0.61-0.73 s a chunk), so 2^19
-                                 # would take 65-110 s
+SMC_SCALE_GP_PARTICLES = 2**17   # 16.6 s in 8 chunks of 2^14 (2^18:
+                                 # 34.6 s until phases 33-35; 2^20: 0.61-
+                                 # 0.73 s a chunk)
 SMC_SCALE_GP_BATCH = 2**14
 SMC_SCALE_RUNS = {             # utils/smc_scale argv
     "toy": ["--target", "toy", "--particles", str(2**20), "--rejuv",
@@ -463,6 +490,27 @@ SMC_SCALE_RUNS = {             # utils/smc_scale argv
     "gp": ["--target", "gp", "--subsample", "32", "--n-importance", "32",
            "--rejuv", "aux_nuts", "--particles", str(SMC_SCALE_GP_PARTICLES),
            "--rejuv-batch", str(SMC_SCALE_GP_BATCH)],
+}
+# every shape the reference runs (phases 33-35)
+ANY_S = (72, 100, 128, 256)    # importance samples past one 64-row block
+                               # (100: n_blocks 1), B = 128, n = 640
+ANY_N_CHAINS = {32: 128, 531: 128, 532: 128, 4177: 8}   # n off the tiles
+SWEEP_ANY_S = (128, 512)       # both sweeps, B = 128, n = 640
+CHOL_ANY_N = {532: 128, 4177: 8}   # n: chains, identity-padded v3 route
+GRAM_ANY_N = {531: 64, 4177: 8}    # n: chains, the ARD Gram off 4
+S128_CHAINS, S128_STEPS = B, 3 + 6
+S128_CLI_ARGS = [              # config 2 at S = 128 with the bench settings
+    "--preset", "pima_aux_slice", "--n-importance", "128", "--chains",
+    str(S128_CHAINS), "--max-step-out", "0", "--n-ess", str(N_ESS),
+    "--n-sigma-extra", str(N_SIGMA - 1), "--max-shrink-chol", "3",
+    "--warmup-windows", "1", "--window-steps", "3", "--steps", "6"]
+UNPADDED_FULL_N_PARTICLES = 2**12   # the largest power of two within ~30 s
+UNPADDED_RUNS = {              # utils/smc_scale argv, --no-pad
+    "n32": ["--target", "gp", "--no-pad", "--subsample", "32",
+            "--particles", str(2**14), "--rejuv-batch", str(2**14)],
+    "full_n": ["--target", "gp", "--no-pad", "--subsample", "0",
+               "--particles", str(UNPADDED_FULL_N_PARTICLES),
+               "--rejuv-batch", str(UNPADDED_FULL_N_PARTICLES)],
 }
 SMC_SCALE_TOY_LOGZ_TOL = 0.02  # |logZ - closed form| at 2^20 particles
 SMC_1M_TOY_RECORD = {          # the reference's SMC_1M_toy.json
@@ -3594,7 +3642,8 @@ def main():
     # ------------------- the fourteenth slice: gradients through the fold
     # (its two-rank spawn also runs the fifteenth slice's two-rank jobs)
     ctx = types.SimpleNamespace(
-        torch=torch, np=np, smi=smi, x=x, y_np=y_np, y=y, mask=mask,
+        torch=torch, np=np, smi=smi, x=x, y_np=y_np, y=y, mask=mask, t=t,
+        dev=dev,
         run_cli=run_cli, counters=counters, read_counts=read_counts,
         step_parity=step_parity, check_close=check_close, failures=failures,
         end_phase=end_phase)
@@ -3605,6 +3654,12 @@ def main():
 
     # ---------- the fifteenth slice: paths the card had not run, config 5
     scale_phases(ctx, local15, per_rank15, spawn_s15)
+
+    # ---------------------------- every shape the reference runs (33-35)
+    any_shape_phases(types.SimpleNamespace(
+        **vars(ctx), time_ms=time_ms, kernels=kernels,
+        chol=chol, chol_r=chol_r, theta=theta, log_prior=target.log_prior,
+        ambiguous_chains=ambiguous_chains, check_counts=check_counts))
 
     # ---------------------------------------------------------------- result
     emit({"kernels": [
@@ -3619,6 +3674,7 @@ def main():
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
 
 
 def gradient_phases(torch, np, smi, x, y_np, run_cli, counters, read_counts,
@@ -4204,7 +4260,8 @@ def laplace_ard_phase(c):
     shared), both at jitter 1e-3: held on the chains whose every
     factorisation settled on the same jitter on both sides (known
     difference 3), at ``main_path_laplace``'s widest bar, half
-    log|Sigma_q|'s, which the estimate carries."""
+    log|Sigma_q|'s, which the estimate carries; and where that gap comes
+    from (``ard_gram_fault_check``)."""
     torch, np = c.torch, c.np
     from auxpm_tpu_torch.models.gp_classification import make_gp_classification
     from auxpm_tpu_torch.ops import cholesky
@@ -4268,6 +4325,7 @@ def laplace_ard_phase(c):
                           "(theta, u)")
     err = c.check_close("main_path_laplace_ard", "estimate", est_k, est_p,
                         LAPLACE_LOGDET_TOL, same)
+    gram_check = ard_gram_fault_check(c, st, same)
     summary = res["summary"]
     emit({"phase": "main_path_laplace_ard", "card": c.smi,
           "args": LAPLACE_ARD_CLI_ARGS, "chains": LAPLACE_ARD_CHAINS,
@@ -4285,10 +4343,85 @@ def laplace_ard_phase(c):
               "factorisations": len(boosts_k),
               "chains_with_the_same_jitters": int(same.sum()),
               "max_abs_err_kernel_vs_plain_gram": err,
-              "tol": LAPLACE_LOGDET_TOL}})
+              "tol": LAPLACE_LOGDET_TOL},
+          "gram_kernel_vs_plain_at_the_final_theta": gram_check})
     del res, st, tgt
     torch.cuda.empty_cache()
     c.end_phase()
+
+
+def ard_gram_fault_check(c, st, same):
+    """Where the ARD estimate's kernel-vs-plain gap comes from, at the
+    final (theta, u) of main_path_laplace_ard: the largest entrywise gap
+    between the ARD Gram kernel's R(ell) + jitter I and the plain
+    ``se_gram_ard_masked``'s, against 8 eps max(sq) (float32 rounding of
+    the reference's expression: the kernels phase's bar) and each against
+    the float64 Gram; then the Laplace estimate of each float32 Gram (and of
+    the float64 one) in float64 on the CPU (the target's prepare: jitter
+    1e-3, 6 Newton steps, the 8-block fold), on the chains whose
+    factorisations took the same jitters.  Grams within rounding whose
+    float64 estimates still differ as the float32 ones do mean the gap is
+    conditioning (known difference 3), not the kernel."""
+    torch, np = c.torch, c.np
+    from auxpm_tpu_torch.models.laplace import (
+        laplace_fit,
+        laplace_log_weight_terms,
+    )
+    from auxpm_tpu_torch.models.likelihoods import LIKELIHOODS
+    from auxpm_tpu_torch.ops import gram as gr
+    from auxpm_tpu_torch.ops.cholesky import robust_cholesky
+    from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+
+    n_raw = len(c.x)
+    x_pad = c.t(np.concatenate([c.x, np.zeros((N - n_raw, c.x.shape[1]))]))
+    log_ells = st.theta[:, :-1].contiguous()
+    g_k = gr.se_gram_ard_hopper(x_pad, log_ells, LAPLACE_JITTER, c.mask)
+    g_p = gr.se_gram_ard_masked(x_pad, log_ells, LAPLACE_JITTER, c.mask)
+    cpu64 = {k_: v_.double().cpu() for k_, v_ in dict(
+        x=x_pad, le=log_ells, mask=c.mask, y=c.y, theta=st.theta,
+        u=st.u).items()}
+    g_64 = gr.se_gram_ard_masked(cpu64["x"], cpu64["le"], LAPLACE_JITTER,
+                                 cpu64["mask"])
+    sq_max = float(((x_pad[None] * torch.exp(-log_ells)[:, None, :]) ** 2)
+                   .sum(-1).max())
+    rounding = 8.0 * float(np.finfo(np.float32).eps) * max(sq_max, 1.0)
+
+    def estimate64(r):
+        log_sigma = cpu64["theta"][:, -1]
+        chol_k = torch.exp(log_sigma)[:, None, None] * robust_cholesky(
+            r, jitter0=LAPLACE_JITTER)
+        k = torch.exp(2.0 * log_sigma)[:, None, None] * r
+        f_hat, chol_q, half_q = laplace_fit(k, cpu64["y"], cpu64["mask"],
+                                            "logistic", 6)
+        f, extra = laplace_log_weight_terms(chol_k, f_hat, chol_q, half_q,
+                                            cpu64["u"])
+        lw = LIKELIHOODS["logistic"](f, cpu64["y"], cpu64["mask"]) + extra
+        return blocked_logsumexp(lw, 8) - math.log(S_LAPLACE)
+
+    keep = same.cpu()
+    est = {"kernel_gram": estimate64(g_k.double().cpu()),
+           "plain_gram": estimate64(g_p.double().cpu()),
+           "float64_gram": estimate64(g_64)}
+    gap_k_p = float((g_k - g_p).abs().max())
+    out = {
+        "gram_max_abs_gap_kernel_vs_plain": gap_k_p,
+        "float32_rounding_bar": rounding,
+        "kernel_gram_vs_float64": float((g_k.double().cpu() - g_64)
+                                        .abs().max()),
+        "plain_gram_vs_float64": float((g_p.double().cpu() - g_64)
+                                       .abs().max()),
+        "estimate64_kernel_vs_plain_gram": float(
+            (est["kernel_gram"] - est["plain_gram"])[keep].abs().max()),
+        "estimate64_kernel_vs_float64_gram": float(
+            (est["kernel_gram"] - est["float64_gram"])[keep].abs().max()),
+        "estimate64_plain_vs_float64_gram": float(
+            (est["plain_gram"] - est["float64_gram"])[keep].abs().max()),
+        "chains": int(keep.sum())}
+    out["kernel_at_fault"] = not gap_k_p <= rounding
+    if out["kernel_at_fault"]:
+        c.failures.append(f"laplace ARD: the Gram kernel is {gap_k_p:.3e} "
+                          f"from the plain Gram, past rounding {rounding:.3e}")
+    return out
 
 
 def joint_sharded_jobs(c):
@@ -4602,6 +4735,508 @@ def smc_scale_phase(c):
           "one_chunk_stage_profiled": {
               "particles": chunk, "kernel_launches": launches,
               "host_syncs": syncs, "device_busy_ms": busy_ms}})
+    c.end_phase()
+
+
+def any_shape_phases(c):
+    """Phases 33-35 of the module note (every shape the reference runs),
+    with ``main``'s helpers and inputs in the namespace ``c``."""
+    any_shape_kernel_phase(c)
+    main_path_s128_phase(c)
+    main_path_unpadded_phase(c)
+
+
+@contextlib.contextmanager
+def plain_calls_on_the_card(c, backward=None):
+    """Counts, per name, the calls of a plain estimator, sweep or
+    factorisation that are given a CUDA tensor while the block runs (each
+    plain function of ``ops/`` wherever it was imported, and the library's
+    ``torch.linalg.cholesky_ex``); yields the dict of counts.  The calls
+    made inside the estimator's backward (``FusedEstimate`` and
+    ``FusedWeights`` differentiate their plain versions, as the reference
+    has no backward kernel) are counted in the dict ``backward`` instead,
+    where one is given."""
+    torch = c.torch
+    from auxpm_tpu_torch.ops import chol_hopper, cholesky
+    from auxpm_tpu_torch.ops import ess_sweep as ess
+    from auxpm_tpu_torch.ops import fused_estimator as fe
+    from auxpm_tpu_torch.ops import sigma_sweep as sig
+
+    calls, inside = {}, []
+
+    def counting(name, fn):
+        def wrapped(*a, **kw):
+            if any(isinstance(x_, torch.Tensor) and x_.is_cuda
+                   for x_ in (*a, *kw.values())):
+                into = backward if inside and backward is not None else calls
+                into[name] = into.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrapped
+
+    plain_vjp = fe._plain_vjp
+
+    def marked_vjp(*a, **kw):
+        inside.append(1)
+        try:
+            return plain_vjp(*a, **kw)
+        finally:
+            inside.pop()
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(fe, "_plain_vjp", marked_vjp))
+        for mod in (fe, ess, sig, chol_hopper):
+            for name in dir(mod):
+                if name.startswith("_ref_"):
+                    stack.enter_context(mock.patch.object(
+                        mod, name, counting(name, getattr(mod, name))))
+        stack.enter_context(mock.patch.object(
+            cholesky.torch.linalg, "cholesky_ex",
+            counting("cholesky_ex", torch.linalg.cholesky_ex)))
+        yield calls
+
+
+def _seq_bound(fe, b, s, n, rot=False, rows_out=False):
+    """Bytes and FLOPs of one estimator entry: the factor's lower triangle,
+    u (and v and the angle), y and the mask read once, one float (or S
+    floats) written per chain; S n (n + 1) FLOPs per chain."""
+    tri = n * (n + 1) // 2
+    per_chain = tri + (2 if rot else 1) * s * n + (1 if rot else 0) \
+        + (s if rows_out else 1)
+    return bound(4 * (b * per_chain + 2 * n), b * fe.probe_flops(s, n))
+
+
+def any_shape_kernel_phase(c):
+    """kernels_any_shape: the six kernels of the sweep body against their
+    plain versions at S past one block of 64 rows (``ANY_S`` at B = 128,
+    n = 640 on config 2's factors; the sweeps at ``SWEEP_ANY_S``) and at n
+    off the column tiles (``ANY_N_CHAINS`` at S = 64, unit-diagonal
+    factors, every point real), at the kernels phase's bars; the sweeps'
+    decisions equal outside them.  Bitwise: rows 64-127 of both weights
+    kernels at S_local = 128 against a call on those 64 rows alone, and
+    the estimate at S = 128 against the weights plus the blocked fold.  The
+    factorisation through the identity-padded panel route at n = 532 and
+    4177 against ``torch.linalg.cholesky_ex`` by max |L L^T - K| (the
+    chol_variants batch: lengthscales in [0.5, 3], jitter 1e-2), the ARD
+    Gram at n = 531 and 4177 against its plain version (8 eps max(sq)).
+    Each with its ms and bound."""
+    torch, np, t, dev = c.torch, c.np, c.t, c.dev
+    from auxpm_tpu_torch.models.datasets import load
+    from auxpm_tpu_torch.ops import cholesky
+    from auxpm_tpu_torch.ops import ess_sweep as ess
+    from auxpm_tpu_torch.ops import fused_estimator as fe
+    from auxpm_tpu_torch.ops import gram as gr
+    from auxpm_tpu_torch.ops import sigma_sweep as sig
+    from auxpm_tpu_torch.ops.logsumexp import blocked_logsumexp
+    from auxpm_tpu_torch.utils.chol_bench import make_batch
+
+    log("kernels: every shape the reference runs")
+    rng = np.random.default_rng(2016)
+    chk, fails = c.check_close, c.failures
+    y, mask, chol = c.y, c.mask, c.chol
+    entries = {}
+
+    def four_entries(tag, chol_, u_, v_, ang_, y_, mask_, nb):
+        """The four entries against their plain versions; their errors."""
+        b_, s_, n_ = u_.shape
+        pairs = {
+            "fused_estimator": (
+                fe.fused_estimate(chol_, u_, y_, mask_, "logistic", nb),
+                fe._ref_estimate(chol_, u_, y_, mask_, "logistic", nb)),
+            "fused_estimator_rot": (
+                fe.fused_estimate_rot(chol_, u_, v_, ang_, y_, mask_,
+                                      "logistic", nb),
+                fe._ref_estimate_rot(chol_, u_, v_, ang_, y_, mask_,
+                                     "logistic", nb)),
+            "fused_weights": (
+                fe.fused_weights(chol_, u_, y_, mask_),
+                fe._ref_weights(chol_, u_, y_, mask_, "logistic")),
+            "fused_rot_weights": (
+                fe.fused_rot_weights(chol_, u_, v_, ang_, y_, mask_),
+                fe._ref_rot_weights(chol_, u_, v_, ang_, y_, mask_,
+                                    "logistic")),
+        }
+        torch.cuda.synchronize()
+        for name, (k_, p_) in pairs.items():
+            entries.setdefault(name, {})[tag] = {
+                "B": b_, "S": s_, "n": n_, "n_blocks": nb,
+                "max_abs_err": chk(f"kernels_any_shape/{name}", tag, k_, p_,
+                                   LL_TOL, None, LL_RTOL)}
+        return pairs
+
+    def time_entries(tag, chol_, u_, v_, ang_, y_, mask_, nb):
+        b_, s_, n_ = u_.shape
+        calls = {
+            "fused_estimator": (lambda: fe.fused_estimate(
+                chol_, u_, y_, mask_, "logistic", nb), {}),
+            "fused_estimator_rot": (lambda: fe.fused_estimate_rot(
+                chol_, u_, v_, ang_, y_, mask_, "logistic", nb),
+                {"rot": True}),
+            "fused_weights": (lambda: fe.fused_weights(chol_, u_, y_, mask_),
+                              {"rows_out": True}),
+            "fused_rot_weights": (lambda: fe.fused_rot_weights(
+                chol_, u_, v_, ang_, y_, mask_),
+                {"rot": True, "rows_out": True}),
+        }
+        for name, (fn, kw) in calls.items():
+            b_ms, b_by = _seq_bound(fe, b_, s_, n_, **kw)
+            entries[name][tag].update(ms=c.time_ms(fn, 3), bound_ms=b_ms,
+                                      bound_by=b_by)
+
+    # ---- S past one row block, at config 2's width
+    bitwise = {}
+    for s_ in ANY_S:
+        u_ = t(rng.standard_normal((B, s_, N)))
+        v_ = t(rng.standard_normal((B, s_, N)))
+        ang_ = t(rng.uniform(-np.pi, np.pi, B))
+        nb = 8 if s_ % 8 == 0 else 1
+        tag = f"S={s_}"
+        four_entries(tag, chol, u_, v_, ang_, y, mask, nb)
+        time_entries(tag, chol, u_, v_, ang_, y, mask, nb)
+        if s_ == 128:
+            for name, fn in (("fused_weights", lambda a_, b_: fe.fused_weights(
+                    chol, a_, y, mask)),
+                    ("fused_rot_weights", lambda a_, b_: fe.fused_rot_weights(
+                        chol, a_, b_, ang_, y, mask))):
+                whole = fn(u_, v_)
+                tail = fn(u_[:, 64:].contiguous(), v_[:, 64:].contiguous())
+                bitwise[f"{name}_rows_64_127"] = torch.equal(whole[:, 64:],
+                                                             tail)
+            est = fe.fused_estimate(chol, u_, y, mask, "logistic", 8)
+            fold = blocked_logsumexp(fe.fused_weights(chol, u_, y, mask), 8) \
+                - float(np.log(np.float32(s_)))
+            bitwise["estimate_vs_weights_plus_fold_S128"] = torch.equal(
+                est, fold)
+            bitwise["estimate_vs_weights_plus_fold_max_abs"] = float(
+                (est - fold).abs().max())
+            plain = {
+                "fused_estimator": lambda: fe._ref_estimate(
+                    chol, u_, y, mask, "logistic", 8),
+                "fused_estimator_rot": lambda: fe._ref_estimate_rot(
+                    chol, u_, v_, ang_, y, mask, "logistic", 8),
+                "fused_weights": lambda: fe._ref_weights(
+                    chol, u_, y, mask, "logistic"),
+                "fused_rot_weights": lambda: fe._ref_rot_weights(
+                    chol, u_, v_, ang_, y, mask, "logistic")}
+            for name, f_ in plain.items():
+                entries[name][tag]["plain_ms"] = c.time_ms(f_, 3)
+        del u_, v_
+    for key in ("fused_weights_rows_64_127", "fused_rot_weights_rows_64_127",
+                "estimate_vs_weights_plus_fold_S128"):
+        if not bitwise[key]:
+            fails.append(f"kernels_any_shape: {key} not bitwise")
+
+    # ---- n off the column tiles: every point real, S = 64
+    for n_, b_ in ANY_N_CHAINS.items():
+        chol_ = t(np.tril(rng.standard_normal((b_, n_, n_)) * 0.03)
+                  + np.eye(n_))
+        u_ = t(rng.standard_normal((b_, S, n_)))
+        v_ = t(rng.standard_normal((b_, S, n_)))
+        ang_ = t(rng.uniform(-np.pi, np.pi, b_))
+        y_ = t(rng.choice([-1.0, 1.0], n_))
+        mask_ = torch.ones(n_, device=dev)
+        tag = f"n={n_}"
+        four_entries(tag, chol_, u_, v_, ang_, y_, mask_, 8)
+        time_entries(tag, chol_, u_, v_, ang_, y_, mask_, 8)
+        del chol_, u_, v_
+
+    # ---- both sweeps at S = 128 and 512, config 2's factors
+    sweeps = {}
+    hiv = 0.5 / 1.5**2
+    theta = c.theta
+    for s_ in SWEEP_ANY_S:
+        u_ = t(rng.standard_normal((B, s_, N)))
+        v_ = t(rng.standard_normal((B, N_ESS, s_, N)))
+        scal = t(np.concatenate([
+            np.zeros((B, N_ESS, 1)), np.log(rng.uniform(size=(B, N_ESS, 1))),
+            rng.uniform(size=(B, N_ESS, 1)) * 2.0 * np.pi,
+            rng.uniform(size=(B, N_ESS, 32))], axis=2))
+        scal[:, 0, 0] = fe._ref_estimate(chol, u_, y, mask, "logistic", 8)
+        probe_log = []
+        out_k = ess.ess_sweep(chol, u_, scal, v_, y, mask, "logistic", 8,
+                              None, N_ESS)
+        out_p = ess._ref_ess_sweep(chol, u_, scal, v_, y, mask, "logistic",
+                                   8, None, N_ESS, "float32",
+                                   probe_log=probe_log)
+        torch.cuda.synchronize()
+        amb = c.ambiguous_chains(probe_log, LL_TOL)
+        probes = float(out_k[2].sum()) + B * N_ESS
+        b_ms, b_by = bound(4 * B * (TRI + (2 + N_ESS) * s_ * N
+                                    + N_ESS * 35 + 4),
+                           probes * fe.probe_flops(s_, N))
+        sweeps[f"ess_sweep S={s_}"] = {
+            "ambiguous_chains": c.check_counts(
+                f"ess_sweep S={s_}", [("n_shrink", out_k[2], out_p[2]),
+                                      ("moved", out_k[3], out_p[3])], amb),
+            "u": chk("kernels_any_shape/ess_sweep", f"u' S={s_}", out_k[0],
+                     out_p[0], U_TOL, ~amb),
+            "ll": chk("kernels_any_shape/ess_sweep", f"ll S={s_}", out_k[1],
+                      out_p[1], LL_TOL, ~amb, LL_RTOL),
+            "probes": probes, "rounds": int(ess.last_rounds.item()),
+            "ms": c.time_ms(lambda: ess.ess_sweep(
+                chol, u_, scal, v_, y, mask, "logistic", 8, None, N_ESS), 3),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del v_, out_k, out_p
+        rep = t(rng.uniform(size=(B, N_SIGMA, 2 + 32)))
+        rep[:, :, 0] = torch.log(rep[:, :, 0])
+        ll0 = fe._ref_estimate(c.chol, u_, y, mask, "logistic", 8)
+        d0 = theta[:, 1]
+        lp0 = c.log_prior(theta)
+        chain = torch.stack(
+            [ll0, lp0 + ll0, theta[:, 1], torch.full_like(ll0, 1.2),
+             torch.zeros_like(ll0), torch.full_like(ll0, hiv),
+             lp0 + hiv * d0 * d0, torch.zeros_like(ll0)], dim=1).contiguous()
+        probe_log = []
+        out_k = sig.sigma_sweep(c.chol_r, u_, chain, rep, y, mask,
+                                "logistic", 8, None, N_SIGMA)
+        out_p = sig._ref_sigma_sweep(c.chol_r, u_, chain, rep, y, mask,
+                                     "logistic", 8, None, N_SIGMA, "float32",
+                                     probe_log=probe_log)
+        torch.cuda.synchronize()
+        amb = c.ambiguous_chains(probe_log, LL_TOL)
+        probes = float(out_k[3].sum())
+        b_ms, b_by = bound(4 * B * (TRI + s_ * N + 8 + N_SIGMA * 34 + 8),
+                           probes * fe.probe_flops(s_, N))
+        sweeps[f"sigma_sweep S={s_}"] = {
+            "ambiguous_chains": c.check_counts(
+                f"sigma_sweep S={s_}", [("n_shrink", out_k[3], out_p[3]),
+                                        ("moved", out_k[4], out_p[4])], amb),
+            "sigma": chk("kernels_any_shape/sigma_sweep", f"sigma' S={s_}",
+                         out_k[0], out_p[0], SIGMA_TOL, ~amb),
+            "ll": chk("kernels_any_shape/sigma_sweep", f"ll S={s_}",
+                      out_k[1], out_p[1], LL_TOL, ~amb, LL_RTOL),
+            "probes": probes, "rounds": int(sig.last_rounds.item()),
+            "ms": c.time_ms(lambda: sig.sigma_sweep(
+                c.chol_r, u_, chain, rep, y, mask, "logistic", 8, None,
+                N_SIGMA), 3),
+            "bound_ms": b_ms, "bound_by": b_by}
+        del u_, out_k, out_p
+        torch.cuda.empty_cache()
+
+    # ---- the factorisation at n off 128, identity-padded panel route
+    chols = {}
+    for n_, b_ in CHOL_ANY_N.items():
+        k_ = t(make_batch(b_, n_, seed=n_))
+        scale = float(k_.abs().max())
+        l_k = cholesky._chol_dispatch(k_)
+        l_lib, info = torch.linalg.cholesky_ex(k_)
+        torch.cuda.synchronize()
+        back_k = float((torch.bmm(l_k, l_k.mT) - k_).abs().max()) / scale
+        back_lib = float((torch.bmm(l_lib, l_lib.mT) - k_).abs().max()) / scale
+        # the library's own error sets the bar where it exceeds the
+        # chol_variants bar (float32 at n = 4177)
+        bar = max(CHOL_BACK_RTOL, 2.0 * back_lib)
+        if not (back_k <= bar and bool(torch.isfinite(l_k).all())
+                and int(info.max()) == 0):
+            fails.append(f"kernels_any_shape/chol n={n_}: |L L^T - K| "
+                         f"{back_k:.3e} relative, bar {bar:.3e}")
+        n_pad = -(-n_ // 128) * 128
+        tri_pad = n_pad * (n_pad + 1) // 2
+        b_ms, b_by = bound(4 * b_ * 2 * (n_ * (n_ + 1) // 2),
+                           b_ * n_**3 / 3.0)
+        chols[f"n={n_}"] = {
+            "B": b_, "n_padded": n_pad, "backward_err_rel": back_k,
+            "library_backward_err_rel": back_lib, "bar": bar,
+            "ms": c.time_ms(lambda: cholesky._chol_dispatch(k_), 3),
+            "library_ms": c.time_ms(lambda: torch.linalg.cholesky_ex(k_), 3),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "padded_work_share": b_ * tri_pad / (b_ * n_ * (n_ + 1) / 2)}
+        del k_, l_k, l_lib
+        torch.cuda.empty_cache()
+
+    # ---- the ARD Gram off a multiple of 4
+    grams = {}
+    eps = float(np.finfo(np.float32).eps)
+    for n_, b_ in GRAM_ANY_N.items():
+        if n_ == 4177:
+            x_np, _ = load("abalone")
+        else:
+            x_np = c.x[:n_]
+        x_ = t(x_np)
+        d_ = x_.shape[1]
+        le = t(rng.normal(size=(b_, d_)) * 0.5)
+        sq_max = float(((x_[None] * torch.exp(-le)[:, None, :]) ** 2)
+                       .sum(-1).max())
+        tol = 8.0 * eps * max(sq_max, 1.0)
+        g_k = gr.se_gram_ard_hopper(x_, le, 1e-5)
+        g_p = gr.se_gram_ard_masked(x_, le, 1e-5)
+        torch.cuda.synchronize()
+        b_ms, b_by = bound(4 * (b_ * (n_ * n_ + d_) + n_ * d_),
+                           b_ * n_ * n_ * (2.0 * d_ + 8.0))
+        grams[f"n={n_}"] = {
+            "B": b_, "d": d_, "tol": tol,
+            "max_abs_err": chk("kernels_any_shape/se_gram_ard", f"n={n_}",
+                               g_k, g_p, tol),
+            "symmetric": bool(torch.equal(g_k, g_k.mT)),
+            "ms": c.time_ms(lambda: gr.se_gram_ard_hopper(x_, le, 1e-5), 3),
+            "plain_ms": c.time_ms(lambda: gr.se_gram_ard_masked(x_, le,
+                                                                1e-5), 3),
+            "bound_ms": b_ms, "bound_by": b_by}
+        if not grams[f"n={n_}"]["symmetric"]:
+            fails.append(f"kernels_any_shape/se_gram_ard n={n_}: not "
+                         "symmetric")
+        del g_k, g_p
+    torch.cuda.empty_cache()
+    for name, row in entries.items():
+        c.kernels[name]["any_shape"] = row
+    emit({"phase": "kernels_any_shape", "card": c.smi, "entries": entries,
+          "bitwise": bitwise, "sweeps": sweeps, "factorisation": chols,
+          "se_gram_ard": grams, "tol": LL_TOL, "rtol": LL_RTOL})
+    c.end_phase()
+
+
+def main_path_s128_phase(c):
+    """main_path_s128: config 2 with S = 128 through the CLI
+    (``S128_CLI_ARGS``): the estimator, panel, both sweeps and threefry
+    launched, no other kernel, and no plain estimator, sweep or
+    factorisation called on the card; steps/s and peak memory; then one
+    keyed step from the final state against the plain path on the same
+    rows (``step_parity``, the sigma sweep plain too)."""
+    torch = c.torch
+    must = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep",
+            "threefry")
+    log("main path (S = 128):", " ".join(S128_CLI_ARGS))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with plain_calls_on_the_card(c) as plain:
+        res, cnt = c.run_cli(S128_CLI_ARGS, must,
+                             [k_ for k_ in c.counters if k_ not in must])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = res["states"]
+    if st.u.shape != (S128_CHAINS, 128, N) or not st.u.is_cuda:
+        raise AssertionError(f"main_path_s128: u {tuple(st.u.shape)}")
+    if plain:
+        c.failures.append(f"main_path_s128: plain calls on the card {plain}")
+    if not bool(torch.isfinite(st.log_lik_hat).all()):
+        c.failures.append("main_path_s128: non-finite log L-hat")
+    health = _sampler_health(res)
+    tgt, par = res["target"], res["params"]
+    parity, stats = c.step_parity("main_path_s128", port_run_step(tgt), tgt,
+                                  st, par, c.y, c.mask, plain_sigma=True,
+                                  max_ambiguous=THETA_MAX_AMBIGUOUS)
+    emit({"phase": "main_path_s128", "card": c.smi, "args": S128_CLI_ARGS,
+          "launches": cnt, "plain_calls_on_the_card": plain,
+          "launches_per_step": {k_: v_ / S128_STEPS for k_, v_ in cnt.items()},
+          "chain_steps_per_sec": res["summary"]["chain_steps_per_sec"],
+          "steps_per_sec": res["summary"]["chain_steps_per_sec"]
+          / S128_CHAINS,
+          "run_wall_s": res["summary"]["wall"], "peak_memory_gb": peak,
+          "n_blocks": tgt.n_weight_blocks, **health,
+          "step_parity": parity, "step_parity_stats": stats})
+    del res, st, tgt
+    torch.cuda.empty_cache()
+    c.end_phase()
+
+
+def main_path_unpadded_phase(c):
+    """main_path_unpadded: ``utils/smc_scale --target gp --no-pad`` on a
+    world of one rank in this process (``UNPADDED_RUNS``): n = 32 at 2^14
+    particles in one chunk (beside phase 32's padded one-chunk stage), and
+    the full n = 532 at ``UNPADDED_FULL_N_PARTICLES``.  In each: the
+    estimator, panel and threefry kernels launched in every stage, no sweep,
+    no plain estimator or factorisation on the card outside the NUTS
+    gradient's backward (reported), the last beta 1, logZ finite.  Then at
+    fixed (theta, u) the unpadded full-n target's estimate against the
+    padded target's at u padded with zeros, at the estimator's bar (and
+    whether it is bitwise), with the two factors compared."""
+    torch, np, t = c.torch, c.np, c.t
+    import tempfile
+
+    import torch.distributed as dist
+
+    from auxpm_tpu_torch.models.gp_classification import make_gp_classification
+    from auxpm_tpu_torch.parallel.mesh import INIT_METHOD_ENV
+    from auxpm_tpu_torch.utils import smc_scale
+
+    world_dir = tempfile.mkdtemp(prefix="auxpm_world_")
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "LOCAL_WORLD_SIZE": "1",
+           INIT_METHOD_ENV: f"file://{world_dir}/rendezvous"}
+    torch.cuda.empty_cache()
+    runs = {}
+    try:
+        with mock.patch.dict(os.environ, env):
+            for name, argv in UNPADDED_RUNS.items():
+                log(f"main path (smc_scale --no-pad, {name}):",
+                    " ".join(argv))
+                result = {}
+                for m_, attr in c.counters.values():
+                    setattr(m_, attr, 0)
+                t0 = time.time()
+                in_backward = {}
+                with plain_calls_on_the_card(c, in_backward) as plain, \
+                        contextlib.redirect_stdout(sys.stderr):
+                    rc = smc_scale.main(argv, result=result)
+                torch.cuda.synchronize()
+                if rc != 0:
+                    raise AssertionError(f"smc_scale returned {rc}")
+                runs[name] = {"result": result, "plain": dict(plain),
+                              "in_backward": in_backward,
+                              "counts": c.read_counts(),
+                              "wall_s": time.time() - t0}
+                torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    line = {}
+    for name, r in runs.items():
+        out, diag = r["result"]["out"], r["result"]["diag"]
+        if out["padded"] is not False:
+            c.failures.append(f"main_path_unpadded/{name}: padded target")
+        if out["betas"][-1] != 1.0 or not math.isfinite(diag["log_z"]):
+            c.failures.append(f"main_path_unpadded/{name}: betas "
+                              f"{out['betas']}, logZ {diag['log_z']}")
+        if r["plain"]:
+            c.failures.append(f"main_path_unpadded/{name}: plain calls on "
+                              f"the card {r['plain']}")
+        for k_ in ("ess_sweep", "sigma_sweep"):
+            if r["counts"][k_]:
+                c.failures.append(f"main_path_unpadded/{name}: launched {k_}")
+        for st_ in out["per_stage"][1:]:
+            for k_ in ("fused_estimator", "chol_panel", "threefry_launches"):
+                if st_[k_] <= 0:
+                    c.failures.append(f"main_path_unpadded/{name}: stage "
+                                      f"{st_['stage']} never launched {k_}")
+        line[name] = {k_: out[k_] for k_ in (
+            "target", "particles", "n_stages", "wall_total", "init_wall",
+            "stage_wall", "log_z", "betas", "u_mh_accept", "rejuv_batch",
+            "chunks_per_stage", "peak_memory_gb", "per_stage", "padded")}
+        line[name].update(
+            launches=r["counts"], wall_s_with_set_up=r["wall_s"],
+            plain_calls_on_the_card=r["plain"],
+            plain_recomputes_in_the_gradients_backward=r["in_backward"])
+    # the full-n estimate at fixed (theta, u), unpadded against padded
+    rng = np.random.default_rng(532)
+    from auxpm_tpu_torch.models.datasets import load
+
+    x_, y_ = load("pima")
+    t_raw = make_gp_classification(x_, y_, n_importance=32, pad_to_tiles=False,
+                                   device="cuda")
+    t_pad = make_gp_classification(x_, y_, n_importance=32, device="cuda")
+    n_raw, n_pad = t_raw.u_shape[1], t_pad.u_shape[1]
+    theta = t(rng.normal(size=(B, 2)) * 0.5)
+    u_raw = t(rng.standard_normal((B, 32, n_raw)))
+    u_pad = torch.nn.functional.pad(u_raw, (0, n_pad - n_raw))
+    with plain_calls_on_the_card(c) as plain_fixed:
+        ll_raw = t_raw.log_lik_est(theta, u_raw)
+        ll_pad = t_pad.log_lik_est(theta, u_pad)
+        c_raw, c_pad = t_raw.prepare(theta), t_pad.prepare(theta)
+    torch.cuda.synchronize()
+    fixed = {
+        "n": n_raw, "n_padded": n_pad, "chains": B,
+        "max_abs_err": c.check_close("main_path_unpadded", "estimate "
+                                     "unpadded vs padded", ll_raw, ll_pad,
+                                     LL_TOL, None, LL_RTOL),
+        "bitwise": bool(torch.equal(ll_raw, ll_pad)),
+        "factor_max_abs_diff": float((c_raw - c_pad[:, :n_raw, :n_raw])
+                                     .abs().max()),
+        "factor_bitwise": bool(torch.equal(c_raw, c_pad[:, :n_raw, :n_raw])),
+        "plain_calls_on_the_card": plain_fixed}
+    if plain_fixed:
+        c.failures.append(f"main_path_unpadded: plain calls {plain_fixed}")
+    emit({"phase": "main_path_unpadded", "card": c.smi,
+          "args": UNPADDED_RUNS, **line, "fixed_theta_u": fixed})
+    del t_raw, t_pad, c_raw, c_pad
+    torch.cuda.empty_cache()
     c.end_phase()
 
 

@@ -176,10 +176,11 @@ def test_estimator_bfloat16_matches_jax_ref():
 
 def test_probe_shape_checks_raise():
     tfe.check_probe_shapes(64, 640, 8)
-    with pytest.raises(ValueError):
-        tfe.check_probe_shapes(64, 600, 8)     # n not a multiple of the tile
-    with pytest.raises(ValueError):
-        tfe.check_probe_shapes(128, 640, 8)    # more rows than a block holds
+    tfe.check_probe_shapes(64, 600, 8)         # a partial last column tile
+    tfe.check_probe_shapes(128, 640, 8)        # two row blocks
+    tfe.check_probe_shapes(tfe.MAX_SAMPLES, 640, 8)
+    with pytest.raises(ValueError, match="importance samples"):
+        tfe.check_probe_shapes(tfe.MAX_SAMPLES + 1, 640)   # past the limit
     with pytest.raises(ValueError):
         tfe.check_probe_shapes(64, 640, 7)     # blocks do not divide S
     with pytest.raises(ValueError):
@@ -191,57 +192,73 @@ def test_probe_shape_checks_raise():
 
 def test_sweep_body_shape_checks_take_any_n():
     # every estimator kernel runs on csrc/sweep_body.cuh, whose shared
-    # memory does not depend on n: only the tile and row limits stay
+    # memory depends on neither n nor S: any n, S up to MAX_SAMPLES; the
+    # sweeps, which only padded targets get, take n a multiple of 64
     tfe.check_probe_shapes(64, 4096, 8)
+    tfe.check_probe_shapes(64, 4000, 8)
+    tfe.check_probe_shapes(65, 4096)
+    tfe.check_probe_shapes(100, 531, 1)
+    for n in (1, 101, 4177):
+        assert tfe.probe_shape_error(512, n, 8) is None
+        assert not tfe.fits_sweep_body(512, n, 8)
+    assert tfe.fits_sweep_body(512, 640, 8)
     with pytest.raises(ValueError):
-        tfe.check_probe_shapes(64, 4000, 8)
+        tfe.check_probe_shapes(4097, 4096, 1)
     with pytest.raises(ValueError):
-        tfe.check_probe_shapes(65, 4096, 8)
+        tfe.check_probe_shapes(64, 0, 8)
 
 
 @pytest.mark.parametrize("s,n,n_blocks", [
     (16, 1024, 8),    # n above the old left-operand limit (~880)
     (64, 256, 8),
-    (80, 256, 8),     # more rows than a block holds
-    (16, 200, 8),     # n not a multiple of the 64-column tile
+    (80, 256, 8),     # two row blocks, the second partial
+    (16, 200, 8),     # a partial last column tile: the entries only
     (16, 256, 3),     # a reduction tree that does not divide S
+    (4097, 64, 1),    # more importance samples than the kernels take
 ])
 def test_sweep_wrappers_refuse_exactly_where_the_gate_says(s, n, n_blocks):
-    """``fits_sweep_body`` is the gate of the sweep body's wrappers: where it
-    holds they get past every shape check (and stop only at the CPU tensor),
-    where it does not they refuse the shapes."""
-    fits = tfe.fits_sweep_body(s, n, n_blocks)
-    assert fits == (tfe.probe_shape_error(s, n, n_blocks) is None)
+    """The sweeps' wrappers refuse exactly where ``sweep_shape_error`` (the
+    gate ``fits_sweep_body``) says, the entries' exactly where
+    ``probe_shape_error`` says, each with that message; where the shapes
+    are taken they stop only at the CPU tensor."""
+    sweep_err = tfe.sweep_shape_error(s, n, n_blocks)
+    assert tfe.fits_sweep_body(s, n, n_blocks) == (sweep_err is None)
+    if s > tfe.MAX_SAMPLES:
+        assert "importance samples" in sweep_err
     z = torch.zeros
-    # (call, its gate): the weights have no reduction tree
+    # (call, why it refuses or None): the weights have no reduction tree
     calls = {
         "ess": (lambda: tess._cuda_ess_sweep(
             z(1, n, n), z(1, s, n), z(1, 1, 35), z(1, 1, s, n), z(n), z(n),
-            "logistic", n_blocks, None, 1, "float32"), fits),
+            "logistic", n_blocks, None, 1, "float32"), sweep_err),
         "sigma": (lambda: tsig._cuda_sigma_sweep(
             z(1, n, n), z(1, s, n), z(1, 8), z(1, 1, 34), z(n), z(n),
-            "logistic", n_blocks, None, 1, "float32"), fits),
+            "logistic", n_blocks, None, 1, "float32"), sweep_err),
         "rot_weights": (lambda: tfe._cuda_rot_weights(
             z(1, n, n), z(1, s, n), z(1, s, n), z(1), z(n), z(n),
-            "logistic", "float32", None), tfe.fits_sweep_body(s, n)),
+            "logistic", "float32", None), tfe.probe_shape_error(s, n)),
         "weights": (lambda: tfe._cuda_weights(
             z(1, n, n), z(1, s, n), z(n), z(n), "logistic", "float32"),
-            tfe.fits_sweep_body(s, n)),
+            tfe.probe_shape_error(s, n)),
         "estimate_rot": (lambda: tfe._cuda_estimate_rot(
             z(1, n, n), z(1, s, n), z(1, s, n), z(1), z(n), z(n),
-            "logistic", n_blocks, None, "float32", None), fits),
+            "logistic", n_blocks, None, "float32", None),
+            tfe.probe_shape_error(s, n, n_blocks)),
     }
-    for name, (call, gate) in calls.items():
+    for name, (call, why) in calls.items():
         with pytest.raises(ValueError) as err:
             call()
-        past_the_gate = "expected a CUDA tensor" in str(err.value)
-        assert past_the_gate == gate, (name, str(err.value))
+        if why is None:
+            assert "expected a CUDA tensor" in str(err.value), name
+        else:
+            assert str(err.value) == why, (name, str(err.value))
 
 
 @pytest.mark.parametrize("s,pad", [(16, True), (80, True), (16, False)])
 def test_sweep_factories_return_none_past_the_gate(s, pad):
     """The GP target's sweep factories return None exactly where the sweep
-    body refuses its shapes; the step then takes the per-probe path."""
+    body refuses its shapes or the target is unpadded (the reference's
+    ``use_fused``); the step then takes the per-probe path."""
     from auxpm_tpu_torch.models.datasets import load
     from auxpm_tpu_torch.models.gp_classification import (
         make_gp_classification,
@@ -251,12 +268,12 @@ def test_sweep_factories_return_none_past_the_gate(s, pad):
     x, y = load("pima", subsample=100)
     target = make_gp_classification(x, y, n_importance=s, pad_to_tiles=pad,
                                     device="cpu")
-    fits = tfe.fits_sweep_body(s, target.u_shape[1], target.n_weight_blocks)
-    assert fits == (s <= 64 and pad)
+    assert tfe.fits_sweep_body(s, target.u_shape[1],
+                               target.n_weight_blocks) == pad
     for factory in (target.ess_sweep_factory, target.sigma_sweep_factory):
-        assert (factory(2) is not None) == fits
+        assert (factory(2) is not None) == pad
     step = make_aux_slice(target, n_ess=2)
-    assert step.stages["ess_u"].uses_sweep == fits
+    assert step.stages["ess_u"].uses_sweep == pad
 
 
 @pytest.mark.parametrize("kernel", ["ess", "sigma", "rot_weights",
@@ -504,3 +521,56 @@ def test_sigma_sweep_matches_jax(likelihood):
     np.testing.assert_allclose(ll_t, ll_j, rtol=0, atol=1e-4)
     np.testing.assert_allclose(lp_t, lp_j, rtol=0, atol=1e-4)
     assert ns_t.sum() > 0 and mv_t.sum() > 0
+
+
+def test_body_ab_runs_each_tree_on_its_own_package(tmp_path):
+    """``utils/body_ab`` runs its steps in a process whose
+    ``auxpm_tpu_torch`` is the named tree's: a stub tree's ``_build`` is the
+    one called."""
+    import subprocess
+
+    from auxpm_tpu_torch.utils import body_ab
+
+    ops = tmp_path / "auxpm_tpu_torch" / "ops"
+    ops.mkdir(parents=True)
+    (tmp_path / "auxpm_tpu_torch" / "__init__.py").write_text("")
+    (ops / "__init__.py").write_text("")
+    (ops / "_build.py").write_text(
+        "def build():\n    print('STUB TREE')\n\n\n"
+        "def load_library():\n    pass\n")
+    out = subprocess.run(body_ab._in_tree(tmp_path, ["--build"]),
+                         cwd=tmp_path, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["STUB", "TREE", "BUILT"]
+
+
+def test_body_ab_reads_registers_and_spills_from_the_nvcc_log(tmp_path):
+    """Each kernel's registers, stack and spills, not those of a function
+    it calls."""
+    from auxpm_tpu_torch.utils import body_ab
+
+    log = tmp_path / "nvcc.log"
+    log.write_text(
+        "ptxas info    : Compiling entry function "
+        "'_ZN5auxpm16ess_sweep_kernelILi1ELb1EEEvPKfS2_' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN5auxpm5sweep17copy_ragged_chunkEPf\n"
+        "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Function properties for "
+        "_ZN5auxpm16ess_sweep_kernelILi1ELb1EEEvPKfS2_\n"
+        "    40 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 2 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN5auxpm18se_gram_ard_kernelILb1EEEvPKf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_ZN5auxpm18se_gram_ard_kernelILb1EEEvPKf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 55 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN5auxpm17chol_panel_kernelEPf' for 'sm_90a'\n"
+        "ptxas info    : Used 90 registers\n")
+    assert body_ab.ptxas_info(log) == {
+        "ess_sweep_kernelILi1ELb1E": [168, 40, 8, 8],
+        "se_gram_ard_kernelILb1E": [55, 0, 0, 0],
+    }

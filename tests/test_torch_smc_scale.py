@@ -9,8 +9,9 @@
   (read from its source) plus the port's named additions;
 - the GP path (Pima subsample 32, S = 32, ``aux_nuts``) at 64 particles:
   finite, the last beta 1;
-- the refusals: ``--device cuda`` without a GPU, ``--no-pad`` on the card,
-  more particles than the resampling's float32 positions count exactly;
+- the refusals: ``--device cuda`` without a GPU, no particles, more
+  particles than the resampling's float32 positions count exactly
+  (``--no-pad`` is taken on the card);
 - ``utils/smc_init``: the first beta it reports is the runner's own, and the
   highest particle of the GP path's seed-0 population at 2^20 (slot 723769,
   log L-hat -7.52, which sets that run's first beta: ``PERF.md`` §6)
@@ -53,7 +54,7 @@ GP_ARGV = ["--target", "gp", "--subsample", "32", "--n-importance", "32",
            "--rejuv", "aux_nuts", "--particles", "64", "--rejuv-batch", "32",
            "--device", "cpu"]
 PORT_KEYS = {"device", "rejuv_batch", "chunks_per_stage", "peak_memory_gb",
-             "per_stage"}
+             "per_stage", "padded"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -141,11 +142,16 @@ def test_cuda_without_a_gpu_raises(monkeypatch):
         smc_scale.main(["--target", "toy", "--particles", "64"])
 
 
-def test_unpadded_gp_is_refused_on_the_card():
+def test_unpadded_gp_is_taken_on_the_card():
+    """``--no-pad`` runs on the card as on the CPU (the estimator kernels
+    take any n, the factorisation pads with the identity); what stays
+    refused is a run with no particles."""
     args = smc_scale.parse_args(["--target", "gp", "--no-pad"])
-    with pytest.raises(ValueError, match="padded"):
-        smc_scale.check_args(args, torch.device("cuda"))
-    smc_scale.check_args(args, torch.device("cpu"))     # the CPU runs it
+    smc_scale.check_args(args)
+    for bad in (["--particles", "0"], ["--rejuv-batch", "0"]):
+        with pytest.raises(ValueError, match="positive"):
+            smc_scale.check_args(smc_scale.parse_args(
+                ["--target", "gp", "--no-pad", *bad]))
 
 
 def test_past_the_float32_positions_is_refused():
