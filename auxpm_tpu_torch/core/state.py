@@ -149,6 +149,30 @@ def init_chain_states(seed, target, n_chains, theta0=None, jitter_scale=0.1,
     else:
         cs = slice(0, n_chains)
     keys = prng.split(prng.key(seed).to(target.device), n_chains)[cs]
+    return _init_from_keys(keys, target, theta0, jitter_scale, with_cache,
+                           mesh)
+
+
+def init_chain_state(key, target, theta0=None, jitter_scale=0.0,
+                     with_cache=False):
+    """Initialise ONE chain from its key: the reference's
+    ``init_chain_state`` (``k_u, k_t, k_carry = split(key, 3)``, theta jitter
+    ``normal(k_t, (d,))``, u ``normal(k_u, u_shape)``).  ``key``: an int64
+    ``(2,)`` of ``core/prng.py`` (``prng.key(seed)`` or one row of
+    ``prng.split``), moved to the target's device.  Returns a state with a
+    chain axis of one, as every state of the port has: chain c of
+    ``init_chain_states(seed, target, n)`` is this of ``prng.split(
+    prng.key(seed), n)[c]`` (note the defaults: ``jitter_scale`` 0 here,
+    0.1 there, as in the reference)."""
+    keys = torch.as_tensor(key, dtype=torch.int64).to(target.device)
+    return _init_from_keys(keys.reshape(1, 2), target, theta0, jitter_scale,
+                           with_cache)
+
+
+def _init_from_keys(keys, target, theta0, jitter_scale, with_cache,
+                    mesh=None):
+    """The chains of ``keys`` (int64 ``(B, 2)`` on the target's device); see
+    ``init_chain_states``."""
     k = prng.split(keys, 3)
     n_local = keys.shape[0]
     if theta0 is None:

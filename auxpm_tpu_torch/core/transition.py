@@ -70,3 +70,16 @@ def compose(named_transitions: Sequence[tuple[str, Transition]]) -> Transition:
     composed.stage_names = tuple(stage_names)
     composed.stages = dict(named_transitions)
     return composed
+
+
+def repeat(transition: Transition, n: int) -> Transition:
+    """Apply a transition ``n`` times; the info of the last application is
+    returned."""
+
+    def repeated(state: ChainState, params: dict):
+        info = {}
+        for _ in range(n):
+            state, info = transition(state, params)
+        return state, info
+
+    return repeated

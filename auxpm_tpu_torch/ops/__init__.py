@@ -14,3 +14,9 @@ if torch.backends.cuda.matmul.allow_tf32:
         "torch.backends.cuda.matmul.allow_tf32 is True; auxpm_tpu_torch needs "
         "exact float32 matrix products (set it to False before importing)"
     )
+
+from auxpm_tpu_torch.ops.logsumexp import (  # noqa: E402,F401
+    blocked_logsumexp,
+    logsumexp,
+    masked_logsumexp,
+)

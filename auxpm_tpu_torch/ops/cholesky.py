@@ -123,6 +123,18 @@ def robust_cholesky(gram, jitter0=0.0, growth=10.0, max_tries=3):
     return RobustCholesky.apply(gram, jitter0, growth, max_tries)[0]
 
 
+def chol_with_jitter(gram, jitter=0.0):
+    """Lower-triangular Cholesky factor of ``gram + jitter I`` through
+    ``torch.linalg.cholesky``, as the reference's helper goes through
+    ``jnp.linalg.cholesky``; the caller chooses the jitter (the Gram
+    functions already add a fixed diagonal one).  A plain helper: the
+    samplers factor through ``robust_cholesky``."""
+    if jitter:
+        gram = gram + jitter * torch.eye(gram.shape[-1], dtype=gram.dtype,
+                                         device=gram.device)
+    return torch.linalg.cholesky(gram)
+
+
 def whiten(chol, u):
     """Map whitened draws u (..., S, n) to latent draws f = u @ C^T."""
     return u @ chol.mT

@@ -1,12 +1,15 @@
 """Numerically-stable log-sum-exp reductions over the LAST axis.
 
 Counterpart of ``auxpm_tpu/ops/logsumexp.py``; any leading axes (chains) are
-batch axes.  ``blocked_logsumexp`` fixes the reduction tree (block partials
-combined left to right in index order): that associativity is part of the
-estimator's definition and is what the CUDA probe body reproduces.
+batch axes (``masked_logsumexp`` takes the axis as an argument, as the
+reference's does).  ``blocked_logsumexp`` fixes the reduction tree (block
+partials combined left to right in index order): that associativity is part
+of the estimator's definition and is what the CUDA probe body reproduces.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -19,6 +22,18 @@ def logsumexp(x):
     """Max-shifted logsumexp over the last axis; safe when all are -inf."""
     m = _finite_or_zero(x.max(dim=-1, keepdim=True).values)
     return (torch.log(torch.exp(x - m).sum(-1, keepdim=True)) + m).squeeze(-1)
+
+
+def masked_logsumexp(x, mask, dim=None, keepdim=False):
+    """logsumexp over the entries where ``mask`` is True, the others taken as
+    -inf (an all-masked reduction gives -inf); over every entry when ``dim``
+    is None, else over axis ``dim``."""
+    x = torch.where(mask, x, torch.full((), -math.inf, dtype=x.dtype))
+    if dim is None:
+        out = logsumexp(x.reshape(-1))
+        return out.reshape((1,) * x.ndim) if keepdim else out
+    out = logsumexp(x.movedim(dim, -1))
+    return out.unsqueeze(dim) if keepdim else out
 
 
 def block_partials(logw, n_blocks):

@@ -26,6 +26,11 @@ everything run inside it is recorded by ``torch.profiler`` (host operators,
 and the card's kernels on a GPU) and written as a Chrome trace,
 ``<logdir>/trace_rank<rank>.json``, readable in Perfetto or
 ``chrome://tracing``.
+
+The reference's three helpers, for timing from Python: ``device_sync(x)``
+waits for the card to finish whatever produced ``x``, ``timed(fn, *args)``
+times calls closed by one ``device_sync`` and ``cost_analysis(fn, *args)``
+counts the FLOPs of one call.
 """
 
 from __future__ import annotations
@@ -59,6 +64,114 @@ def trace(logdir):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+
+
+def _tensors(x):
+    """The tensor leaves of ``x`` (nested tuples, lists, dicts and
+    dataclasses such as ``ChainState``)."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _tensors(v)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+
+
+def device_sync(x):
+    """Wait until the card has finished everything that produced ``x``:
+    ``torch.cuda.synchronize`` on the device of each CUDA tensor leaf of
+    ``x`` (each device once).  Nothing happens for CPU tensors.  Returns
+    ``x``."""
+    import torch
+
+    seen = set()
+    for leaf in _tensors(x):
+        if leaf.is_cuda and leaf.device not in seen:
+            seen.add(leaf.device)
+            torch.cuda.synchronize(leaf.device)
+    return x
+
+
+def timed(fn, *args, reps=1, warmup=1, **kw):
+    """Returns ``(seconds_per_call, last_result)``: ``warmup`` calls and one
+    ``device_sync``, then ``reps`` calls closed by a single ``device_sync``
+    of the last result (a stream runs its work in order, so that one sync
+    covers every call)."""
+    r = None
+    for _ in range(warmup):
+        r = fn(*args, **kw)
+    device_sync(r)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        r = fn(*args, **kw)
+    device_sync(r)
+    return (time.perf_counter() - t0) / reps, r
+
+
+def cost_analysis(fn, *args, **kw):
+    """FLOPs of one call of ``fn`` at these arguments, as a dict with XLA's
+    key: ``{"flops": n}``, counted by ``torch.utils.flop_counter.
+    FlopCounterMode`` over the PyTorch operators the call runs.
+
+    The count leaves out the port's hand-written kernels (the estimator,
+    the sweeps, the Cholesky panels, the ARD Gram, threefry): they are not
+    PyTorch operators.  Their work is counted where their bounds are:
+    ``ops/fused_estimator.probe_flops`` per probe, and ``bound`` in
+    ``chip_smoke.py`` per kernel."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn(*args, **kw)
+    return {"flops": float(counter.get_total_flops())}
+
+
+# (name, module under auxpm_tpu_torch.ops, counter): every kernel wrapper's
+# launch count, as the wrappers keep them
+LAUNCH_COUNTERS = (
+    ("fused_estimator", "fused_estimator", "launches"),
+    ("chol_panel", "chol_hopper", "launches"),
+    ("ess_sweep", "ess_sweep", "launches"),
+    ("sigma_sweep", "sigma_sweep", "launches"),
+    ("fused_estimator_rot", "fused_estimator", "launches_rot"),
+    ("se_gram_ard", "gram", "launches"),
+    ("fused_weights", "fused_estimator", "launches_w"),
+    ("fused_rot_weights", "fused_estimator", "launches_rot_w"),
+    ("chol_panel_v1", "chol_hopper", "launches_v1"),
+    ("chol_panel_v2", "chol_hopper", "launches_v2"),
+    ("threefry", "threefry", "launches"),
+)
+
+
+def launch_counters():
+    """``{kernel name: (wrapper module, counter attribute)}`` of
+    ``LAUNCH_COUNTERS``, the modules imported."""
+    import importlib
+
+    return {name: (importlib.import_module(f"auxpm_tpu_torch.ops.{mod}"), attr)
+            for name, mod, attr in LAUNCH_COUNTERS}
+
+
+def launch_counts():
+    """The launch counts of every kernel wrapper now, by kernel name (all 0
+    on the CPU, where the wrappers take their plain versions)."""
+    return {name: getattr(m, attr)
+            for name, (m, attr) in launch_counters().items()}
+
+
+def launches_since(before, per=1):
+    """Launches of each kernel since ``before`` (a ``launch_counts()``),
+    divided by ``per``; kernels that did not launch are left out."""
+    return {k: (v - before[k]) / per for k, v in launch_counts().items()
+            if v != before[k]}
 
 
 def profile_steps(step, states, params, n_steps):

@@ -16,7 +16,9 @@ particle-sharded ranks and on the Laplace proposal, and the Laplace proposal
 on two ranks; the stepping-out theta slices, Laplace on the ARD target, the
 joint samplers on particle shards, ``utils/scaling``, ``utils/dryrun`` and
 config 5 at 2^20 key-as-u particles through ``utils/smc_scale``; config 2
-at 128 importance samples and the unpadded GP targets of ``--no-pad``) and
+at 128 importance samples and the unpadded GP targets of ``--no-pad``; the
+counterparts of the reference's ``scripts/tau_sweep.py``, ``theta_bench.py``
+and ``ess_sweep_bench.py``) and
 holds each of its
 eleven hand-written CUDA kernels (the ten TPU kernels' and the threefry
 PRNG's) against its plain PyTorch version on the card.
@@ -121,8 +123,9 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   finite-difference check on the kernel path, and the
                   forward and backward ms of each Function;
 17. ``main_path_hmc_nuts`` ``--sampler aux_hmc`` and ``aux_nuts`` (128
-                  chains, dual averaging and the mass over 2 x 10 warm-up
-                  steps, 10 steps; 20 until phases 27-32);
+                  chains, dual averaging and the mass over 2 x 5 warm-up
+                  steps, 5 steps; 2 x 10 + 10 until phase 36, 2 x 10 + 20
+                  until phases 27-32);
                   ``path_parity_hmc_nuts`` one theta move
                   of each on the same draws through the estimator kernel and
                   its plain version: accept bits (HMC), depth, n_leapfrog
@@ -280,7 +283,16 @@ Phases, one JSON line each; any failure raises and the script exits non-zero:
                   threefry kernels in every stage, no sweep, no plain call
                   on the card, the last beta 1, logZ finite; the unpadded
                   full-n estimate at fixed (theta, u) against the padded
-                  target's at u padded with zeros.
+                  target's at u padded with zeros;
+36. ``bench_scripts`` the counterparts of the reference's measuring scripts
+                  at full width and cut depth: ``utils/tau_sweep`` (its three
+                  variants, 1 warm-up window and 100 steps), ``utils/
+                  theta_bench`` and ``utils/ess_sweep_bench`` (10 steps a
+                  run), their lines printed: no variant ``FAILED``, tau and
+                  ESS finite, theta_bench's (a)/(b) parity bitwise,
+                  ess_sweep_bench's shrink counts equal and its values within
+                  ``ESS_SWEEP_VS_LOOP``, kernels 1-5 and T launched and no
+                  plain version called on the card.
 
 Then one line ``{"kernels": [...]}``, the ``nvidia-smi`` line, and the last
 line ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU.
@@ -397,7 +409,7 @@ GRAD_RTOL = 5e-2               # kernel vs plain forwards, of max(|g|, 1)
 FD_STEP, FD_RTOL = 1e-2, 5e-2  # the reference's finite-difference check
 FD_N, FD_S = 32, 8             # ... at the reference's size (n=32 -> 128)
 FD_STEP_F64, FD_F64_RTOL = 1e-4, 1e-3  # float64 differences at full width
-HMC_WINDOW = 10
+HMC_WINDOW = 5                 # 10 before phase 36 (time)
 HMC_CLI_ARGS = [               # aux_hmc / aux_nuts on config 2's target
     "--preset", "pima_aux_slice", "--chains", str(B), "--warmup-windows", "2",
     "--window-steps", str(HMC_WINDOW), "--steps", str(HMC_WINDOW),
@@ -513,6 +525,14 @@ UNPADDED_RUNS = {              # utils/smc_scale argv, --no-pad
                "--rejuv-batch", str(UNPADDED_FULL_N_PARTICLES)],
 }
 SMC_SCALE_TOY_LOGZ_TOL = 0.02  # |logZ - closed form| at 2^20 particles
+BENCH_TAU = {"chains": 128, "steps": 100, "warm_windows": 1}  # tau_sweep cut
+BENCH_AB_STEPS = 10            # theta_bench's and ess_sweep_bench's AB_STEPS
+# ess_sweep_bench's sweep against its per-probe path: the bars of every
+# sweep-against-plain check above (u' U_TOL, log L-hat LL_TOL + LL_RTOL
+# |ll|); the two paths differ by about an ulp (ROADMAP known difference 5)
+ESS_SWEEP_VS_LOOP = {"u": U_TOL, "ll": LL_TOL, "ll_rtol": LL_RTOL}
+BENCH_KERNELS = ("fused_estimator", "chol_panel", "ess_sweep", "sigma_sweep",
+                 "fused_estimator_rot", "threefry")   # kernels 1-5 and T
 SMC_1M_TOY_RECORD = {          # the reference's SMC_1M_toy.json
     "log_z": -3.5603, "log_z_true": -3.5588, "log_z_abs_err": 0.0015,
     "betas": [0.0, 0.2144, 1.0], "u_mh_accept": [0.8402, 0.67]}
@@ -567,7 +587,7 @@ def main():
     from auxpm_tpu_torch.ops.gram import se_gram_iso
     from auxpm_tpu_torch.samplers.chain import run_chains
     from auxpm_tpu_torch.samplers.composite import SAMPLERS
-    from auxpm_tpu_torch.utils.profiling import profile_steps
+    from auxpm_tpu_torch.utils.profiling import launch_counters, profile_steps
 
     dev = torch.device("cuda")
     t_start = time.time()
@@ -1708,17 +1728,7 @@ def main():
 
     # ------------------------------------------------------------ main path
     log("main path:", " ".join(CLI_ARGS))
-    counters = {"fused_estimator": (fe, "launches"),
-                "chol_panel": (chol_hopper, "launches"),
-                "ess_sweep": (ess, "launches"),
-                "sigma_sweep": (sig, "launches"),
-                "fused_estimator_rot": (fe, "launches_rot"),
-                "se_gram_ard": (gr, "launches"),
-                "fused_weights": (fe, "launches_w"),
-                "fused_rot_weights": (fe, "launches_rot_w"),
-                "chol_panel_v1": (chol_hopper, "launches_v1"),
-                "chol_panel_v2": (chol_hopper, "launches_v2"),
-                "threefry": (tfk, "launches")}
+    counters = launch_counters()   # kernel -> (wrapper module, counter)
     only_sharded = ("fused_weights", "fused_rot_weights")
     only_bench = ("chol_panel_v1", "chol_panel_v2")
 
@@ -3661,6 +3671,9 @@ def main():
         chol=chol, chol_r=chol_r, theta=theta, log_prior=target.log_prior,
         ambiguous_chains=ambiguous_chains, check_counts=check_counts))
 
+    # ------------------------- the reference's measuring scripts (phase 36)
+    bench_scripts_phase(ctx)
+
     # ---------------------------------------------------------------- result
     emit({"kernels": [
         {key: k[key] for key in (
@@ -5236,6 +5249,73 @@ def main_path_unpadded_phase(c):
     emit({"phase": "main_path_unpadded", "card": c.smi,
           "args": UNPADDED_RUNS, **line, "fixed_theta_u": fixed})
     del t_raw, t_pad, c_raw, c_pad
+    torch.cuda.empty_cache()
+    c.end_phase()
+
+
+def bench_scripts_phase(c):
+    """bench_scripts: the counterparts of the reference's three measuring
+    scripts, called on the card at full width (Pima n=532 padded to 640,
+    S=64, 128 chains) and cut depth: ``utils/tau_sweep.sweep`` over its
+    three variants (``BENCH_TAU``), ``utils/theta_bench.bench`` and
+    ``utils/ess_sweep_bench.bench`` at ``AB_STEPS = BENCH_AB_STEPS``.  Their
+    lines are printed as the modules print them.  Checks: no variant
+    ``FAILED``, finite tau and ESS; theta_bench's (a)/(b) parity bitwise;
+    ess_sweep_bench's shrink counts equal and its values within
+    ``ESS_SWEEP_VS_LOOP``; kernels 1-5 and T launched across the phase, and
+    no plain estimator, sweep or factorisation called on the card."""
+    torch, np = c.torch, c.np
+    from auxpm_tpu_torch.utils import ess_sweep_bench, tau_sweep, theta_bench
+
+    log("bench scripts: tau_sweep, theta_bench, ess_sweep_bench")
+    torch.cuda.empty_cache()
+    for m, attr in c.counters.values():
+        setattr(m, attr, 0)
+    t0 = time.time()
+    with plain_calls_on_the_card(c) as plain:
+        taus, failed = tau_sweep.sweep(tau_sweep.VARIANTS.split(","), c.x,
+                                       c.y_np, device="cuda", **BENCH_TAU)
+        tau_s = time.time() - t0
+        th = theta_bench.bench(c.x, c.y_np, steps=BENCH_AB_STEPS,
+                               device="cuda")
+        print(theta_bench.result_line(th), flush=True)
+        es = ess_sweep_bench.bench(c.x, c.y_np, steps=BENCH_AB_STEPS,
+                                   device="cuda")
+        print(ess_sweep_bench.result_line(es), flush=True)
+    torch.cuda.synchronize()
+    counts = c.read_counts()
+    if failed:
+        c.failures.append(f"bench_scripts: tau_sweep FAILED {failed}")
+    for r in taus:
+        if not (np.isfinite(r["tau"]).all() and np.isfinite(r["ess"]).all()):
+            c.failures.append(f"bench_scripts: {r['name']} tau {r['tau']} "
+                              f"ESS {r['ess']}")
+    if not (th["parity_dth"] == 0.0 and th["parity_dll"] == 0.0):
+        c.failures.append(f"bench_scripts: theta_bench (a)/(b) parity "
+                          f"dth {th['parity_dth']:.3e} dll "
+                          f"{th['parity_dll']:.3e}, not bitwise")
+    bar = ESS_SWEEP_VS_LOOP
+    if es["max_dns"] != 0.0:
+        c.failures.append(f"bench_scripts: ess_sweep_bench shrink counts "
+                          f"differ by {es['max_dns']}")
+    if not (es["max_du"] <= bar["u"] and es["max_dll"] <= bar["ll"]
+            + bar["ll_rtol"] * es["max_abs_ll"]):
+        c.failures.append(f"bench_scripts: ess_sweep_bench max_du "
+                          f"{es['max_du']:.3e} max_dll {es['max_dll']:.3e} "
+                          f"past {bar}")
+    for name in BENCH_KERNELS:
+        if counts[name] <= 0:
+            c.failures.append(f"bench_scripts: never launched {name}")
+    if plain:
+        c.failures.append(f"bench_scripts: plain calls on the card {plain}")
+    emit({"phase": "bench_scripts", "card": c.smi,
+          "tau_sweep": {"cut": BENCH_TAU, "seconds": tau_s,
+                        "failed": failed, "variants": taus},
+          "theta_bench": {"steps": BENCH_AB_STEPS, **th},
+          "ess_sweep_bench": {"steps": BENCH_AB_STEPS, **es,
+                              "bar": ESS_SWEEP_VS_LOOP},
+          "launches": counts, "plain_calls_on_the_card": plain,
+          "seconds": time.time() - t0})
     torch.cuda.empty_cache()
     c.end_phase()
 

@@ -33,8 +33,8 @@ from auxpm_tpu_torch.ops import cholesky as tcholesky
 from auxpm_tpu_torch.ops import ess_sweep as tess
 from auxpm_tpu_torch.ops import fused_estimator as tfe
 from auxpm_tpu_torch.ops import gram as tgram
-from auxpm_tpu_torch.ops import logsumexp as tlse
 from auxpm_tpu_torch.ops import sigma_sweep as tsig
+from auxpm_tpu_torch.ops.logsumexp import block_partials, blocked_logsumexp
 
 S, N, B = 16, 256, 3
 
@@ -89,7 +89,7 @@ def test_blocked_logsumexp_matches_jax(n_blocks):
     lw[1, 8:24] = -np.inf          # two all--inf blocks in the middle
     lw[2, :] = -np.inf             # everything -inf
     lw[3, :8] = -np.inf            # first block -inf
-    got = tlse.blocked_logsumexp(_t(lw), n_blocks).numpy()
+    got = blocked_logsumexp(_t(lw), n_blocks).numpy()
     want = np.stack([
         np.asarray(j_blocked_lse(jnp.asarray(row), n_blocks))
         for row in lw
@@ -102,7 +102,7 @@ def test_blocked_logsumexp_matches_jax(n_blocks):
 
 def test_block_partials_reject_ragged_blocks():
     with pytest.raises(ValueError):
-        tlse.block_partials(torch.zeros(10), 4)
+        block_partials(torch.zeros(10), 4)
 
 
 # ----------------------------------------------------------------------- gram
