@@ -1,0 +1,13 @@
+"""Settings of the benchmark's own tests (``pytest portbench/tests``)."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "chip: needs an NVIDIA card (skips without one)")
